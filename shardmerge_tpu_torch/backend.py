@@ -1,0 +1,33 @@
+"""Device selection for the CLI entry points (counterpart of
+shardmerge_tpu/backend.py).
+
+A merge or a decode that silently fell back to the host CPU would "work" for
+days, so the rule is the JAX package's: the CPU is used only when asked for
+(``--device cpu``); with no GPU and no such request the entry point fails.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+
+class BackendError(RuntimeError):
+    """No usable device for the requested placement."""
+
+
+def resolve_device(requested: Optional[str] = None) -> torch.device:
+    """``cpu``/``host`` -> the CPU; anything else (None, ``cuda``,
+    ``cuda:N``, a config's legacy ``tpu``) -> a CUDA device, which must
+    exist."""
+    req = (requested or "").strip().lower()
+    if req in ("cpu", "host"):
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise BackendError(
+            "no CUDA device is visible; pass --device cpu to run on the host"
+        )
+    if req.startswith("cuda:"):
+        return torch.device(req)
+    return torch.device("cuda:0")

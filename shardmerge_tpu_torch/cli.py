@@ -1,0 +1,168 @@
+"""Command-line interface (counterpart of shardmerge_tpu/cli.py), on argparse.
+
+    python -m shardmerge_tpu_torch merge CONFIG [--device cpu]
+    python -m shardmerge_tpu_torch generate MODEL_DIR PROMPT [-4] [--greedy]
+
+``merge`` prints the run's counters as one JSON line on standard output when
+it finishes. The device is a CUDA card unless ``--device cpu`` is given (or
+the config's ``device`` is ``cpu``); with no card and no such request the
+command fails instead of running on the host.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import sys
+from typing import Optional, Sequence
+
+from .backend import BackendError, resolve_device
+from .config import ConfigError, MergeConfig
+
+logger = logging.getLogger(__name__)
+
+
+def setup_logging(verbose: bool):
+    logging.basicConfig(
+        level=logging.DEBUG if verbose else logging.INFO,
+        format="%(asctime)s - %(name)s - %(levelname)s - %(message)s",
+    )
+
+
+def _check_ported(config: MergeConfig) -> None:
+    """Raise for configuration features this port does not carry yet."""
+    if config.merge_method != "fourier":
+        raise NotImplementedError(
+            f"merge_method {config.merge_method!r} is not ported yet (fourier only)"
+        )
+    if config.method_options:
+        raise ConfigError(
+            f"method_options {sorted(config.method_options)} are not accepted "
+            "by merge_method 'fourier'"
+        )
+    unported = [
+        name
+        for name, on in (
+            ("write_through", config.write_through),
+            ("shard_tensors", config.shard_tensors),
+            ("hbm_budget_gb", config.hbm_budget_gb is not None),
+            ("distributed", config.distributed),
+        )
+        if on
+    ]
+    if unported:
+        raise NotImplementedError(f"config fields not ported yet: {unported}")
+
+
+def run_merge(config: MergeConfig, device: Optional[str] = None):
+    """Build the index and the engine and run the merge; returns the engine."""
+    from .io.index import OfflineMultiModelIndex, require_local
+    from .merge import FourierMerge
+
+    _check_ported(config)
+    refs = [config.output_base_model]
+    for m in config.finetune_merge:
+        refs += [m.model, m.base]
+    require_local(refs)
+    dev = resolve_device(device or config.device)
+    logger.info("merge device: %s", dev)
+    index = OfflineMultiModelIndex()
+    merger = FourierMerge(
+        config, index_manager=index, device=dev, exact_imag=config.exact_imag
+    )
+    try:
+        merger.merge()
+    finally:
+        index.close()
+    return merger
+
+
+def _merge(args) -> int:
+    config = MergeConfig.from_file(args.config_file)
+    merger = run_merge(config, args.device)
+    s = merger.stats
+    print(
+        json.dumps(
+            {
+                "device": str(merger.device),
+                "tensors_merged": s.tensors_merged,
+                "tensors_passthrough": s.tensors_passthrough,
+                "pair_merges": {k: v for k, v in s.pair_merges.items() if v},
+                "nans_scrubbed": s.nans_scrubbed,
+                "bytes_written": s.bytes_written,
+                "span_fetch_s": s.span_fetch_s,
+                "span_h2d_s": s.span_h2d_s,
+                "span_merge_s": s.span_merge_s,
+                "span_flush_s": s.span_flush_s,
+                "tensor_seconds": merger.tensor_seconds,
+            }
+        )
+    )
+    return 0
+
+
+def _generate(args) -> int:
+    from .inference import InferenceEngine
+
+    dev = resolve_device(args.device)
+    engine = InferenceEngine.from_pretrained(
+        args.model_path,
+        load_in_4bit=args.load_in_4bit,
+        load_in_8bit=args.load_in_8bit,
+        device=dev,
+    )
+    for chunk in engine.stream_generation(
+        prompt=args.prompt,
+        max_new_tokens=args.max_tokens,
+        temperature=args.temperature,
+        top_p=args.top_p,
+        top_k=args.top_k,
+        repetition_penalty=args.repetition_penalty,
+        greedy=args.greedy,
+        seed=args.seed,
+    ):
+        print(chunk, end="", flush=True)
+    print()
+    return 0
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog="shardmerge_tpu_torch",
+        description="Model merging and generation on PyTorch / CUDA",
+    )
+    sub = parser.add_subparsers(dest="command", required=True)
+
+    m = sub.add_parser("merge", help="merge finetunes into the base model")
+    m.add_argument("config_file", help="YAML or JSON merge configuration")
+    m.add_argument("--device", default=None, help="'cpu' merges on the host")
+    m.add_argument("--verbose", action="store_true")
+    m.set_defaults(func=_merge)
+
+    g = sub.add_parser("generate", help="generate text from a model directory")
+    g.add_argument("model_path")
+    g.add_argument("prompt")
+    g.add_argument("--max-tokens", type=int, default=512)
+    g.add_argument("--temperature", type=float, default=0.7)
+    g.add_argument("--top-p", type=float, default=0.95)
+    g.add_argument("--top-k", type=int, default=40)
+    g.add_argument("--repetition-penalty", type=float, default=1.1)
+    g.add_argument("--greedy", action="store_true", help="argmax decoding")
+    g.add_argument("-4", "--load-in-4bit", action="store_true")
+    g.add_argument("-8", "--load-in-8bit", action="store_true")
+    g.add_argument("--seed", type=int, default=0)
+    g.add_argument("--device", default=None, help="'cpu' runs on the host")
+    g.add_argument("--verbose", action="store_true")
+    g.set_defaults(func=_generate)
+    return parser
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    args = build_parser().parse_args(argv)
+    setup_logging(args.verbose)
+    try:
+        return args.func(args)
+    except (ConfigError, BackendError, NotImplementedError, FileNotFoundError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2

@@ -1,0 +1,156 @@
+"""Output writer mirroring the base model's shard layout (counterpart of
+shardmerge_tpu/io/writer.py).
+
+The output directory gets a copy of the base's ``model.safetensors.index.json``
+(same shard file names, ``weight_map`` and ``metadata.total_size``), and each
+shard file is written ONCE, when its last tensor arrives. Existing shards are
+validated and their tensors marked written, which is what makes a merge
+resumable.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+from dataclasses import dataclass, field
+from pathlib import Path
+from typing import Dict, Generator, List, Set
+
+import torch
+
+from ..constants import INPUT_LAYER, OUTPUT_LAYER
+from .safetensors_io import SafeTensorsReader, save_file
+
+logger = logging.getLogger(__name__)
+
+__all__ = ["ShardLayer", "ModelWriter"]
+
+
+@dataclass
+class ShardLayer:
+    layer_order_idx: int
+    shard_name: str
+    layer_name: str
+    written: bool
+
+    @property
+    def layer_number(self) -> int:
+        """embed_tokens -> INPUT_LAYER, model.norm/lm_head -> OUTPUT_LAYER,
+        model.layers.N -> N, anything else raises."""
+        if self.layer_name.startswith("model.embed_tokens.weight"):
+            return INPUT_LAYER
+        if self.layer_name.startswith(("model.norm.weight", "lm_head.weight")):
+            return OUTPUT_LAYER
+        if self.layer_name.startswith("model.layers."):
+            part = self.layer_name.split(".")[2]
+            if str(int(part)) == part:
+                return int(part)
+        raise ValueError(f"Unknown layer name: {self.layer_name}")
+
+
+@dataclass
+class ModelWriter:
+    base_index: dict
+    output_path: Path
+    layer_order: List[str]
+    output_astype: torch.dtype = torch.bfloat16
+    written_shard_layers: Set[tuple] = field(default_factory=set)
+    shard_to_tensors: Dict[str, Set[str]] = field(default_factory=dict)
+
+    def __post_init__(self):
+        self.output_path = Path(self.output_path)
+        self.output_path.mkdir(parents=True, exist_ok=True)
+        self.index_path = self.output_path / "model.safetensors.index.json"
+        if self.index_path.exists():
+            logger.info("Index already exists: %s", self.index_path)
+            self.base_index = json.loads(self.index_path.read_text())
+        else:
+            self.index_path.write_text(json.dumps(self.base_index, indent=2))
+        self.shard_to_tensors = {}
+        for tensor_name, shard_name in self.base_index["weight_map"].items():
+            self.shard_to_tensors.setdefault(shard_name, set()).add(tensor_name)
+        self._pending: Dict[str, Dict[str, torch.Tensor]] = {}
+        self._check_existing_shards()
+
+    def _check_existing_shards(self):
+        for shard_name, tensor_names in self.shard_to_tensors.items():
+            shard_path = self.output_path / shard_name
+            if not shard_path.exists():
+                continue
+            with SafeTensorsReader(shard_path) as reader:
+                for layer in reader.keys():
+                    if layer not in tensor_names:
+                        raise ValueError(
+                            f"Tensor {layer} found in {shard_path} but not in "
+                            "base model"
+                        )
+                    self.written_shard_layers.add((shard_name, layer))
+
+    def add_tensor(self, layer_name: str, tensor: torch.Tensor):
+        """Stage a merged CPU tensor; the shard is written once complete."""
+        shard_name = self.base_index["weight_map"][layer_name]
+        if (shard_name, layer_name) in self.written_shard_layers:
+            logger.info("Skipping %s: already in written shard %s", layer_name, shard_name)
+            return
+        t = tensor.detach().to("cpu")
+        if t.dtype != self.output_astype:
+            t = t.to(self.output_astype)
+        self._pending.setdefault(shard_name, {})[layer_name] = t
+        self.written_shard_layers.add((shard_name, layer_name))
+        done = all(
+            (shard_name, name) in self.written_shard_layers
+            for name in self.shard_to_tensors[shard_name]
+        )
+        if done:
+            self._flush_shard(shard_name)
+
+    def _flush_shard(self, shard_name: str):
+        staged = self._pending.pop(shard_name, {})
+        shard_path = self.output_path / shard_name
+        tensors: Dict[str, torch.Tensor] = {}
+        if shard_path.exists():  # resume: keep what is on disk
+            with SafeTensorsReader(shard_path) as reader:
+                for name in reader.keys():
+                    tensors[name] = reader.get_tensor(name, copy=True)
+        tensors.update(staged)
+        ordered = {n: tensors[n] for n in self.layer_order if n in tensors}
+        try:
+            save_file(ordered, shard_path, metadata={"format": "pt"})
+            logger.info("Wrote shard %s (%d tensors)", shard_name, len(ordered))
+        except Exception as e:
+            # drop the corrupt file and unmark the tensors; finalize() then
+            # reports the run incomplete
+            logger.error("Error saving shard %s: %s", shard_name, e)
+            if shard_path.exists():
+                shard_path.unlink()
+            for name in staged:
+                self.written_shard_layers.discard((shard_name, name))
+
+    def finalize(self):
+        """Raise unless every tensor of the index was written."""
+        missing = [
+            (shard, name)
+            for shard, names in self.shard_to_tensors.items()
+            for name in names
+            if (shard, name) not in self.written_shard_layers
+        ]
+        if missing:
+            logger.error("Failed to write all layers. Missing: %s", missing)
+            raise RuntimeError(
+                f"Incomplete model output: missing {len(missing)} layers"
+            )
+
+    def shard_layers(self) -> Generator[List[ShardLayer], None, None]:
+        """Per-shard lists of ShardLayer in ``layer_order``, shards sorted
+        by name."""
+        position = {name: i for i, name in enumerate(self.layer_order)}
+        for shard_name, tensors in sorted(self.shard_to_tensors.items()):
+            yield [
+                ShardLayer(
+                    position[name],
+                    shard_name,
+                    name,
+                    (shard_name, name) in self.written_shard_layers,
+                )
+                for name in sorted(tensors, key=position.__getitem__)
+            ]

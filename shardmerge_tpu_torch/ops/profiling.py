@@ -1,0 +1,125 @@
+"""Merge counters and a phase profiler (counterpart of
+shardmerge_tpu/ops/profiling.py).
+
+:class:`phase_profiler` logs wall clock, host RSS and, on a CUDA device, the
+allocator's live bytes from ``torch.cuda.memory_stats``. It is off unless
+``display=True`` or ``SHARDMERGE_PROFILE=1``. :class:`MergeStats` holds the
+per-run counters the merge engine logs at the end.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import logging
+import os
+import time
+from dataclasses import dataclass, field
+from typing import Dict, Optional
+
+import torch
+
+logger = logging.getLogger(__name__)
+
+__all__ = ["phase_profiler", "MergeStats", "device_memory_stats"]
+
+
+def _rss_bytes() -> int:
+    try:
+        import psutil
+    except ImportError:
+        return 0
+    return psutil.Process().memory_info().rss
+
+
+def device_memory_stats(device=None) -> Dict[str, int]:
+    """Live and peak allocator bytes on a CUDA device ({} for the CPU)."""
+    device = torch.device(device) if device is not None else None
+    if device is None or device.type != "cuda":
+        return {}
+    stats = torch.cuda.memory_stats(device)
+    return {
+        "bytes_in_use": stats.get("allocated_bytes.all.current", 0),
+        "peak_bytes_in_use": stats.get("allocated_bytes.all.peak", 0),
+    }
+
+
+@contextlib.contextmanager
+def phase_profiler(title: str = "phase", display: Optional[bool] = None, device=None):
+    enabled = (
+        display
+        if display is not None
+        else os.environ.get("SHARDMERGE_PROFILE", "") == "1"
+    )
+    if not enabled:
+        yield
+        return
+    rss_before = _rss_bytes()
+    dev_before = device_memory_stats(device)
+    start = time.perf_counter()
+    try:
+        yield
+    finally:
+        if device is not None and torch.device(device).type == "cuda":
+            torch.cuda.synchronize(device)
+        elapsed = time.perf_counter() - start
+        parts = [
+            f"{title}: {elapsed * 1000:.1f} ms",
+            f"rss {(_rss_bytes() - rss_before) / 2**20:+.1f} MB",
+        ]
+        dev_after = device_memory_stats(device)
+        if dev_after:
+            delta = dev_after["bytes_in_use"] - dev_before.get("bytes_in_use", 0)
+            parts.append(
+                f"device {dev_after['bytes_in_use'] / 2**20:.1f} MB "
+                f"(delta {delta / 2**20:+.1f} MB, peak "
+                f"{dev_after['peak_bytes_in_use'] / 2**20:.1f} MB)"
+            )
+        logger.info("[profile] %s", " | ".join(parts))
+
+
+@dataclass
+class MergeStats:
+    """Aggregate counters for one merge run."""
+
+    tensors_merged: int = 0
+    tensors_passthrough: int = 0
+    pair_merges: Dict[str, int] = field(
+        default_factory=lambda: {"add": 0, "arith": 0, "slerp": 0, "lowratio": 0}
+    )
+    bytes_written: int = 0
+    nans_scrubbed: int = 0
+    # summed wall seconds: host tensor reads, host->device copies, merge
+    # compute (through the regime sync), device->host + staging for write
+    span_fetch_s: float = 0.0
+    span_h2d_s: float = 0.0
+    span_merge_s: float = 0.0
+    span_flush_s: float = 0.0
+    h2d_bytes: int = 0
+    h2d_dedup_hits: int = 0
+    started_at: float = field(default_factory=time.time)
+
+    def record_pair(self, regime: str):
+        self.pair_merges[regime] = self.pair_merges.get(regime, 0) + 1
+
+    def summary(self) -> str:
+        elapsed = time.time() - self.started_at
+        pairs = ", ".join(f"{k}={v}" for k, v in self.pair_merges.items() if v)
+        text = (
+            f"merged {self.tensors_merged} tensors "
+            f"(+{self.tensors_passthrough} passthrough) in {elapsed:.1f}s; "
+            f"pair regimes: {pairs or 'none'}; "
+            f"wrote {self.bytes_written / 2**30:.2f} GiB"
+        )
+        if self.nans_scrubbed:
+            text += f"; scrubbed {self.nans_scrubbed} NaNs"
+        if self.span_merge_s:
+            text += (
+                f"; spans fetch={self.span_fetch_s:.1f}s h2d={self.span_h2d_s:.1f}s "
+                f"merge={self.span_merge_s:.1f}s flush={self.span_flush_s:.1f}s"
+            )
+        if self.h2d_bytes:
+            text += (
+                f"; h2d {self.h2d_bytes / 2**30:.2f} GiB "
+                f"({self.h2d_dedup_hits} deduped puts)"
+            )
+        return text

@@ -6,19 +6,37 @@
 Phases (each prints one line or a few; any failure exits non-zero):
 
 1. card: ``nvidia-smi`` name and power limit, torch's device name;
-2. kernel: build the int4 GEMV from csrc/ (nvcc, sm_90a) and hold it to
-   ``int4_matmul_plain`` at the Llama-3.1-8B decode shapes, B = 1, 4, 64,
-   f32 and bf16 x (relL2 <= 1e-5 f32, <= 4e-3 bf16), timing both;
-3. checkpoints: base + 2 finetunes at Llama-3.1-8B widths cut to 2 layers,
+2. build: both kernels from csrc/ (nvcc, sm_90a), one nvcc each, together;
+3. kernel int4_gemv: hold it to ``int4_matmul_plain`` at the Llama-3.1-8B
+   decode shapes, B = 1, 4, 8, 64, f32 and bf16 x (relL2 <= 1e-5 f32,
+   <= 4e-3 bf16), timing both;
+4. kernel flash_decode: hold it to ``flash_decode_plain`` at the 8B decode
+   geometry (KVH 8, G 4, D 128), B = 1, 4, 16 x S = 2048, 8192, 32768 plus
+   the generate (B 4, S 256) and serve (B 8, S 4096) shapes, each with a
+   masked tail, random holes, and only the last 7 slots valid (relL2 <=
+   1e-5, finite); time it, the plain version and SDPA;
+5. checkpoints: base + 2 finetunes at Llama-3.1-8B widths cut to 2 layers,
    bf16, 2 shards each, random weights from seeded generators;
-4. merge: ``python -m shardmerge_tpu_torch merge cfg.json`` (alphas 0.8 and
+6. merge: ``python -m shardmerge_tpu_torch merge cfg.json`` (alphas 0.8 and
    0.4); the output must mirror the base index, be finite, take the slerp
    regime, and agree with the port's host path on one q_proj;
-5. generate: load the merge with int4 weights, ``generate_batch`` on 4
-   prompts and one ``stream_generation``; the kernel's launch count must
-   show the decode went through it, and one decode step's logits must
-   agree with the same step on the plain int4 product;
-6. the kernel summary line, the card line, and the result line.
+7. generate: load the merge with int4 weights, ``generate_batch`` on 4
+   prompts and one ``stream_generation``; both kernels' launch counts must
+   show the decode went through them, and one decode step's logits must
+   agree with the same step on the plain int4 product; an A/B of the decode
+   step against the einsum attention path;
+8. serve: the HTTP server on that engine with a continuous pool of 8 slots
+   and a 4096-slot cache; staggered greedy requests (prompts of 30-3000
+   tokens, one with a stop string), one SSE stream and one 4-prompt
+   lockstep request; every pool completion must equal the solo stream, both
+   kernels must have launched (flash at least once per layer per pool
+   step). Then a pool over a 2048-slot cache, driven step by step until a
+   join compacts it: one step on its compacted, gapped rows must agree
+   with the same step on the plain attention (its attention outputs at
+   relL2 1e-5, its logits at 2e-2), and its four completions must equal
+   the solo stream; an A/B of that pool step against the einsum path, and
+   the device's busy share over profiled pool steps;
+9. the kernel summary line, the card line, and the result line.
 
 It imports nothing of JAX. With no CUDA device it exits 1 and prints no
 result.
@@ -27,11 +45,15 @@ result.
 from __future__ import annotations
 
 import json
+import random
 import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from unittest import mock
 
@@ -71,6 +93,18 @@ LLAMA_31_8B = {
 GEMV_SHAPES = [(4096, 4096), (1024, 4096), (14336, 4096), (4096, 14336)]
 LAYER_GEMVS = [(4096, 4096), (1024, 4096), (1024, 4096), (4096, 4096),
                (14336, 4096), (14336, 4096), (4096, 14336)]
+GEMV_ROWS = (1, 4, 8, 64)
+# decode attention at 8B geometry: KV heads, query heads per KV head, head dim
+KVH, GROUP, HEAD_DIM = 8, 4, 128
+FLASH_SHAPES = [(b, s) for b in (1, 4, 16) for s in (2048, 8192, 32768)]
+GENERATE_ATTN = (4, 256)  # generate_batch: 4 prompts, one 256-slot bucket
+SERVE_SLOTS, SERVE_CACHE = 8, 4096
+SERVE_ATTN = (SERVE_SLOTS, SERVE_CACHE)
+# NVIDIA H100 SXM5 80 GB data sheet: HBM3 bandwidth; dense bf16 (tensor
+# cores) and f32 (CUDA cores) rates
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
+F32_FLOPS = 67e12
 
 
 def say(*parts):
@@ -109,10 +143,38 @@ def time_ms(torch, fn, flush, reps: int = 25) -> float:
     return times[len(times) // 2]
 
 
+def bound(nbytes: float, flops: float, peak: float):
+    """(ms, "bytes" | "operations"): the least time the card could take to
+    move ``nbytes`` and do ``flops`` at the ``peak`` rate of their type."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase_build(modules):
+    """One nvcc per kernel source, all started together."""
+
+    def timed(m):
+        t0 = time.perf_counter()
+        m.build(verbose=True)
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(modules)) as ex:
+        seconds = list(ex.map(timed, modules))
+    for m, sec in zip(modules, seconds):
+        say(f"[build] {m._SOURCE.relative_to(REPO)} for sm_90a in {sec:.1f} s (built in parallel)")
+
+
+def gemv_bound(rows: int, shapes=LAYER_GEMVS, x_bytes: int = 2):
+    """Bound of the GEMVs ``shapes`` (default: one decode layer's 7) at
+    ``rows`` rows of x: packed weights + scales + x + y bytes; 2 flops per
+    weight per row at the rate of x's type (int4 weights are exact in bf16:
+    the bf16 tensor-core rate for bf16 x, the f32 rate for f32 x)."""
+    nbytes = sum(n * k // 2 + 4 * n + x_bytes * rows * (k + n) for n, k in shapes)
+    peak = BF16_FLOPS if x_bytes == 2 else F32_FLOPS
+    return bound(nbytes, sum(2 * rows * n * k for n, k in shapes), peak)
+
+
 def phase_kernel(torch, qk):
-    t0 = time.perf_counter()
-    qk.build(verbose=True)
-    say(f"[kernel] built {qk._SOURCE.relative_to(REPO)} for sm_90a in {time.perf_counter() - t0:.1f} s")
     dev = torch.device("cuda:0")
     gen = torch.Generator(device=dev).manual_seed(1)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
@@ -126,7 +188,7 @@ def phase_kernel(torch, qk):
     for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 4e-3)):
         for n, k in GEMV_SHAPES:
             q, s = weights[(n, k)]
-            for b in (1, 4, 64):
+            for b in GEMV_ROWS:
                 x = torch.randn((b, k), device=dev, generator=gen).to(dtype)
                 got = qk.int4_matmul(x, q, s)
                 want = qk.int4_matmul_plain(x, q, s)
@@ -136,6 +198,7 @@ def phase_kernel(torch, qk):
                 ms = time_ms(torch, lambda: qk.int4_matmul(x, q, s), flush)
                 plain = time_ms(torch, lambda: qk.int4_matmul_plain(x, q, s), flush)
                 gbs = q.numel() / (ms * 1e-3) / 1e9
+                bound_ms, bound_by = gemv_bound(b, [(n, k)], x.element_size())
                 passed = rel <= tol and got.dtype == dtype and got.shape == (b, n)
                 ok &= passed
                 results[(str(dtype), n, k, b)] = (err, ms, plain)
@@ -143,22 +206,107 @@ def phase_kernel(torch, qk):
                     f"[kernel] {str(dtype)[6:]:8s} N={n:5d} K={k:5d} B={b:2d} "
                     f"relL2={rel:.2e} (tol {tol:.0e}) max_abs={err:.3e} "
                     f"kernel={ms:.4f} ms ({gbs:.0f} GB/s of q) plain={plain:.4f} ms "
-                    f"{'ok' if passed else 'FAIL'}"
+                    f"bound={bound_ms:.4f} ms ({bound_by}) {'ok' if passed else 'FAIL'}"
                 )
     if not ok:
         raise SystemExit("kernel disagrees with its plain version")
-    # one decode layer's seven GEMVs at the generate batch (B=4, bf16)
-    layer = [results[("torch.bfloat16", n, k, 4)] for n, k in LAYER_GEMVS]
-    summary = {
-        "max_abs_err": max(r[0] for r in layer),
-        "ms": sum(r[1] for r in layer),
-        "plain_ms": sum(r[2] for r in layer),
-    }
-    say(
-        f"[kernel] one layer's 7 decode GEMVs, B=4 bf16: kernel "
-        f"{summary['ms']:.4f} ms, plain {summary['plain_ms']:.4f} ms"
-    )
+    # one decode layer's seven GEMVs at the generate batch (B=4) and at the
+    # serve pool's slot count (B=8, the summary), bf16
+    for b in (4, SERVE_SLOTS):
+        layer = [results[("torch.bfloat16", n, k, b)] for n, k in LAYER_GEMVS]
+        bound_ms, bound_by = gemv_bound(b)
+        summary = {
+            "max_abs_err": max(r[0] for r in layer),
+            "ms": sum(r[1] for r in layer),
+            "plain_ms": sum(r[2] for r in layer),
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": None,  # no one PyTorch call computes the split-half int4 product
+        }
+        say(
+            f"[kernel] one layer's 7 decode GEMVs, B={b} bf16: kernel "
+            f"{summary['ms']:.4f} ms, plain {summary['plain_ms']:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by})"
+        )
     del flush, weights
+    return summary
+
+
+def attn_masks(torch, b, s, gen, dev):
+    """The phase's three masks over (b, s): a masked tail, random interior
+    holes with a masked tail, and only the last 7 slots valid."""
+    slot = torch.arange(s, device=dev)[None, :]
+    tail = (slot < (3 * s) // 4).expand(b, s)
+    holes = (torch.rand((b, s), device=dev, generator=gen) > 0.25) & (slot < (7 * s) // 8)
+    holes[:, 0] = True
+    last7 = (slot >= s - 7).expand(b, s)
+    neg = torch.full((), -1e9, device=dev)
+    zero = torch.zeros((), device=dev)
+    return {name: torch.where(ok, zero, neg).contiguous()
+            for name, ok in (("tail", tail), ("holes", holes), ("last7", last7))}
+
+
+def phase_flash(torch, ak):
+    dev = torch.device("cuda:0")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    ok = True
+    worst = 0.0
+    rows = {}
+    for b, s in FLASH_SHAPES + [GENERATE_ATTN, SERVE_ATTN]:
+        q = torch.randn((b, KVH, GROUP, HEAD_DIM), device=dev, generator=gen) / HEAD_DIM**0.5
+        k = torch.randn((b, KVH, s, HEAD_DIM), device=dev, generator=gen).to(torch.bfloat16)
+        v = torch.randn((b, KVH, s, HEAD_DIM), device=dev, generator=gen).to(torch.bfloat16)
+        masks = attn_masks(torch, b, s, gen, dev)
+        errs = []
+        for name, mask in masks.items():
+            got = ak.flash_decode(q, k, v, mask)
+            want = ak.flash_decode_plain(q, k, v, mask)
+            torch.cuda.synchronize()
+            rel = rel_l2(got, want)
+            finite = bool(torch.isfinite(got).all())
+            passed = rel <= 1e-5 and finite and got.shape == q.shape
+            ok &= passed
+            err = float((got - want).abs().max())
+            worst = max(worst, err)
+            errs.append(f"{name} {rel:.2e}{'' if passed else ' FAIL'}")
+        mask = masks["holes"]
+        # the library call: SDPA over (B, H, 1, D) bf16 queries, GQA, same mask
+        q_lib = q.reshape(b, KVH * GROUP, 1, HEAD_DIM).to(torch.bfloat16)
+        m_lib = mask[:, None, None, :].to(torch.bfloat16)
+
+        def lib():
+            return sdpa(q_lib, k, v, attn_mask=m_lib, scale=1.0, enable_gqa=True)
+
+        lib_rel = rel_l2(lib().float().reshape(q.shape), ak.flash_decode_plain(q, k, v, mask))
+        ms = time_ms(torch, lambda: ak.flash_decode(q, k, v, mask), flush)
+        plain = time_ms(torch, lambda: ak.flash_decode_plain(q, k, v, mask), flush)
+        lib_ms = time_ms(torch, lib, flush)
+        # the kernel reads the K and V rows of valid slots only: the bound
+        # counts those, the mask, q and the output
+        valid = int((mask > -1e8).sum())
+        kv_bytes = 2 * valid * KVH * HEAD_DIM * 2
+        nbytes = kv_bytes + 2 * q.numel() * 4 + mask.numel() * 4
+        # operations at the f32 rate (q and the softmax are f32); the bytes
+        # bound it at any rate the card has
+        bound_ms, bound_by = bound(nbytes, 4 * valid * KVH * GROUP * HEAD_DIM, F32_FLOPS)
+        every_slot_ms, _ = bound(nbytes + 2 * (b * s - valid) * KVH * HEAD_DIM * 2, 0, F32_FLOPS)
+        rows[(b, s)] = dict(ms=ms, plain_ms=plain, library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
+        say(
+            f"[flash] B={b:2d} S={s:5d} relL2 {', '.join(errs)} (tol 1e-5) | kernel {ms:.4f} ms "
+            f"({kv_bytes / (ms * 1e-3) / 1e9:.0f} GB/s of valid K+V, {valid / (b * s):.0%} of slots) "
+            f"plain {plain:.4f} ms "
+            f"SDPA {lib_ms:.4f} ms (bf16 q, relL2 {lib_rel:.1e}) bound {bound_ms:.4f} ms ({bound_by}; "
+            f"{every_slot_ms:.4f} ms were every slot valid)"
+        )
+        del q, k, v, masks
+    if not ok:
+        raise SystemExit("flash_decode disagrees with its plain version")
+    summary = {"max_abs_err": worst, **rows[SERVE_ATTN]}
+    say(f"[flash] serve-pool shape B={SERVE_ATTN[0]} S={SERVE_ATTN[1]}: kernel {summary['ms']:.4f} ms, "
+        f"plain {summary['plain_ms']:.4f} ms, SDPA {summary['library_ms']:.4f} ms; max abs err {worst:.3e}")
+    del flush
     return summary
 
 
@@ -313,8 +461,14 @@ class StubTokenizer:
         return "".join(chr((i - 2) % 96 + 32) for i in ids)
 
 
+def reset_counts(*modules):
+    for m in modules:
+        m.reset_launch_counts()
+
+
 def phase_generate(torch, merged: Path):
     from shardmerge_tpu_torch.inference import InferenceEngine
+    from shardmerge_tpu_torch.models import attn_kernels as ak
     from shardmerge_tpu_torch.models import llama
     from shardmerge_tpu_torch.models import quant_kernels as qk
 
@@ -336,15 +490,16 @@ def phase_generate(torch, merged: Path):
     engine.generate_batch(prompts, max_new_tokens=2, **kw)  # warm-up
     torch.cuda.synchronize()
 
-    qk.reset_launch_counts()
+    reset_counts(qk, ak)
     t0 = time.perf_counter()
     texts = engine.generate_batch(prompts, max_new_tokens=new, **kw)
     torch.cuda.synchronize()
     t_batch = time.perf_counter() - t0
     batch_launches = qk.launch_counts["int4_gemv"]
+    batch_flash = ak.launch_counts["flash_decode"]
     streamed = "".join(engine.stream_generation(prompts[0], max_new_tokens=new, **kw))
     torch.cuda.synchronize()
-    launches = qk.launch_counts["int4_gemv"]
+    launches = {"int4_gemv": qk.launch_counts["int4_gemv"], "flash_decode": ak.launch_counts["flash_decode"]}
 
     def wall(tokens):
         times = []
@@ -360,12 +515,20 @@ def phase_generate(torch, merged: Path):
     say(
         f"[generate] generate_batch: {len(prompts)} prompts x {new} greedy tokens in "
         f"{t_batch:.3f} s; decode {step_ms:.3f} ms/step = {decode_tps:.1f} tokens/s "
-        f"(B=4, prefill excluded, medians of 3); kernel launches {batch_launches}"
+        f"(B=4, prefill excluded, medians of 3); launches int4_gemv {batch_launches}, "
+        f"flash_decode {batch_flash}"
     )
-    say(f"[generate] stream_generation: {len(streamed)} chars; kernel launches in both runs {launches}")
-    need = LAYERS * 7 * new
-    if batch_launches < need:
-        raise SystemExit(f"int4 kernel launched {batch_launches} times, need >= {need}")
+    say(f"[generate] stream_generation: {len(streamed)} chars; launches in both runs {launches}")
+    # A/B: the same decode with every attention on the einsum path
+    with mock.patch.object(ak, "use_flash_decode", lambda *a: False):
+        einsum_ms = (wall(new) - wall(1)) / (new - 1) * 1e3
+    again_ms = (wall(new) - wall(1)) / (new - 1) * 1e3
+    say(f"[generate] A/B decode ms/step at B=4 (medians of 3, in turn): flash kernel {step_ms:.3f}, "
+        f"einsum path {einsum_ms:.3f}, flash kernel {again_ms:.3f}")
+    if batch_launches < LAYERS * 7 * new:
+        raise SystemExit(f"int4 kernel launched {batch_launches} times, need >= {LAYERS * 7 * new}")
+    if batch_flash < LAYERS * new:
+        raise SystemExit(f"flash kernel launched {batch_flash} times, need >= {LAYERS * new}")
     if not all(len(t) == new for t in texts) or len(streamed) != new:
         raise SystemExit(f"unexpected outputs: {texts!r} / {streamed!r}")
 
@@ -395,7 +558,283 @@ def phase_generate(torch, merged: Path):
     say(f"[generate] decode-step logits, kernel vs plain int4 product: relL2 {rel:.2e} (tol 2e-2)")
     if rel > 2e-2 or not bool(torch.isfinite(with_kernel).all()):
         raise SystemExit("decode logits disagree")
-    return launches, decode_tps
+    return engine, launches
+
+
+class IdTokenizer:
+    """One token per character in, ``<id>`` per token out: equal texts are
+    equal token ids. No EOS, so a row runs its whole budget or to its stop."""
+
+    eos_token_id = None
+    chat_template = None
+
+    def encode(self, text):
+        return [ord(c) % 96 + 2 for c in text]
+
+    def decode(self, ids, skip_special_tokens=True):
+        return "".join(f"<{i}>" for i in ids)
+
+
+def text_of(chars: int, seed: int) -> str:
+    rnd = random.Random(seed)
+    return "".join(rnd.choice("abcdefghijklmnopqrstuvwxyz ,.") for _ in range(chars))
+
+
+# greedy pool requests: (start delay s, prompt chars = tokens, max_tokens);
+# 10 requests for 8 slots, five prompts longer than the 512-token
+# admission chunk, index STOP_REQUEST carries a stop string
+SERVE_REQUESTS = [
+    (0.00, 30, 64), (0.05, 3000, 32), (0.10, 120, 48), (0.20, 700, 16), (0.30, 64, 64),
+    (0.40, 1500, 40), (0.50, 45, 24), (0.60, 300, 56), (0.80, 2000, 20), (1.00, 90, 64),
+]
+STOP_REQUEST = 4
+# the compaction pool: (prompt tokens, max_tokens); the first two join
+# together (the second in a join gap), the last two after the first
+# finishes near the cache end, so the third's join compacts the pool and
+# jumps its frontier, and the fourth joins in a gap
+COMPACT_CACHE = 2048
+COMPACT_REQUESTS = [(1960, 16), (40, 64), (1500, 128), (600, 32)]
+
+
+def post(port, payload):
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/v1/completions",
+        data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"},
+    )
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        body = resp.read().decode()
+        if resp.headers["Content-Type"] == "text/event-stream":
+            events = [l[6:] for l in body.splitlines() if l.startswith("data: ")]
+            if events[-1] != "[DONE]":
+                raise SystemExit("SSE stream did not end with [DONE]")
+            return [json.loads(e) for e in events[:-1]]
+        return json.loads(body)
+
+
+def phase_serve(torch, engine):
+    """The port's HTTP server over the merged 8B-width int4 engine, with a
+    continuous pool of 8 slots over a 4096-slot cache."""
+    from shardmerge_tpu_torch.batching import ContinuousEngine
+    from shardmerge_tpu_torch.models import attn_kernels as ak
+    from shardmerge_tpu_torch.models import quant_kernels as qk
+    from shardmerge_tpu_torch.serve import ModelServer
+
+    engine.tokenizer = IdTokenizer()
+    prompts = [text_of(chars, 100 + i) for i, (_, chars, _) in enumerate(SERVE_REQUESTS)]
+    greedy = dict(greedy=True, use_template=False)
+    # the stop string: the first token from the 11th on of the stop
+    # request's solo text that did not occur before it
+    ids = "".join(engine.stream_generation(prompts[STOP_REQUEST], max_new_tokens=64, **greedy))[1:-1].split("><")
+    stop = [f"<{next((t for j, t in enumerate(ids) if j >= 10 and t not in ids[:j]), ids[10])}>"]
+
+    server = ModelServer(engine, model_id="llama-3.1-8b-width", continuous_slots=SERVE_SLOTS,
+                         continuous_cache_len=SERVE_CACHE)
+    port = server.start("127.0.0.1", 0)
+    try:
+        warm = server.warmup()
+        say(f"[serve] server on 127.0.0.1:{port}, pool {SERVE_SLOTS} slots x {SERVE_CACHE} cache slots; "
+            f"warmup {warm:.2f} s")
+        results = {}
+
+        def send(key, delay, payload):
+            time.sleep(delay)
+            try:
+                results[key] = post(port, payload)
+            except Exception as exc:  # reported below as a failed request
+                results[key] = exc
+
+        jobs = []
+        for i, ((delay, _, n), prompt) in enumerate(zip(SERVE_REQUESTS, prompts)):
+            payload = {"prompt": prompt, "max_tokens": n, "greedy": True}
+            if i == STOP_REQUEST:
+                payload["stop"] = stop
+            jobs.append((i, delay, payload))
+        sse_prompt, batch_prompts = text_of(200, 7), [text_of(c, 8 + c) for c in (40, 90, 260, 33)]
+        jobs.append(("sse", 0.25, {"prompt": sse_prompt, "max_tokens": 32, "greedy": True, "stream": True}))
+        jobs.append(("lockstep", 0.45, {"prompt": batch_prompts, "max_tokens": 24, "temperature": 0.7,
+                                        "seed": 3}))
+        dispatches0 = server.pool.stats["decode_dispatches"]
+        tokens0 = server.pool.stats["tokens_out"]
+        reset_counts(qk, ak)
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=send, args=job) for job in jobs]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"int4_gemv": qk.launch_counts["int4_gemv"], "flash_decode": ak.launch_counts["flash_decode"]}
+        stats = dict(server.pool.stats)
+        metrics = server.pool.metrics()
+    finally:
+        server.stop()
+    failed = {k: v for k, v in results.items() if isinstance(v, Exception)}
+    if failed or len(results) != len(jobs):
+        raise SystemExit(f"[serve] requests failed: {failed or 'timed out'}")
+    dispatches = stats["decode_dispatches"] - dispatches0
+    tokens = stats["tokens_out"] - tokens0
+    lat = {k: (v["p50"], v["p95"]) for k, v in metrics.items()}
+    say(
+        f"[serve] {len(SERVE_REQUESTS)} pool requests + 1 SSE + 1 lockstep x4 in {wall:.2f} s wall; pool: "
+        f"{tokens} tokens, {dispatches} decode steps, {tokens / wall:.1f} tokens/s over the wall, joins "
+        f"{stats['joins']}, frontier jumps {stats['frontier_jumps']}, compactions {stats['compactions']}, "
+        f"admission slices {stats['admission_chunks']} (worst {stats['admission_chunk_ms_max']} ms)"
+    )
+    say(f"[serve] pool latency ms (p50, p95), warmup request included: {lat}")
+    say(f"[serve] launches during the requests: {launches}")
+
+    # every pool completion equals the solo stream of the same prompt
+    mismatched = []
+    for i, ((_, _, n), prompt) in enumerate(zip(SERVE_REQUESTS, prompts)):
+        want = "".join(engine.stream_generation(prompt, max_new_tokens=n, stop=stop if i == STOP_REQUEST
+                                                else None, **greedy))
+        choice = results[i]["choices"][0]
+        if choice["text"] != want:
+            mismatched.append(i)
+        if i == STOP_REQUEST and (choice["finish_reason"] != "stop" or stop[0] in choice["text"]):
+            raise SystemExit(f"[serve] the stop request did not stop: {choice}")
+    events = results["sse"]
+    sse_text = "".join(e["choices"][0]["text"] for e in events)
+    if sse_text != "".join(engine.stream_generation(sse_prompt, max_new_tokens=32, **greedy)):
+        mismatched.append("sse")
+    batch = results["lockstep"]["choices"]
+    if len(batch) != 4 or not all(c["text"] and c["finish_reason"] == "length" for c in batch):
+        raise SystemExit(f"[serve] lockstep request: {batch}")
+    say(f"[serve] pool completions vs solo stream_generation: {len(SERVE_REQUESTS) - len(mismatched)} of "
+        f"{len(SERVE_REQUESTS)} equal token for token; SSE {len(events)} events; lockstep 4 choices")
+    if mismatched:
+        raise SystemExit(f"[serve] completions differ from the solo stream: {mismatched}")
+    if launches["flash_decode"] < LAYERS * dispatches or launches["int4_gemv"] == 0:
+        raise SystemExit(f"[serve] kernels not on the path: {launches}, {dispatches} pool steps")
+
+    # a pool that compacts, driven step by step: the compared step below
+    # runs on its compacted, gapped rows, and its completions are held to
+    # the solo stream
+    pool = ContinuousEngine(engine, slots=SERVE_SLOTS, cache_len=COMPACT_CACHE, greedy=True, use_template=False)
+    prompts = [(text_of(chars, 200 + chars), n) for chars, n in COMPACT_REQUESTS]
+    driven = {"launches": 0, "dispatches": 0}
+
+    def drive(until):
+        launches0, dispatches0 = ak.launch_counts["flash_decode"], pool.stats["decode_dispatches"]
+        for _ in range(1000):
+            if until():
+                break
+            pool._admit_pending()
+            pool._step()
+        else:
+            raise SystemExit(f"[serve] the compaction pool is stuck: {pool.stats}")
+        driven["launches"] += ak.launch_counts["flash_decode"] - launches0
+        driven["dispatches"] += pool.stats["decode_dispatches"] - dispatches0
+
+    handles = [pool.submit(p, max_new_tokens=n) for p, n in prompts[:2]]
+    drive(handles[0].done)
+    handles += [pool.submit(p, max_new_tokens=n) for p, n in prompts[2:]]
+    drive(lambda: all(h.joined_at is not None for h in handles))
+    if pool.stats["compactions"] < 1:
+        raise SystemExit(f"[serve] the compaction pool did not compact: {pool.stats}")
+    dev = engine.device
+    with torch.inference_mode():
+        valid = torch.as_tensor(pool._valid, device=dev)
+
+        def step(kv):
+            _, last, _ = engine._chunk_decode(
+                1, pool._last.clone(), pool._gen_mask.clone(), torch.Generator(device=dev), kv,
+                pool._rope, pool._t, pool._col(pool._pad, torch.int64),
+                pool._col(pool._temp, torch.float32), pool._col(pool._top_p, torch.float32),
+                pool._col(pool._rep, torch.float32), valid, pool._kp.clone(), top_k=pool.top_k, greedy=True,
+            )
+            return last
+
+        seen = []  # the pool step's attention inputs, layer by layer
+
+        def recording(*args):
+            seen.append(args)
+            return kernel(*args)
+
+        kernel = ak.flash_decode
+        before = ak.launch_counts["flash_decode"]
+        with mock.patch.object(ak, "flash_decode", recording):
+            with_kernel = step({k: v.clone() for k, v in pool._kv.items()})
+        if ak.launch_counts["flash_decode"] - before != LAYERS:
+            raise SystemExit("[serve] the pool step did not run the flash kernel in every layer")
+        with mock.patch.object(ak, "flash_decode", ak.flash_decode_plain):
+            with_plain = step({k: v.clone() for k, v in pool._kv.items()})
+        # the kernel on the pool's own tensors (gapped masks, free rows)
+        live = [b for b, row in enumerate(pool._rows) if row is not None]
+        attn = max(rel_l2(kernel(*a)[live], ak.flash_decode_plain(*a)[live]) for a in seen)
+    # the live rows: a free row is all masked and its logits are never read
+    # (the kernel gives it zeros, the plain softmax a mean of V). The logits
+    # gate is the bf16 class of the generate phase: the attention output is
+    # rounded to bf16 before o_proj, and the few roundings that its last-bit
+    # differences flip carry through both layers to the logits.
+    rel = rel_l2(with_kernel[live], with_plain[live])
+    say(f"[serve] pool step after compaction ({len(live)} live rows of {SERVE_SLOTS}, frontier {pool._t}, "
+        f"{COMPACT_CACHE}-slot cache, joins {pool.stats['joins']}, jumps {pool.stats['frontier_jumps']}, "
+        f"compactions {pool.stats['compactions']}): attention on the pool's tensors, kernel vs plain, relL2 "
+        f"{attn:.2e} (tol 1e-5); logits, kernel vs plain attention, relL2 {rel:.2e} (tol 2e-2)")
+    if attn > 1e-5 or rel > 2e-2 or not bool(torch.isfinite(with_kernel).all()):
+        raise SystemExit("[serve] pool step disagrees")
+    pool_step_profile(torch, ak, step, pool)
+
+    drive(lambda: all(h.done() for h in handles))
+    solo = ["".join(engine.stream_generation(p, max_new_tokens=n, **greedy)) for p, n in prompts]
+    equal = sum(h.result() == want for h, want in zip(handles, solo))
+    say(f"[serve] compaction pool: {equal} of {len(handles)} completions equal the solo stream token for "
+        f"token; {driven['dispatches']} pool steps, flash launches {driven['launches']}")
+    if equal != len(handles):
+        raise SystemExit("[serve] compaction pool completions differ from the solo stream")
+    if driven["launches"] < LAYERS * driven["dispatches"]:
+        raise SystemExit(f"[serve] compaction pool: flash kernel not on the path: {driven}")
+    return launches
+
+
+def pool_step_profile(torch, ak, step, pool):
+    """One pool step (B=8, the pool's gapped rows) timed with the flash
+    kernel and with the einsum path, in turn; then the device's busy share
+    and its top kernels over 10 steps under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode():
+        kv = {k: v.clone() for k, v in pool._kv.items()}  # each step rewrites one slot
+
+        def per_step(n=50):
+            step(kv)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                step(kv)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) / n * 1e3
+
+        einsum = mock.patch.object(ak, "use_flash_decode", lambda *a: False)
+        flash_a = per_step()
+        with einsum:
+            einsum_a = per_step()
+            einsum_b = per_step()
+        flash_b = per_step()
+        say(f"[serve] A/B one pool step (B={SERVE_SLOTS}, frontier {pool._t}, means of 50, in turn): flash "
+            f"kernel {flash_a:.3f} / {flash_b:.3f} ms, einsum path {einsum_a:.3f} / {einsum_b:.3f} ms")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(10):
+                step(kv)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    # device-side events only (a CPU op's row repeats its kernels' time)
+    rows = [
+        (e.self_device_time_total, e.key)
+        for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+    ]
+    device_us = sum(t for t, _ in rows)
+    if device_us <= 0:
+        say("[serve] device busy share: not measured (the profiler saw no device time)")
+        return
+    top = ", ".join(f"{k[:40]} {t / 10 / 1e3:.3f} ms" for t, k in sorted(rows, reverse=True)[:6])
+    say(f"[serve] profiled pool steps: device busy {device_us / wall_us:.1%} of {wall_us / 10 / 1e3:.3f} ms "
+        f"per step (profiler on); per step: {top}")
 
 
 def main() -> int:
@@ -404,6 +843,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    from shardmerge_tpu_torch.models import attn_kernels as ak
     from shardmerge_tpu_torch.models import quant_kernels as qk
 
     torch.backends.cuda.matmul.allow_tf32 = False  # plain f32 products in f32
@@ -412,7 +852,9 @@ def main() -> int:
     say(f"[card] {card}")
     say(f"[card] torch {torch.__version__} cuda {torch.version.cuda}: {torch.cuda.get_device_name(0)}")
 
-    summary = phase_kernel(torch, qk)
+    phase_build([qk, ak])
+    int4 = phase_kernel(torch, qk)
+    flash = phase_flash(torch, ak)
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
         t0 = time.perf_counter()
@@ -420,20 +862,31 @@ def main() -> int:
         say(f"[checkpoints] base + 2 finetunes, {len(shapes)} tensors each, Llama-3.1-8B widths, "
             f"{LAYERS} layers, bf16, written in {time.perf_counter() - t0:.1f} s")
         merged, _ = phase_merge(torch, root, dirs)
-        launches, _ = phase_generate(torch, merged)
+        engine, _ = phase_generate(torch, merged)
+        launches = phase_serve(torch, engine)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
-    say(json.dumps({"kernels": [{
-        "name": "int4_gemv",
-        "route": "cuda",
-        "source": "shardmerge_tpu_torch/csrc/int4_gemv.cu",
-        "replaces": "shardmerge_tpu/models/quant_kernels.py:148",
-        "launches": launches,
-        "max_abs_err": summary["max_abs_err"],
-        "ms": summary["ms"],
-        "plain_ms": summary["plain_ms"],
-    }]}))
+    # launches: the serve path's run; times at its shapes (B=8 GEMVs, the
+    # pool's B=8 x 4096-slot attention)
+    say(json.dumps({"kernels": [
+        {
+            "name": "int4_gemv",
+            "route": "cuda",
+            "source": "shardmerge_tpu_torch/csrc/int4_gemv.cu",
+            "replaces": "shardmerge_tpu/models/quant_kernels.py:148",
+            "launches": launches["int4_gemv"],
+            **int4,
+        },
+        {
+            "name": "flash_decode",
+            "route": "cuda",
+            "source": "shardmerge_tpu_torch/csrc/flash_decode.cu",
+            "replaces": "shardmerge_tpu/models/attn_kernels.py:152",
+            "launches": launches["flash_decode"],
+            **flash,
+        },
+    ]}))
     say(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -2,9 +2,11 @@
 
     python -m shardmerge_tpu_torch merge CONFIG [--device cpu]
     python -m shardmerge_tpu_torch generate MODEL_DIR PROMPT [-4] [--greedy]
+    python -m shardmerge_tpu_torch serve MODEL_DIR [-4] [--continuous N] [--port P]
 
 ``merge`` prints the run's counters as one JSON line on standard output when
-it finishes. The device is a CUDA card unless ``--device cpu`` is given (or
+it finishes; ``serve`` answers OpenAI-style HTTP requests until interrupted
+(serve.py). The device is a CUDA card unless ``--device cpu`` is given (or
 the config's ``device`` is ``cpu``); with no card and no such request the
 command fails instead of running on the host.
 """
@@ -15,6 +17,7 @@ import argparse
 import json
 import logging
 import sys
+import time
 from typing import Optional, Sequence
 
 from .backend import BackendError, resolve_device
@@ -127,6 +130,44 @@ def _generate(args) -> int:
     return 0
 
 
+def _serve(args) -> int:
+    from .serve import serve
+
+    server = serve(
+        args.model_path,
+        host=args.host,
+        port=args.port,
+        load_in_4bit=args.load_in_4bit,
+        load_in_8bit=args.load_in_8bit,
+        draft_model=args.draft_model,
+        shard=args.shard,
+        batch_window_ms=args.batch_window_ms,
+        prefix_cache=args.prefix_cache,
+        continuous=args.continuous,
+        continuous_cache_len=args.continuous_cache_len,
+        continuous_prefill_chunk=args.continuous_prefill_chunk,
+        warmup=args.warmup,
+        device=resolve_device(args.device),
+    )
+    print(f"Serving {args.model_path} on http://{args.host}:{server.port} (Ctrl-C to stop)", flush=True)
+    try:
+        while True:
+            time.sleep(3600)
+    except KeyboardInterrupt:
+        server.stop()
+    return 0
+
+
+def _int_range(lo: int, hi: int):
+    def parse(text: str) -> int:
+        v = int(text)
+        if not lo <= v <= hi:
+            raise argparse.ArgumentTypeError(f"{v} is not in [{lo}, {hi}]")
+        return v
+
+    return parse
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="shardmerge_tpu_torch",
@@ -155,6 +196,41 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--device", default=None, help="'cpu' runs on the host")
     g.add_argument("--verbose", action="store_true")
     g.set_defaults(func=_generate)
+
+    s = sub.add_parser("serve", help="serve a model over HTTP (OpenAI-style API)")
+    s.add_argument("model_path")
+    s.add_argument("--host", default="127.0.0.1", help="bind address")
+    s.add_argument("--port", type=int, default=8000, help="bind port (0: any free port)")
+    s.add_argument("-4", "--load-in-4bit", action="store_true")
+    s.add_argument("-8", "--load-in-8bit", action="store_true")
+    s.add_argument(
+        "--batch-window-ms", type=float, default=0.0,
+        help="coalesce concurrent compatible greedy requests arriving within this "
+        "window into one lockstep decode (0 = off)",
+    )
+    s.add_argument(
+        "--continuous", type=_int_range(0, 64), default=0,
+        help="serve greedy requests from a continuously batched pool of N slots (0 = off)",
+    )
+    s.add_argument(
+        "--continuous-cache-len", type=_int_range(256, 131072), default=2048,
+        help="KV cache length of the continuous pool (prompt + budget of a request must fit)",
+    )
+    s.add_argument(
+        "--continuous-prefill-chunk", type=_int_range(64, 4096), default=None,
+        help="admission prefill slice (tokens): an arriving prompt stalls active "
+        "decode by at most one slice between pool steps (default 512)",
+    )
+    s.add_argument(
+        "--warmup", action="store_true",
+        help="run the serving hot path once (and build the kernels) before the port opens",
+    )
+    s.add_argument("--device", default=None, help="'cpu' runs on the host")
+    s.add_argument("--draft-model", default=None, help="not ported yet")
+    s.add_argument("--shard", action="store_true", help="not ported yet")
+    s.add_argument("--prefix-cache", type=_int_range(0, 64), default=0, help="not ported yet")
+    s.add_argument("--verbose", action="store_true")
+    s.set_defaults(func=_serve)
     return parser
 
 

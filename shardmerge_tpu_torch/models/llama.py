@@ -1,8 +1,10 @@
 """Llama-family forward pass in PyTorch (counterpart of
 shardmerge_tpu/models/llama.py, Llama family only).
 
-- RMSNorm in f32, RoPE with llama3 (or linear) scaling, GQA attention on the
-  einsum path with an f32 softmax, SwiGLU MLP, untied or tied lm_head;
+- RMSNorm in f32, RoPE with llama3 (or linear) scaling, GQA attention with
+  an f32 softmax (the einsum path for prefill and on the CPU; the CUDA
+  flash-decode kernel, models/attn_kernels.py, for T=1 decode on the card),
+  SwiGLU MLP, untied or tied lm_head;
 - weights are bf16 (or f32) tensors, or int8 / packed-int4 dicts
   ``{"q", "scale"}`` whose product dequantizes on the fly (models/quant.py,
   and the CUDA int4 GEMV for decode-sized products on the card);
@@ -25,6 +27,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from . import attn_kernels
 from .quant import dequant_matmul
 
 __all__ = [
@@ -232,12 +235,20 @@ class Attention(nn.Module):
         group = H // KVH
         qg = q.reshape(B, KVH, group, T, D)
         scale = float(np.sqrt(np.float32(D)))
+        if attn_kernels.use_flash_decode(cfg, T, q):
+            # decode: the kernel reads the bf16 cache once; same additive
+            # mask, same f32 softmax semantics as the einsum path below
+            qs = qg[:, :, :, 0, :].to(torch.float32) / scale
+            ctx = attn_kernels.flash_decode(qs, k_cache, v_cache, mask[:, 0, :])
+            return self.o_proj(ctx.reshape(B, T, H * D).to(x.dtype))
+        # the mask covers the first attn_len slots; the rest are masked
+        sm = mask.shape[-1]
         scores = torch.einsum(
-            "bkgtd,bksd->bkgts", qg.to(torch.float32), k_cache.to(torch.float32)
+            "bkgtd,bksd->bkgts", qg.to(torch.float32), k_cache[:, :, :sm].to(torch.float32)
         ) / scale
-        scores = scores + mask[:, None, None, :, :]  # mask: (B, T, S)
+        scores = scores + mask[:, None, None, :, :]  # mask: (B, T, attn_len)
         probs = torch.softmax(scores, dim=-1)
-        out = torch.einsum("bkgts,bksd->bkgtd", probs, v_cache.to(torch.float32))
+        out = torch.einsum("bkgts,bksd->bkgtd", probs, v_cache[:, :, :sm].to(torch.float32))
         out = out.reshape(B, H, T, D).transpose(1, 2).reshape(B, T, H * D)
         return self.o_proj(out.to(x.dtype))
 
@@ -276,6 +287,8 @@ class LlamaModel(nn.Module):
 
     def __init__(self, cfg: ModelConfig, params: dict):
         super().__init__()
+        if params["embed_tokens"].is_cuda:
+            attn_kernels.check_geometry(cfg)  # every T=1 decode runs the kernel
         self.cfg = cfg
         self.register_buffer("embed_tokens", params["embed_tokens"])
         self.register_buffer("norm", params["norm"])
@@ -301,20 +314,29 @@ class LlamaModel(nn.Module):
         attn_len: int,  # valid cache slots after this call
         mask_positions: Optional[torch.Tensor] = None,  # (B, T) cache slots
         token_valid: Optional[torch.Tensor] = None,  # (B, S) bool
+        key_positions: Optional[torch.Tensor] = None,  # (B, S) true positions
     ):
         """One forward (prefill when T > 1, decode when T == 1).
 
         ``mask_positions`` carries each query's cache slot (its causal
         horizon) when it differs from its RoPE position (left-padded
-        batches); ``token_valid`` masks pad slots out of attention. Returns
-        (f32 logits (B, T, V), kv_cache), the cache updated in place."""
+        batches); ``token_valid`` masks pad slots out of attention.
+        ``key_positions`` (the continuous pool's slot -> position map) is
+        accepted for the windowed families, which compare positions across a
+        row's join gap; the Llama family has no window and does not read it.
+        The additive mask covers only the first ``attn_len`` slots (every
+        later slot is masked), so a row's attention does not depend on the
+        cache length: a request prefilled into a short admission cache gets
+        the bits of the same prefill into a longer one.
+        Returns (f32 logits (B, T, V), kv_cache), the cache updated in
+        place."""
+        del key_positions
         x = self.embed_tokens[input_ids]
-        S = kv_cache["k"].shape[3]
-        slot = torch.arange(S, device=x.device)[None, None, :]
+        slot = torch.arange(attn_len, device=x.device)[None, None, :]
         mpos = positions if mask_positions is None else mask_positions
-        valid = (slot <= mpos[:, :, None]) & (slot < attn_len)
+        valid = slot <= mpos[:, :, None]
         if token_valid is not None:
-            valid = valid & token_valid[:, None, :]
+            valid = valid & token_valid[:, None, :attn_len]
         mask = torch.where(
             valid,
             torch.zeros((), dtype=torch.float32, device=x.device),

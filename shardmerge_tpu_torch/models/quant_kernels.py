@@ -15,16 +15,12 @@ Each launch of the kernel adds one to ``launch_counts["int4_gemv"]``.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
 from collections import Counter
 from pathlib import Path
 
 import torch
 
+from .. import kernel_build
 from .quant import dequant
 
 __all__ = [
@@ -37,13 +33,10 @@ __all__ = [
 ]
 
 MAX_ROWS = 64  # decode / small-batch token counts; larger products use matmul
-_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "int4_gemv.cu"
-_BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+_SOURCE = kernel_build.CSRC / "int4_gemv.cu"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 launch_counts: Counter = Counter()
-_lib = None
-_lib_lock = threading.Lock()
 
 
 def reset_launch_counts() -> None:
@@ -64,72 +57,25 @@ def supported(x_shape, q_shape) -> bool:
     return 1 <= rows <= MAX_ROWS
 
 
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    candidates = [shutil.which("nvcc")]
-    if cuda_home:
-        candidates.append(os.path.join(cuda_home, "bin", "nvcc"))
-    candidates.append("/usr/local/cuda/bin/nvcc")
-    for c in candidates:
-        if c and os.path.isfile(c):
-            return c
-    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
-
-
 def build(verbose: bool = False) -> Path:
     """Compile the kernel into ``_build/`` (once per source content) and
     return the shared library's path."""
-    src = _SOURCE.read_bytes()
-    lib_path = _BUILD_DIR / f"libint4_gemv_{hashlib.sha256(src).hexdigest()[:12]}.so"
-    if lib_path.exists():
-        return lib_path
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib_path.parent / f"tmp{os.getpid()}_{lib_path.name}"
-    cmd = [
-        _nvcc(),
-        "-gencode=arch=compute_90a,code=sm_90a",
-        "-std=c++17",
-        "-O3",
-        "-shared",
-        "-Xcompiler",
-        "-fPIC",
-        "-o",
-        str(tmp),
-        str(_SOURCE),
+    return kernel_build.build(_SOURCE, verbose)
+
+
+def _bind(lib) -> None:
+    lib.int4_gemv.argtypes = [
+        ctypes.c_void_p,  # x
+        ctypes.c_void_p,  # q
+        ctypes.c_void_p,  # scale
+        ctypes.c_void_p,  # y
+        ctypes.c_int,  # B
+        ctypes.c_int,  # N
+        ctypes.c_int,  # K / 2
+        ctypes.c_int,  # dtype code
+        ctypes.c_void_p,  # stream
     ]
-    if verbose:
-        cmd.insert(1, "-Xptxas=-v")
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) building {_SOURCE}:\n{proc.stderr}"
-        )
-    if verbose and proc.stderr:
-        print(proc.stderr.strip())
-    os.replace(tmp, lib_path)
-    return lib_path
-
-
-def _library():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            fn = lib.int4_gemv
-            fn.argtypes = [
-                ctypes.c_void_p,  # x
-                ctypes.c_void_p,  # q
-                ctypes.c_void_p,  # scale
-                ctypes.c_void_p,  # y
-                ctypes.c_int,  # B
-                ctypes.c_int,  # N
-                ctypes.c_int,  # K / 2
-                ctypes.c_int,  # dtype code
-                ctypes.c_void_p,  # stream
-            ]
-            fn.restype = ctypes.c_int
-            _lib = lib
-        return _lib
+    lib.int4_gemv.restype = ctypes.c_int
 
 
 def int4_matmul_plain(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -163,7 +109,7 @@ def int4_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.
     y = torch.empty((x2.shape[0], n), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _library().int4_gemv(
+        err = kernel_build.load(_SOURCE, _bind).int4_gemv(
             x2.data_ptr(),
             q.data_ptr(),
             scale.data_ptr(),

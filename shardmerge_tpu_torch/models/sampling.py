@@ -8,25 +8,30 @@ tokens match the JAX engine's.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
 __all__ = ["sample_token"]
 
+Param = Union[float, torch.Tensor]
+
 
 def sample_token(
     logits: torch.Tensor,  # (B, V) f32
     generated_mask: torch.Tensor,  # (B, V) bool: tokens already produced
-    temperature: float = 1.0,
+    temperature: Param = 1.0,
     top_k: int = 0,
-    top_p: float = 1.0,
-    repetition_penalty: float = 1.0,
+    top_p: Param = 1.0,
+    repetition_penalty: Param = 1.0,
     *,
     greedy: bool = False,
     generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
-    """Next token ids (B,) as int64."""
+    """Next token ids (B,) as int64. ``temperature``, ``top_p`` and
+    ``repetition_penalty`` are floats or f32 tensors that broadcast against
+    (B, 1) (one value per row, as the continuous pool passes them);
+    ``top_k`` is one int for the batch."""
     penalized = torch.where(
         logits > 0, logits / repetition_penalty, logits * repetition_penalty
     )
@@ -34,7 +39,10 @@ def sample_token(
     if greedy:
         return torch.argmax(logits, dim=-1)
 
-    logits = logits / max(temperature, 1e-6)
+    if isinstance(temperature, torch.Tensor):
+        logits = logits / torch.clamp_min(temperature, 1e-6)
+    else:
+        logits = logits / max(temperature, 1e-6)
     neg_inf = torch.full((), float("-inf"), dtype=logits.dtype, device=logits.device)
     if top_k > 0:
         kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]

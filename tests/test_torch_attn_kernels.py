@@ -1,0 +1,166 @@
+"""Port vs JAX: flash-decode attention (shardmerge_tpu_torch/models/
+attn_kernels.py against shardmerge_tpu/models/attn_kernels.py).
+
+On the CPU the port's wrapper runs its plain version; the JAX kernel runs in
+Pallas interpret mode, as tests/test_attn_kernels.py runs it. The CUDA kernel
+itself is held to the plain version on the card (tests/test_torch_cuda.py,
+chip_smoke.py). Tolerance: rtol = atol = 2e-5, the JAX suite's for the same
+comparison (f32 scores, a different summation order).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from shardmerge_tpu.models import attn_kernels as jak
+from shardmerge_tpu.models import llama as jllama
+from shardmerge_tpu_torch.models import attn_kernels as ak
+from shardmerge_tpu_torch.models import llama as tllama
+from shardmerge_tpu_torch.models.convert import params_from_jax
+
+TOL = dict(rtol=2e-5, atol=2e-5)
+
+# tests/test_attn_kernels.py::_flash_cfg (head_dim 128, the kernel's D)
+FLASH_HF = {
+    "model_type": "llama",
+    "vocab_size": 128,
+    "hidden_size": 256,
+    "intermediate_size": 256,
+    "num_hidden_layers": 2,
+    "num_attention_heads": 2,
+    "num_key_value_heads": 1,
+    "max_position_embeddings": 256,
+    "rms_norm_eps": 1e-5,
+    "rope_theta": 10000.0,
+}
+
+
+def _inputs(seed, b, kvh, g, d, s, valid):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, kvh, g, d)).astype(np.float32)
+    k = jnp.asarray(rng.standard_normal((b, kvh, s, d)).astype(np.float32)).astype(jnp.bfloat16)
+    v = jnp.asarray(rng.standard_normal((b, kvh, s, d)).astype(np.float32)).astype(jnp.bfloat16)
+    if valid == "holes":  # masked tail + interior holes, as the JAX test
+        ok = rng.random((b, s)) > 0.25
+        ok[:, s // 2 :] = False
+        ok[:, 0] = True
+    else:  # only the last few slots of the last block
+        ok = np.zeros((b, s), bool)
+        ok[:, -7:] = True
+    mask = np.where(ok, 0.0, -1e9).astype(np.float32)
+    return q, k, v, mask
+
+
+def _torch(x):
+    """numpy / bf16 jax array -> torch tensor, bit for bit."""
+    return params_from_jax(np.asarray(x))
+
+
+@pytest.mark.parametrize(
+    "b,kvh,g,d,s,valid",
+    [
+        (1, 2, 4, 128, 256, "holes"),
+        (2, 1, 1, 128, 512, "holes"),
+        (1, 4, 2, 256, 128, "holes"),
+        (1, 1, 4, 128, 512, "last7"),
+    ],
+)
+def test_plain_version_matches_jax_kernel(b, kvh, g, d, s, valid):
+    q, k, v, mask = _inputs(b * 1000 + s, b, kvh, g, d, s, valid)
+    want = np.asarray(jak.flash_decode(jnp.asarray(q), k, v, jnp.asarray(mask)))
+    got = ak.flash_decode_plain(_torch(q), _torch(k), _torch(v), _torch(mask))
+    assert got.dtype == torch.float32 and np.isfinite(got.numpy()).all()
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    # the wrapper takes the plain version for CPU tensors
+    via = ak.flash_decode(_torch(q), _torch(k), _torch(v), _torch(mask))
+    np.testing.assert_array_equal(via.numpy(), got.numpy())
+
+
+def test_routing_takes_kernel_only_for_decode_on_the_card():
+    cfg = tllama.ModelConfig.from_hf_config({**FLASH_HF, "num_attention_heads": 8, "num_key_value_heads": 2,
+                                              "hidden_size": 1024})
+    q = torch.zeros((3, 8, 1, 128))
+    assert not ak.use_flash_decode(cfg, 1, q)  # CPU tensors: einsum path
+
+    class Cuda:  # the attribute routing reads, on a pretend CUDA tensor
+        is_cuda = True
+
+    assert ak.use_flash_decode(cfg, 1, Cuda())  # every decode on the card
+    assert not ak.use_flash_decode(cfg, 4, Cuda())  # prefill
+    # the slice's geometry: D=128, G=4, S a multiple of the cache bucket;
+    # and the family's other head dim, 64 (Llama-3.2-1B, TinyLlama)
+    assert ak.supported((8, 8, 4, 128), 4096) and ak.supported((1, 8, 4, 128), 256)
+    assert ak.supported((1, 8, 4, 64), 256)
+    assert not ak.supported((1, 8, 4, 96), 256)  # D
+    assert not ak.supported((1, 2, 16, 128), 256)  # G
+    # a model the kernel cannot take is refused when it is built on the card
+    ak.check_geometry(cfg)
+    ak.check_geometry(tllama.ModelConfig.from_hf_config({**FLASH_HF, "hidden_size": 128}))  # D = 64
+    for bad in ({"hidden_size": 192}, {"num_attention_heads": 16, "hidden_size": 2048}):  # D = 96; G = 16
+        with pytest.raises(NotImplementedError, match="flash_decode"):
+            ak.check_geometry(tllama.ModelConfig.from_hf_config({**FLASH_HF, **bad}))
+
+
+@pytest.mark.parametrize("sm", [1, 100, 256])
+def test_short_mask_masks_the_rest_of_the_cache(sm):
+    """A (B, Sm) mask, as forward builds it over attn_len slots, means the
+    slots from Sm on are masked: the same as the full-length mask with a
+    -1e9 tail."""
+    q, k, v, mask = _inputs(sm, 2, 2, 4, 128, 256, "holes")
+    short = np.full((2, sm), 0.0, np.float32)
+    short[:, 1::3] = -1e9
+    full = np.full((2, 256), -1e9, np.float32)
+    full[:, :sm] = short
+    got = ak.flash_decode(_torch(q), _torch(k), _torch(v), _torch(short))
+    want = ak.flash_decode_plain(_torch(q), _torch(k), _torch(v), _torch(full))
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("padded", [False, True])
+def test_decode_logits_through_flash_route_match_jax(monkeypatch, padded):
+    """Prefill then one T=1 decode step with the flash route forced on in
+    both: the port (plain version, CPU) against the JAX forward with
+    SHARDMERGE_FLASH_DECODE=1 (Pallas interpret mode). ``padded`` adds
+    left pads masked through token_valid, as generate_batch sends them."""
+    monkeypatch.setenv("SHARDMERGE_FLASH_DECODE", "1")
+    calls = []
+
+    def forced(cfg, t, q):
+        calls.append(t)
+        return t == 1
+
+    monkeypatch.setattr(ak, "use_flash_decode", forced)
+    jcfg = jllama.ModelConfig.from_hf_config(FLASH_HF)
+    tcfg = tllama.ModelConfig.from_hf_config(FLASH_HF)
+    params = jax.tree_util.tree_map(
+        np.asarray, jllama.init_params(jcfg, jax.random.PRNGKey(7), dtype=jnp.float32)
+    )
+    model = tllama.LlamaModel(tcfg, params_from_jax(params))
+    B, T, S = 2, 17, 128
+    rng = np.random.default_rng(3)
+    ids = rng.integers(0, 128, (B, T))
+    pad = np.array([0, 5]) if padded else np.zeros(B, np.int64)
+    slot = np.broadcast_to(np.arange(T - 1), (B, T - 1))
+    pos = np.maximum(slot - pad[:, None], 0)
+    valid = np.arange(S)[None, :] >= pad[:, None]
+    kw_j = dict(mask_positions=jnp.asarray(slot), token_valid=jnp.asarray(valid)) if padded else {}
+    kw_t = dict(mask_positions=torch.from_numpy(slot.copy()), token_valid=torch.from_numpy(valid)) if padded else {}
+
+    jp = jax.tree_util.tree_map(jnp.asarray, params)
+    jrope = jllama.rope_tables(jcfg, S)
+    jkv = jllama.init_kv_cache(jcfg, B, S, jnp.float32)
+    _, jkv = jllama.forward(jp, jcfg, jnp.asarray(ids[:, :-1]), jnp.asarray(pos), jkv, 0, jrope, T - 1, **kw_j)
+    step_pos = (T - 1 - pad)[:, None]
+    kw_j1 = dict(mask_positions=jnp.full((B, 1), T - 1), token_valid=jnp.asarray(valid)) if padded else {}
+    jl, _ = jllama.forward(jp, jcfg, jnp.asarray(ids[:, -1:]), jnp.asarray(step_pos), jkv, T - 1, jrope, T, **kw_j1)
+
+    trope = tllama.rope_tables(tcfg, S)
+    tkv = tllama.init_kv_cache(tcfg, B, S, torch.float32)
+    kw_t1 = dict(mask_positions=torch.full((B, 1), T - 1), token_valid=torch.from_numpy(valid)) if padded else {}
+    with torch.inference_mode():
+        _, tkv = model(torch.from_numpy(ids[:, :-1]), torch.from_numpy(pos.copy()), tkv, 0, trope, T - 1, **kw_t)
+        tl, _ = model(torch.from_numpy(ids[:, -1:]), torch.from_numpy(step_pos.copy()), tkv, T - 1, trope, T, **kw_t1)
+    assert calls.count(1) == tcfg.num_hidden_layers  # the decode step took the route
+    np.testing.assert_allclose(tl[:, -1].numpy(), np.asarray(jl[:, -1]), **TOL)

@@ -4,14 +4,16 @@ a machine without JAX it runs with the JAX suite's conftest switched off:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
-chip_smoke.py holds the kernel to its plain version at the full Llama-3.1-8B
-decode shapes; these tests cover the wrapper's contract and the routing.
+chip_smoke.py holds the kernels to their plain versions at the full
+Llama-3.1-8B decode shapes; these tests cover the wrappers' contracts and the
+routing.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from shardmerge_tpu_torch.models import attn_kernels as ak
 from shardmerge_tpu_torch.models import quant
 from shardmerge_tpu_torch.models import quant_kernels as qk
 
@@ -80,3 +82,174 @@ def test_dequant_matmul_routes_decode_rows_to_the_kernel(card):
     for x, y in ((small, y_small), (big, y_big)):
         want = qk.int4_matmul_plain(x, q, s)
         assert float((y - want).norm() / want.norm()) <= 1e-5
+
+
+def _attn_inputs(card, b, kvh, g, s, seed=0, d=128):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    q = torch.randn((b, kvh, g, d), device=card, generator=gen) / d**0.5
+    k = torch.randn((b, kvh, s, d), device=card, generator=gen).to(torch.bfloat16)
+    v = torch.randn((b, kvh, s, d), device=card, generator=gen).to(torch.bfloat16)
+    return q, k, v
+
+
+@pytest.mark.parametrize(
+    "b,kvh,g,s,valid,d",
+    [
+        (1, 8, 4, 256, "tail", 128),  # a generate step early in its bucket
+        (3, 2, 1, 1000, "holes", 128),  # ragged S, one query head per KV head
+        (2, 1, 8, 4096, "last7", 128),  # every split but the last fully masked
+        (64, 8, 4, 512, "holes", 128),  # the pool's largest slot count
+        (1, 8, 4, 13, "tail", 128),  # fewer slots than one split
+        (4, 8, 4, 2048, "holes", 64),  # head_dim 64 (Llama-3.2-1B)
+        (2, 4, 8, 1000, "last7", 64),  # TinyLlama's G = 8, ragged S
+        (1, 8, 3, 13, "tail", 64),
+    ],
+)
+def test_flash_kernel_matches_plain_version(card, b, kvh, g, s, valid, d):
+    q, k, v = _attn_inputs(card, b, kvh, g, s, d=d)
+    rng = np.random.default_rng(s)
+    ok = np.ones((b, s), bool)
+    if valid == "tail":
+        ok[:, s // 2 + 1 :] = False
+    elif valid == "holes":
+        ok = rng.random((b, s)) > 0.3
+        ok[:, 0] = True
+    else:
+        ok[:] = False
+        ok[:, -7:] = True
+    mask = torch.where(torch.from_numpy(ok).to(card), 0.0, -1e9)
+    got = ak.flash_decode(q, k, v, mask)
+    want = ak.flash_decode_plain(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert got.shape == (b, kvh, g, d) and bool(torch.isfinite(got).all())
+    rel = float((got - want).norm() / want.norm())
+    assert rel <= 1e-5, rel
+
+
+def test_flash_kernel_row_bits_do_not_depend_on_batch_length_or_gaps(card):
+    """A row's output depends only on its valid K/V rows in order: the same
+    history alone in a 256-slot cache, or in a batch of 8 over 4096 slots
+    with a join gap and a short mask, gives the same bits."""
+    q, k1, v1 = _attn_inputs(card, 1, 8, 4, 256, seed=5)
+    _, k8, v8 = _attn_inputs(card, 8, 8, 4, 4096, seed=6)
+    for src, dst in ((k1, k8), (v1, v8)):
+        dst[0, :, :100] = src[0, :, :100]
+        dst[0, :, 2000:2050] = src[0, :, 100:150]
+    m1 = torch.full((1, 256), -1e9, device=card)
+    m1[:, :150] = 0.0
+    m8 = torch.full((8, 3000), -1e9, device=card)
+    m8[0, :100] = 0.0
+    m8[0, 2000:2050] = 0.0
+    m8[1:, :2500] = 0.0
+    q8 = torch.cat([q, torch.randn((7, 8, 4, 128), device=card)])
+    alone = ak.flash_decode(q, k1, v1, m1)
+    pooled = ak.flash_decode(q8, k8, v8, m8)
+    assert torch.equal(pooled[0], alone[0])
+
+
+@pytest.mark.parametrize("rows", [4, 8, 64])
+def test_decode_ops_give_a_row_the_same_bits_at_any_batch(card, rows):
+    """What pool-vs-solo exactness rests on besides the flash kernel: the
+    RMSNorm, a bf16 vocab-sized matmul and the int4 GEMV give row 0 the same
+    bits alone as in a batch."""
+    from shardmerge_tpu_torch.models import llama
+
+    gen = torch.Generator(device=card).manual_seed(7)
+    x = torch.randn((rows, 1, 4096), device=card, generator=gen).to(torch.bfloat16)
+    w = (torch.rand(4096, device=card, generator=gen) + 0.5).to(torch.bfloat16)
+    assert torch.equal(llama.rms_norm(x, w, 1e-5)[0], llama.rms_norm(x[:1], w, 1e-5)[0])
+    head = (torch.randn((32768, 4096), device=card, generator=gen) * 0.02).to(torch.bfloat16)
+    assert torch.equal(llama.matmul(x[:, 0], head)[0], llama.matmul(x[:1, 0], head)[0])
+    q, s = _weights(4096, 4096, card)
+    assert torch.equal(qk.int4_matmul(x[:, 0], q, s)[0], qk.int4_matmul(x[:1, 0], q, s)[0])
+
+
+def test_flash_kernel_counts_launches_and_raises_instead_of_falling_back(card):
+    q, k, v = _attn_inputs(card, 2, 2, 4, 256)
+    mask = torch.zeros((2, 256), device=card)
+    ak.reset_launch_counts()
+    ak.flash_decode(q, k, v, mask)
+    assert ak.launch_counts["flash_decode"] == 1
+    with pytest.raises(TypeError):
+        ak.flash_decode(q.to(torch.bfloat16), k, v, mask)
+    with pytest.raises(ValueError):
+        ak.flash_decode(q, k.float(), v, mask)
+    with pytest.raises(ValueError):
+        ak.flash_decode(q, k.transpose(2, 3).contiguous().transpose(2, 3), v, mask)
+    with pytest.raises(ValueError):
+        ak.flash_decode(q[..., :96].contiguous(), k[..., :96].contiguous(), v[..., :96].contiguous(), mask)
+    assert ak.launch_counts["flash_decode"] == 1
+
+
+def test_decode_attention_routes_to_the_flash_kernel(card):
+    """A T=1 forward on the card launches the kernel once per layer; a
+    prefill launches it not at all; the logits agree with the same step on
+    the plain version. f32 weights over the bf16 cache, so the attention
+    output reaches o_proj unrounded and the logits measure the kernel, not
+    which bf16 roundings its last-bit differences flip."""
+    from unittest import mock
+
+    from shardmerge_tpu_torch.models import llama
+
+    cfg = llama.ModelConfig(
+        vocab_size=256, hidden_size=512, intermediate_size=512, num_hidden_layers=2,
+        num_attention_heads=4, num_key_value_heads=1,
+    )
+    gen = torch.Generator().manual_seed(3)
+
+    def w(*shape):
+        return (torch.randn(shape, generator=gen) * 0.05).to(card)
+
+    layers = [
+        {
+            "q_proj": w(512, 512), "k_proj": w(128, 512), "v_proj": w(128, 512),
+            "o_proj": w(512, 512), "gate_proj": w(512, 512), "up_proj": w(512, 512),
+            "down_proj": w(512, 512), "input_layernorm": torch.ones(512, device=card),
+            "post_attention_layernorm": torch.ones(512, device=card),
+        }
+        for _ in range(2)
+    ]
+    params = {"embed_tokens": w(256, 512), "norm": torch.ones(512, device=card),
+              "lm_head": w(256, 512), "layers": layers}
+    model = llama.LlamaModel(cfg, params)
+    rope = llama.rope_tables(cfg, 256, card)
+    kv = llama.init_kv_cache(cfg, 2, 256, torch.bfloat16, card)
+    ids = torch.randint(0, 256, (2, 9), generator=gen).to(card)
+    pos = torch.arange(9, device=card)[None].expand(2, 9)
+    ak.reset_launch_counts()
+    with torch.inference_mode():
+        logits, kv = model(ids, pos, kv, 0, rope, 9)
+        assert ak.launch_counts["flash_decode"] == 0
+        tok = logits[:, -1].argmax(-1)[:, None]
+        step = torch.full((2, 1), 9, device=card)
+        kv_plain = {n: t.clone() for n, t in kv.items()}
+        got, _ = model(tok, step, kv, 9, rope, 10)
+        assert ak.launch_counts["flash_decode"] == 2
+        with mock.patch.object(ak, "flash_decode", ak.flash_decode_plain):
+            want, _ = model(tok, step, kv_plain, 9, rope, 10)
+    assert float((got - want).norm() / want.norm()) <= 2e-3
+
+
+def test_model_the_kernel_cannot_take_is_refused_on_the_card(card):
+    """Every T=1 decode on the card runs the kernel, so a model with a head
+    dim it does not take fails when it is built there, not at decode; the
+    same model builds on the CPU (einsum path)."""
+    from shardmerge_tpu_torch.models import llama
+
+    cfg = llama.ModelConfig(
+        vocab_size=64, hidden_size=192, intermediate_size=64, num_hidden_layers=1,
+        num_attention_heads=2, num_key_value_heads=1,
+    )  # head_dim 96
+
+    def params(device):
+        def w(*shape):
+            return torch.zeros(shape, dtype=torch.bfloat16, device=device)
+
+        layer = {"q_proj": w(192, 192), "k_proj": w(96, 192), "v_proj": w(96, 192), "o_proj": w(192, 192),
+                 "gate_proj": w(64, 192), "up_proj": w(64, 192), "down_proj": w(192, 64),
+                 "input_layernorm": w(192), "post_attention_layernorm": w(192)}
+        return {"embed_tokens": w(64, 192), "norm": w(192), "lm_head": w(64, 192), "layers": [layer]}
+
+    llama.LlamaModel(cfg, params("cpu"))
+    with pytest.raises(NotImplementedError, match="head_dim"):
+        llama.LlamaModel(cfg, params(card))

@@ -245,8 +245,9 @@ def test_cli_generate_reads_tokenizer_json(tmp_path, capsys):
 
 
 def test_port_imports_without_jax_and_host_extras(tmp_path):
-    """The port loads, parses a JSON config and builds a model with jax,
-    ml_dtypes, yaml, click and transformers all unimportable."""
+    """The port loads (serving modules and kernel wrappers included),
+    parses a JSON config and builds a model with jax, ml_dtypes, yaml, click
+    and transformers all unimportable."""
     import subprocess
     import sys
     from pathlib import Path
@@ -258,6 +259,8 @@ def test_port_imports_without_jax_and_host_extras(tmp_path):
         "    sys.modules[m] = None\n"
         "import shardmerge_tpu_torch.cli, shardmerge_tpu_torch.inference\n"
         "import shardmerge_tpu_torch.merge, shardmerge_tpu_torch.models.convert\n"
+        "import shardmerge_tpu_torch.batching, shardmerge_tpu_torch.serve\n"
+        "import shardmerge_tpu_torch.models.attn_kernels\n"
         "from shardmerge_tpu_torch.config import MergeConfig\n"
         "cfg = MergeConfig.from_file(sys.argv[1])\n"
         "assert cfg.finetune_merge[0].alpha == 0.5, cfg\n"

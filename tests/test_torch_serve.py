@@ -1,0 +1,243 @@
+"""Port vs JAX: the HTTP server (shardmerge_tpu_torch/serve.py against
+shardmerge_tpu/serve.py), after tests/test_models.py's server tests.
+
+Both servers run on the same weights with the same stub tokenizer and a
+continuous pool of 2 slots; every request goes to both, one at a time, and
+the JSON bodies (status codes, texts, finish reasons, usage) must be equal.
+The port's DynamicBatcher, warmup, ``serve()`` and CLI entry are tested on
+their own.
+"""
+
+import json
+import threading
+import time
+import urllib.error
+import urllib.request
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from shardmerge_tpu.inference import InferenceEngine as JaxEngine
+from shardmerge_tpu.models import llama as jllama
+from shardmerge_tpu.serve import ModelServer as JaxServer
+from shardmerge_tpu_torch.inference import InferenceEngine
+from shardmerge_tpu_torch.models import llama as tllama
+from shardmerge_tpu_torch.models.convert import params_from_jax
+from shardmerge_tpu_torch.serve import ModelServer
+
+TINY_HF = {
+    "model_type": "llama",
+    "vocab_size": 128,
+    "hidden_size": 32,
+    "intermediate_size": 64,
+    "num_hidden_layers": 2,
+    "num_attention_heads": 2,
+    "num_key_value_heads": 2,
+    "max_position_embeddings": 1024,
+}
+
+
+class StubTokenizer:
+    """tests/test_models.py::StubTokenizer: one token per character."""
+
+    chat_template = None
+    eos_token_id = 0
+
+    def encode(self, text):
+        return [ord(c) % 96 + 2 for c in text]
+
+    def decode(self, ids, skip_special_tokens=True):
+        return "".join(chr((i - 2) % 96 + 32) for i in ids if i != 0)
+
+
+def _port_engine(params):
+    cfg = tllama.ModelConfig.from_hf_config(TINY_HF)
+    return InferenceEngine(cfg, tllama.LlamaModel(cfg, params_from_jax(params)), StubTokenizer())
+
+
+@pytest.fixture(scope="module")
+def servers():
+    jcfg = jllama.ModelConfig.from_hf_config(TINY_HF)
+    params = jax.tree_util.tree_map(
+        np.asarray, jllama.init_params(jcfg, jax.random.PRNGKey(5), jnp.float32)
+    )
+    jeng = JaxEngine(jcfg, jax.tree_util.tree_map(jnp.asarray, params), StubTokenizer())
+    kw = dict(model_id="tiny", continuous_slots=2, continuous_cache_len=256)
+    pair = [ModelServer(_port_engine(params), **kw), JaxServer(jeng, **kw)]
+    ports = [s.start(port=0) for s in pair]
+    yield pair, ports
+    for s in pair:
+        s.stop()
+
+
+def _call(port, path, payload=None):
+    """(status, parsed body); an SSE body parses to its list of events."""
+    url = f"http://127.0.0.1:{port}{path}"
+    if payload is None:
+        req = urllib.request.Request(url)
+    else:
+        req = urllib.request.Request(
+            url, data=json.dumps(payload).encode(), headers={"Content-Type": "application/json"}
+        )
+    try:
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            body = resp.read().decode()
+            if resp.headers["Content-Type"] == "text/event-stream":
+                lines = [l[len("data: "):] for l in body.splitlines() if l.startswith("data: ")]
+                assert lines[-1] == "[DONE]"
+                return resp.status, [json.loads(l) for l in lines[:-1]]
+            return resp.status, json.loads(body)
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+CHAT = [
+    {"role": "system", "content": "be brief"},
+    {"role": "user", "content": "hello"},
+    {"role": "assistant", "content": "hi"},
+    {"role": "user", "content": "again"},
+]
+GREEDY = {"greedy": True, "max_tokens": 8}
+CASES = [
+    ("health", "/health", None),
+    ("models", "/v1/models", None),
+    ("single", "/v1/completions", {"prompt": "hi", **GREEDY}),
+    ("list", "/v1/completions", {"prompt": ["hi", "longer prompt here", "x"], **GREEDY}),
+    ("sse", "/v1/completions", {"prompt": "hi there", "stream": True, **GREEDY}),
+    ("stop", "/v1/completions", {"prompt": "stop here", "stop": ["a", "e"], "greedy": True, "max_tokens": 24}),
+    ("over_pool_capacity", "/v1/completions", {"prompt": ["long", "lockstep"], "greedy": True, "max_tokens": 300}),
+    ("decode_chunk", "/v1/completions", {"prompt": ["hi", "chunk"], "greedy": True, "max_tokens": 300,
+                                         "decode_chunk": 3}),
+    ("chat", "/v1/chat/completions", {"messages": CHAT, **GREEDY}),
+    ("chat_sse", "/v1/chat/completions", {"messages": CHAT, "stream": True, **GREEDY}),
+    ("bad_empty", "/v1/completions", {}),
+    ("bad_list", "/v1/completions", {"prompt": ["ok", ""]}),
+    ("bad_max_tokens", "/v1/completions", {"prompt": "x", "max_tokens": 0}),
+    ("bad_batch_cap", "/v1/completions", {"prompt": ["x"] * 65}),
+    ("bad_temperature", "/v1/completions", {"prompt": "x", "temperature": "hot"}),
+    ("bad_decode_chunk", "/v1/completions", {"prompt": "x", "decode_chunk": 65}),
+    ("bad_stop", "/v1/completions", {"prompt": "x", "stop": ["a", "b", "c", "d", "e"]}),
+    ("bad_stream_list", "/v1/completions", {"prompt": ["a", "b"], "stream": True}),
+    ("bad_chat_role", "/v1/chat/completions", {"messages": [{"role": "robot", "content": "x"}]}),
+    ("bad_chat_last", "/v1/chat/completions", {"messages": [{"role": "system", "content": "only"}]}),
+    ("not_found", "/nope", None),
+]
+
+
+@pytest.mark.parametrize("name,path,payload", CASES, ids=[c[0] for c in CASES])
+def test_endpoint_json_matches_jax_server(servers, name, path, payload):
+    _, (p_ours, p_theirs) = servers
+    got = _call(p_ours, path, payload)
+    want = _call(p_theirs, path, payload)
+    assert got == want
+    status, body = got
+    if name.startswith("bad_"):
+        assert status == 400 and "error" in body
+    elif name == "not_found":
+        assert status == 404
+    else:
+        assert status == 200
+
+
+def test_stats_match_jax_server(servers):
+    """After the same requests, one at a time: the same request and token
+    tallies and the same pool counters (latencies are wall clock)."""
+    _, (p_ours, p_theirs) = servers
+    got = _call(p_ours, "/v1/stats")[1]
+    want = _call(p_theirs, "/v1/stats")[1]
+    assert got["requests"] == want["requests"] and got["requests"]["completions"] >= 4
+    assert got["tokens"] == want["tokens"]
+    for key in ("slots", "cache_len", "joins", "tokens_out", "frontier_jumps", "decode_dispatches"):
+        assert got["continuous_pool"][key] == want["continuous_pool"][key], key
+    assert set(got["continuous_pool"]["latency"]) == set(want["continuous_pool"]["latency"])
+
+
+def test_dynamic_batcher_coalesces_compatible_requests():
+    """Concurrent greedy requests with matching parameters merge into ONE
+    lockstep decode padded to a power of two; an incompatible one runs on
+    its own; errors reach every waiter (tests/test_models.py's test, on the
+    port's server)."""
+    calls = []
+    gate = threading.Event()
+
+    class FakeEngine:
+        cfg = type("C", (), {"vocab_size": 128})()
+
+        def generate_batch(self, prompts, return_meta=False, **kw):
+            gate.wait(timeout=5)
+            calls.append((list(prompts), dict(kw)))
+            if kw.get("seed") == 666:
+                raise RuntimeError("device on fire")
+            return [f"r:{p}" for p in prompts], ["stop"] * len(prompts)
+
+    server = ModelServer(FakeEngine(), batch_window_ms=2000.0)
+    kwargs = {"greedy": True, "max_new_tokens": 4, "seed": 0}
+    results = {}
+
+    def post(name, prompts, kw):
+        results[name] = server._generate(prompts, kw)
+
+    threads = [threading.Thread(target=post, args=(f"t{i}", [f"p{i}"], dict(kwargs))) for i in range(3)]
+    for t in threads:
+        t.start()
+    time.sleep(0.5)
+    hot = threading.Thread(target=post, args=("hot", ["ph"], {**kwargs, "max_new_tokens": 9}))
+    hot.start()
+    threads.append(hot)
+    time.sleep(0.3)
+    gate.set()
+    for t in threads:
+        t.join(timeout=20)
+    assert all(not t.is_alive() for t in threads)
+    for i in range(3):
+        assert results[f"t{i}"]["choices"][0]["text"] == f"r:p{i}"
+    assert results["hot"]["choices"][0]["text"] == "r:ph"
+    assert sorted(len(p) for p, _ in calls) == [1, 4]
+    merged = next(p for p, _ in calls if len(p) == 4)
+    assert merged[3] == merged[2]
+    assert server._generate(["solo"], {**kwargs, "greedy": False})["choices"][0]["text"] == "r:solo"
+    with pytest.raises(RuntimeError, match="device on fire"):
+        server._generate(["x"], {**kwargs, "seed": 666})
+    server.stop()
+    with pytest.raises(RuntimeError, match="server stopped"):
+        server.batcher.submit(["late"], kwargs)
+
+
+def test_serve_entry_loads_warms_up_and_answers(tmp_path):
+    """``serve()`` on a checkpoint directory, on the CPU: loads, warms up
+    the stream, batcher and pool paths, answers; a greedy request equals the
+    solo stream."""
+    from shardmerge_tpu_torch.serve import serve
+
+    from .test_torch_engine import _save_tiny_checkpoint
+
+    _save_tiny_checkpoint(tmp_path)
+    server = serve(
+        str(tmp_path), port=0, batch_window_ms=5.0, continuous=2, continuous_cache_len=256,
+        warmup=True, device="cpu", tokenizer=StubTokenizer(),
+    )
+    try:
+        assert server.pool.stats["joins"] == 1  # the warmup request
+        status, body = _call(server.port, "/v1/completions", {"prompt": "served", **GREEDY})
+        assert status == 200
+        solo = "".join(server.engine.stream_generation("served", max_new_tokens=8, greedy=True))
+        assert body["choices"][0]["text"] == solo
+        assert _call(server.port, "/health")[1] == {"status": "ok", "model": str(tmp_path)}
+    finally:
+        server.stop()
+
+
+def test_unported_serve_options_raise_by_name(tmp_path, capsys):
+    from shardmerge_tpu_torch.cli import main
+    from shardmerge_tpu_torch.serve import serve
+
+    for kw, name in ((dict(draft_model="d"), "draft_model"), (dict(shard=True), "shard"),
+                     (dict(prefix_cache=2), "prefix_cache")):
+        with pytest.raises(NotImplementedError, match=name):
+            serve(str(tmp_path), device="cpu", **kw)
+    assert main(["serve", str(tmp_path), "--prefix-cache", "2", "--device", "cpu"]) == 2
+    assert "prefix_cache" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        main(["serve", str(tmp_path), "--continuous", "65"])  # beyond the pool's 64 slots

@@ -6,7 +6,8 @@
 Phases (each prints one line or a few; any failure exits non-zero):
 
 1. card: ``nvidia-smi`` name and power limit, torch's device name;
-2. build: both kernels from csrc/ (nvcc, sm_90a), one nvcc each, together;
+2. build: the four kernel sources of csrc/ (nvcc, sm_90a), one nvcc each,
+   all started together;
 3. kernel int4_gemv: hold it to ``int4_matmul_plain`` at the Llama-3.1-8B
    decode shapes, B = 1, 4, 8, 64, f32 and bf16 x (relL2 <= 1e-5 f32,
    <= 4e-3 bf16), timing both;
@@ -15,17 +16,27 @@ Phases (each prints one line or a few; any failure exits non-zero):
    the generate (B 4, S 256) and serve (B 8, S 4096) shapes, each with a
    masked tail, random holes, and only the last 7 slots valid (relL2 <=
    1e-5, finite); time it, the plain version and SDPA;
-5. checkpoints: base + 2 finetunes at Llama-3.1-8B widths cut to 2 layers,
+5. fft: the spectral transforms. ``dft_rows``/``dft_cols`` (four-step
+   DFT) at the Llama-3.1-8B shapes (4096, 8192), (4096, 4096), (1024,
+   4096), (14336, 4096), (4096, 14336) and (64, 97), and ``fft_batched``
+   (Stockham) at the rfft2/irfft2 passes of the three supported 8B shapes
+   and at N = 448, 960, 3584, forward and inverse, each held to its plain
+   version and to a complex128 torch.fft truth (relL2 <= 1e-5, finite);
+   the rfft2 -> irfft2 round trip of scripts/bench_fft_vpu.py and the
+   fft2_mxu -> ifft2_mxu one at (4096, 8192) must return the input (relL2
+   <= 1e-5) with every transform kernel launched on the way; per-kernel
+   times beside the plain version, torch.fft and the bound;
+6. checkpoints: base + 2 finetunes at Llama-3.1-8B widths cut to 2 layers,
    bf16, 2 shards each, random weights from seeded generators;
-6. merge: ``python -m shardmerge_tpu_torch merge cfg.json`` (alphas 0.8 and
+7. merge: ``python -m shardmerge_tpu_torch merge cfg.json`` (alphas 0.8 and
    0.4); the output must mirror the base index, be finite, take the slerp
    regime, and agree with the port's host path on one q_proj;
-7. generate: load the merge with int4 weights, ``generate_batch`` on 4
+8. generate: load the merge with int4 weights, ``generate_batch`` on 4
    prompts and one ``stream_generation``; both kernels' launch counts must
    show the decode went through them, and one decode step's logits must
    agree with the same step on the plain int4 product; an A/B of the decode
    step against the einsum attention path;
-8. serve: the HTTP server on that engine with a continuous pool of 8 slots
+9. serve: the HTTP server on that engine with a continuous pool of 8 slots
    and a 4096-slot cache; staggered greedy requests (prompts of 30-3000
    tokens, one with a stop string), one SSE stream and one 4-prompt
    lockstep request; every pool completion must equal the solo stream, both
@@ -36,7 +47,7 @@ Phases (each prints one line or a few; any failure exits non-zero):
    relL2 1e-5, its logits at 2e-2), and its four completions must equal
    the solo stream; an A/B of that pool step against the einsum path, and
    the device's busy share over profiled pool steps;
-9. the kernel summary line, the card line, and the result line.
+10. the kernel summary line (all five kernels), the card line, and the result line.
 
 It imports nothing of JAX. With no CUDA device it exits 1 and prints no
 result.
@@ -45,6 +56,7 @@ result.
 from __future__ import annotations
 
 import json
+import math
 import random
 import shutil
 import subprocess
@@ -100,6 +112,15 @@ FLASH_SHAPES = [(b, s) for b in (1, 4, 16) for s in (2048, 8192, 32768)]
 GENERATE_ATTN = (4, 256)  # generate_batch: 4 prompts, one 256-slot bucket
 SERVE_SLOTS, SERVE_CACHE = 8, 4096
 SERVE_ATTN = (SERVE_SLOTS, SERVE_CACHE)
+# the spectral-transform path: the merge's bench shape, which
+# scripts/bench_fft_vpu.py round-trips through rfft2/irfft2
+FFT_SHAPE = (4096, 8192)
+# four-step DFT cases: Llama-3.1-8B tensor shapes and one prime length
+DFT_SHAPES = [(4096, 8192), (4096, 4096), (1024, 4096), (14336, 4096), (4096, 14336), (64, 97)]
+# Stockham (B, N): the rows and (padded) columns passes of rfft2 at
+# (4096, 8192), (4096, 4096) and (1024, 4096), then radices 7, 3 and 5
+STOCKHAM_SHAPES = [(4096, 4096), (4128, 4096), (4096, 2048), (2080, 4096), (1024, 2048), (2080, 1024),
+                   (256, 448), (256, 960), (256, 3584)]
 # NVIDIA H100 SXM5 80 GB data sheet: HBM3 bandwidth; dense bf16 (tensor
 # cores) and f32 (CUDA cores) rates
 HBM_BYTES_PER_S = 3.35e12
@@ -308,6 +329,153 @@ def phase_flash(torch, ak):
         f"plain {summary['plain_ms']:.4f} ms, SDPA {summary['library_ms']:.4f} ms; max abs err {worst:.3e}")
     del flush
     return summary
+
+
+def fft_bound(lines: int, length: int):
+    """Bound of one complex FFT pass over ``lines`` lines of ``length``
+    f32 re/im values, whatever implements it: both planes read once and
+    written once; 5 * L * log2(L) flops per line at the f32 CUDA-core
+    rate."""
+    return bound(16 * lines * length, 5 * length * math.log2(length) * lines, F32_FLOPS)
+
+
+def four_step_flops(lines: int, length: int) -> float:
+    """The four-step formulation's own count: 8 * L * (n1 + n2) per line."""
+    from shardmerge_tpu_torch.ops.pallas_fft import good_split
+
+    return 8.0 * length * sum(good_split(length)) * lines
+
+
+def fft_check(torch, label, got, want, truth):
+    """relL2 of the (re, im) pair ``got`` against the plain version's pair
+    and the complex128 truth; max abs error against the plain version."""
+    z = torch.complex(got[0].double(), got[1].double())
+    w = torch.complex(want[0].double(), want[1].double())
+    rel_plain = float((z - w).abs().norm() / w.abs().norm())
+    rel_truth = float((z - truth).abs().norm() / truth.abs().norm())
+    err = float((z - w).abs().max())
+    finite = bool(torch.isfinite(z).all())
+    passed = rel_plain <= 1e-5 and rel_truth <= 1e-5 and finite
+    say(f"[fft] {label}: relL2 vs plain {rel_plain:.2e}, vs complex128 truth {rel_truth:.2e} (tol 1e-5), "
+        f"max abs err vs plain {err:.3e}{'' if finite else ' NOT FINITE'} {'ok' if passed else 'FAIL'}")
+    return passed, err
+
+
+def phase_fft(torch, pf, fv):
+    """The spectral-transform path: each kernel against its plain version
+    and a complex128 truth; the rfft2 -> irfft2 round trip of
+    scripts/bench_fft_vpu.py and its four-step counterpart at the bench
+    shape, with the launch counters read around it; per-kernel timings."""
+    import numpy as np
+
+    dev = torch.device("cuda:0")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    ok = True
+    errs = {}
+    for m, n in DFT_SHAPES:
+        xr = torch.randn((m, n), device=dev, generator=gen)
+        xi = torch.randn((m, n), device=dev, generator=gen)
+        z = torch.complex(xr.double(), xi.double())
+        for name, kernel, plain, dim in (("dft_rows", pf.dft_rows, pf.dft_rows_plain, 1),
+                                         ("dft_cols", pf.dft_cols, pf.dft_cols_plain, 0)):
+            length = (m, n)[dim]
+            for inverse in (False, True):
+                got = kernel(xr, xi, inverse=inverse)
+                want = plain(xr, xi, inverse=inverse)
+                truth = torch.fft.ifft(z, dim=dim) if inverse else torch.fft.fft(z, dim=dim)
+                torch.cuda.synchronize()
+                passed, err = fft_check(
+                    torch, f"{name} ({m}, {n}) split {pf.good_split(length)} "
+                    f"{'inverse' if inverse else 'forward'}", got, want, truth)
+                ok &= passed
+                errs[(name, m, n, inverse)] = err
+                del got, want, truth
+        del xr, xi, z
+    for b, n in STOCKHAM_SHAPES:
+        zr = torch.randn((b, n), device=dev, generator=gen)
+        zi = torch.randn((b, n), device=dev, generator=gen)
+        z = torch.complex(zr.double(), zi.double())
+        for inverse in (False, True):
+            got = fv.fft_batched(zr, zi, inverse)
+            want = fv.fft_batched_plain(zr, zi, inverse)
+            truth = torch.fft.ifft(z, dim=1) if inverse else torch.fft.fft(z, dim=1)
+            torch.cuda.synchronize()
+            passed, err = fft_check(
+                torch, f"fft_batched B={b} N={n} radices {fv.factorize(n // 8)}+8 "
+                f"{'inverse' if inverse else 'forward'}", got, want, truth)
+            ok &= passed
+            errs[("fft_batched", b, n, inverse)] = err
+            del got, want, truth
+        del zr, zi, z
+    if not ok:
+        raise SystemExit("[fft] a kernel disagrees with its plain version or the truth")
+
+    # the entry point's round trip (scripts/bench_fft_vpu.py), the four-step
+    # one beside it, and the library's
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal(FFT_SHAPE).astype(np.float32)).to(dev)
+
+    def vpu_round():
+        return fv.irfft2_vpu(fv.rfft2_vpu(x), FFT_SHAPE)
+
+    def mxu_round():
+        return pf.ifft2_mxu(*pf.fft2_mxu(x))[0]
+
+    def lib_round():
+        return torch.fft.irfftn(torch.fft.rfftn(x), s=FFT_SHAPE)
+
+    reset_counts(pf, fv)
+    out_vpu = vpu_round()
+    out_mxu = mxu_round()
+    torch.cuda.synchronize()
+    launches = {"dft_rows": pf.launch_counts["dft_rows"], "dft_cols": pf.launch_counts["dft_cols"],
+                "fft_batched": fv.launch_counts["fft_batched"]}
+    lib = lib_round()
+    rel = {k: (rel_l2(v, x), rel_l2(v, lib)) for k, v in (("vpu", out_vpu), ("mxu", out_mxu))}
+    finite = all(bool(torch.isfinite(v).all()) for v in (out_vpu, out_mxu))
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    ms = {k: time_ms(torch, fn, flush, reps=10) for k, fn in
+          (("vpu", vpu_round), ("mxu", mxu_round), ("lib", lib_round))}
+    say(f"[fft] round trip at {FFT_SHAPE} (rng 7): irfft2_vpu(rfft2_vpu(x)) relL2 to x {rel['vpu'][0]:.2e}, "
+        f"to cuFFT's irfftn(rfftn(x)) {rel['vpu'][1]:.2e}, {ms['vpu']:.4f} ms; ifft2_mxu(fft2_mxu(x)) relL2 to x "
+        f"{rel['mxu'][0]:.2e}, to cuFFT's {rel['mxu'][1]:.2e}, {ms['mxu']:.4f} ms; cuFFT round trip "
+        f"{ms['lib']:.4f} ms (tol 1e-5 to x); launches {launches}")
+    if not finite or max(rel["vpu"][0], rel["mxu"][0]) > 1e-5:
+        raise SystemExit("[fft] a round trip does not return its input")
+    if min(launches.values()) < 1:
+        raise SystemExit(f"[fft] kernels not on the path: {launches}")
+    del out_vpu, out_mxu, lib
+
+    # per-kernel times at the round trip's shapes
+    m, n = FFT_SHAPE
+    xr = torch.randn(FFT_SHAPE, device=dev, generator=gen)
+    xi = torch.randn(FFT_SHAPE, device=dev, generator=gen)
+    zc = torch.complex(xr, xi)
+    summaries = {}
+    cases = [("dft_rows", pf.dft_rows, pf.dft_rows_plain, xr, xi, 1, m, n),
+             ("dft_cols", pf.dft_cols, pf.dft_cols_plain, xr, xi, 0, n, m)]
+    for b in (m, fv._plan(FFT_SHAPE)["p"]):  # rows pass (4096, 4096), padded columns pass (4128, 4096)
+        zr = torch.randn((b, n // 2), device=dev, generator=gen)
+        zi = torch.randn((b, n // 2), device=dev, generator=gen)
+        cases.append((f"fft_batched B={b}", lambda r, i: fv.fft_batched(r, i, False),
+                      lambda r, i: fv.fft_batched_plain(r, i, False), zr, zi, 1, b, n // 2))
+    for name, kernel, plain, r, i, dim, lines, length in cases:
+        zlib = zc if r is xr else torch.complex(r, i)
+        k_ms = time_ms(torch, lambda: kernel(r, i), flush)
+        p_ms = time_ms(torch, lambda: plain(r, i), flush)
+        l_ms = time_ms(torch, lambda: torch.fft.fft(zlib, dim=dim), flush)
+        bound_ms, bound_by = fft_bound(lines, length)
+        flops = four_step_flops(lines, length) if name.startswith("dft") else None
+        note = (f"; the four-step formulation does {flops / 1e9:.1f} GFLOP, "
+                f"{bound(0, flops, F32_FLOPS)[0]:.4f} ms at the f32 peak") if flops else ""
+        key = name.split()[0]
+        err = errs.get((key, m, n, False)) if key != "fft_batched" else errs.get((key, lines, length, False))
+        summaries.setdefault(key, dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms,
+                                       bound_by=bound_by, library_ms=l_ms))
+        say(f"[fft] {name} at ({r.shape[0]}, {r.shape[1]}) forward: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+            f"torch.fft.fft {l_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: {16 * lines * length / 1e6:.0f} MB, "
+            f"{5 * length * math.log2(length) * lines / 1e9:.2f} GFLOP){note}")
+    del flush
+    return summaries, launches
 
 
 def write_checkpoints(torch, root: Path):
@@ -845,6 +1013,8 @@ def main() -> int:
         return 1
     from shardmerge_tpu_torch.models import attn_kernels as ak
     from shardmerge_tpu_torch.models import quant_kernels as qk
+    from shardmerge_tpu_torch.ops import fft_vpu as fv
+    from shardmerge_tpu_torch.ops import pallas_fft as pf
 
     torch.backends.cuda.matmul.allow_tf32 = False  # plain f32 products in f32
     torch.backends.cudnn.allow_tf32 = False
@@ -852,9 +1022,10 @@ def main() -> int:
     say(f"[card] {card}")
     say(f"[card] torch {torch.__version__} cuda {torch.version.cuda}: {torch.cuda.get_device_name(0)}")
 
-    phase_build([qk, ak])
+    phase_build([qk, ak, pf, fv])
     int4 = phase_kernel(torch, qk)
     flash = phase_flash(torch, ak)
+    fft, fft_launches = phase_fft(torch, pf, fv)
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
         t0 = time.perf_counter()
@@ -867,8 +1038,10 @@ def main() -> int:
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
-    # launches: the serve path's run; times at its shapes (B=8 GEMVs, the
-    # pool's B=8 x 4096-slot attention)
+    # launches: the serve path's run for the decode kernels, the [fft]
+    # round trip for the transforms; times at those paths' shapes (B=8
+    # GEMVs, the pool's B=8 x 4096-slot attention, the (4096, 8192) round
+    # trip: both DFT axes, the Stockham rows pass (4096, 4096))
     say(json.dumps({"kernels": [
         {
             "name": "int4_gemv",
@@ -885,6 +1058,30 @@ def main() -> int:
             "replaces": "shardmerge_tpu/models/attn_kernels.py:152",
             "launches": launches["flash_decode"],
             **flash,
+        },
+        {
+            "name": "dft_rows",
+            "route": "cuda",
+            "source": "shardmerge_tpu_torch/csrc/four_step_dft.cu",
+            "replaces": "shardmerge_tpu/ops/pallas_fft.py:157",
+            "launches": fft_launches["dft_rows"],
+            **fft["dft_rows"],
+        },
+        {
+            "name": "dft_cols",
+            "route": "cuda",
+            "source": "shardmerge_tpu_torch/csrc/four_step_dft.cu",
+            "replaces": "shardmerge_tpu/ops/pallas_fft.py:222",
+            "launches": fft_launches["dft_cols"],
+            **fft["dft_cols"],
+        },
+        {
+            "name": "fft_batched",
+            "route": "cuda",
+            "source": "shardmerge_tpu_torch/csrc/stockham_fft.cu",
+            "replaces": "shardmerge_tpu/ops/fft_vpu.py:185",
+            "launches": fft_launches["fft_batched"],
+            **fft["fft_batched"],
         },
     ]}))
     say(card_line())

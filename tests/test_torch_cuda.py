@@ -253,3 +253,123 @@ def test_model_the_kernel_cannot_take_is_refused_on_the_card(card):
     llama.LlamaModel(cfg, params("cpu"))
     with pytest.raises(NotImplementedError, match="head_dim"):
         llama.LlamaModel(cfg, params(card))
+
+
+@pytest.fixture
+def f32_card(card):
+    """The plain DFTs' matmuls in full f32, as chip_smoke.py runs them."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield card
+    torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def _rel(got, want):
+    return float((got - want).abs().norm() / want.abs().norm())
+
+
+def _fft_planes(card, shape, seed):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    return (torch.randn(shape, device=card, generator=gen), torch.randn(shape, device=card, generator=gen))
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("axis", ["rows", "cols"])
+@pytest.mark.parametrize(
+    "shape",
+    [
+        (64, 96),
+        (32, 128),
+        (64, 97),  # prime N: rows split (1, 97)
+        (97, 40),  # prime M: cols split (1, 97)
+        (24, 48),  # splits (6, 8) and (4, 6): ragged 64-wide tiles
+        (4096, 8192),  # the Llama-3.1-8B bench shape: splits (64, 128) and (64, 64)
+        (4096, 14336),  # rows split (112, 128)
+    ],
+)
+def test_dft_kernels_match_plain_version(f32_card, axis, shape, inverse):
+    from shardmerge_tpu_torch.ops import pallas_fft as pf
+
+    xr, xi = _fft_planes(f32_card, shape, sum(shape))
+    kernel, plain = (pf.dft_rows, pf.dft_rows_plain) if axis == "rows" else (pf.dft_cols, pf.dft_cols_plain)
+    got = kernel(xr, xi, inverse=inverse)
+    want = plain(xr, xi, inverse=inverse)
+    torch.cuda.synchronize()
+    dim = 1 if axis == "rows" else 0
+    z = torch.complex(xr.double(), xi.double())
+    truth = torch.fft.ifft(z, dim=dim) if inverse else torch.fft.fft(z, dim=dim)
+    got_c = torch.complex(got[0].double(), got[1].double())
+    assert got[0].shape == shape and bool(torch.isfinite(got_c).all())
+    assert _rel(got_c, torch.complex(want[0].double(), want[1].double())) <= 1e-5
+    assert _rel(got_c, truth) <= 1e-5
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize(
+    "B,N",
+    [
+        (8, 8),  # no radix stage, only the DFT-8
+        (16, 64),
+        (40, 1024),  # several lines per block, a ragged last block
+        (256, 448),  # radix 7
+        (256, 960),  # radices 3 and 5
+        (256, 3584),  # radix 7 at full depth
+        (4128, 4096),  # the padded columns pass of rfft2 at (4096, 8192)
+    ],
+)
+def test_stockham_kernel_matches_plain_version(card, B, N, inverse):
+    from shardmerge_tpu_torch.ops import fft_vpu as fv
+
+    zr, zi = _fft_planes(card, (B, N), N)
+    got = fv.fft_batched(zr, zi, inverse)
+    want = fv.fft_batched_plain(zr, zi, inverse)
+    torch.cuda.synchronize()
+    z = torch.complex(zr.double(), zi.double())
+    truth = torch.fft.ifft(z, dim=1) if inverse else torch.fft.fft(z, dim=1)
+    got_c = torch.complex(got[0].double(), got[1].double())
+    assert bool(torch.isfinite(got_c).all())
+    assert _rel(got_c, torch.complex(want[0].double(), want[1].double())) <= 1e-5
+    assert _rel(got_c, truth) <= 1e-5
+
+
+@pytest.mark.parametrize("shape", [(64, 128), (128, 448), (4096, 8192)])
+def test_rfft2_round_trip_on_the_card(f32_card, shape):
+    from shardmerge_tpu_torch.ops import fft_vpu as fv
+    from shardmerge_tpu_torch.ops import pallas_fft as pf
+
+    x = _fft_planes(f32_card, shape, 11)[0]
+    fv.reset_launch_counts()
+    pf.reset_launch_counts()
+    spec = fv.rfft2_vpu(x)
+    assert _rel(spec.to(torch.complex128), torch.fft.rfftn(x.double())) <= 1e-5
+    back = fv.irfft2_vpu(spec, shape)
+    assert fv.launch_counts["fft_batched"] == 4
+    assert _rel(back, x) <= 1e-5
+    fr, fi = pf.fft2_mxu(x)
+    assert _rel(pf.ifft2_mxu(fr, fi)[0], x) <= 1e-5
+    assert pf.launch_counts["dft_rows"] == 2 and pf.launch_counts["dft_cols"] == 2
+
+
+def test_fft_wrappers_raise_instead_of_falling_back(card):
+    from shardmerge_tpu_torch.ops import fft_vpu as fv
+    from shardmerge_tpu_torch.ops import pallas_fft as pf
+
+    xr, xi = _fft_planes(card, (32, 64), 1)
+    pf.reset_launch_counts()
+    fv.reset_launch_counts()
+    with pytest.raises(TypeError):
+        pf.dft_rows(xr.double(), xi.double())
+    with pytest.raises(ValueError):
+        pf.dft_cols(xr, xi[:16])
+    with pytest.raises(TypeError):
+        fv.fft_batched(xr.double(), xi.double(), False)
+    with pytest.raises(ValueError):
+        fv.fft_batched(xr[:12], xi[:12], False)  # B % 8 != 0, the JAX gate
+    assert sum(pf.launch_counts.values()) == 0 and sum(fv.launch_counts.values()) == 0
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError, match="allow_tf32"):
+            pf.dft_rows_plain(xr, xi)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev

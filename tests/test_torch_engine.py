@@ -261,6 +261,7 @@ def test_port_imports_without_jax_and_host_extras(tmp_path):
         "import shardmerge_tpu_torch.merge, shardmerge_tpu_torch.models.convert\n"
         "import shardmerge_tpu_torch.batching, shardmerge_tpu_torch.serve\n"
         "import shardmerge_tpu_torch.models.attn_kernels\n"
+        "import shardmerge_tpu_torch.ops.pallas_fft, shardmerge_tpu_torch.ops.fft_vpu\n"
         "from shardmerge_tpu_torch.config import MergeConfig\n"
         "cfg = MergeConfig.from_file(sys.argv[1])\n"
         "assert cfg.finetune_merge[0].alpha == 0.5, cfg\n"

@@ -1,0 +1,190 @@
+"""The port's spectral transforms against the JAX modules, on the CPU.
+
+shardmerge_tpu_torch/ops/pallas_fft.py and ops/fft_vpu.py take the plain
+path on CPU tensors (the four-step arithmetic and the flat Stockham in f32
+torch); the JAX functions run their Pallas kernels in interpret mode, as
+tests/test_pallas_fft.py and tests/test_fft_vpu.py run them. The same numpy
+inputs from a seed go through both. Tolerances are the JAX tests' own:
+2e-6 * max|ref| for the four-step DFT (f32 sums of 64-128 terms), 4e-6 *
+max|ref| for the Stockham path (its chained twiddles), 1e-5 absolute for
+round trips. Each JAX result is computed once per module (the interpret
+mode costs seconds per call).
+"""
+
+from functools import lru_cache
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from shardmerge_tpu.ops import fft_vpu as jfv
+from shardmerge_tpu.ops import pallas_fft as jpf
+from shardmerge_tpu_torch.ops import fft_vpu as tfv
+from shardmerge_tpu_torch.ops import pallas_fft as tpf
+
+# (shape, complex input): the JAX tests' real inputs and their complex one
+DFT_CASES = [((64, 96), False), ((32, 128), False), ((32, 64), True)]
+RFFT_SHAPES = [(64, 128), (128, 448), (56, 112), (96, 160)]
+# the shapes of test_fft_vpu.py::test_supported_gate plus the 8B ones
+GATE_SHAPES = [(4096, 8192), (2048, 3584), (4096, 14336), (4096, 8191), (4, 128), (4096, 22), (4096,),
+               (4096, 4096), (1024, 4096), (14336, 4096), (64, 128), (128, 448)]
+
+
+def _planes(shape, seed, complex_input=True):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(shape).astype(np.float32)
+    y = rng.standard_normal(shape).astype(np.float32) if complex_input else np.zeros(shape, np.float32)
+    return x, y
+
+
+@lru_cache(maxsize=None)
+def _jax_dft(axis, shape, complex_input, inverse):
+    x, y = _planes(shape, 3, complex_input)
+    fn = jpf.dft_rows if axis == "rows" else jpf.dft_cols
+    r, i = fn(jnp.asarray(x), jnp.asarray(y), inverse=inverse)
+    return np.asarray(r) + 1j * np.asarray(i)
+
+
+@lru_cache(maxsize=None)
+def _jax_rfft2(shape):
+    x, _ = _planes(shape, 5, False)
+    return np.array(jfv.rfft2_vpu(jnp.asarray(x)))
+
+
+def _c(pair):
+    return pair[0].numpy() + 1j * pair[1].numpy()
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("axis", ["rows", "cols"])
+@pytest.mark.parametrize("shape,complex_input", DFT_CASES)
+def test_dft_matches_jax_and_numpy(axis, shape, complex_input, inverse):
+    x, y = _planes(shape, 3, complex_input)
+    fn = tpf.dft_rows if axis == "rows" else tpf.dft_cols
+    got = _c(fn(torch.from_numpy(x), torch.from_numpy(y), inverse=inverse))
+    want = _jax_dft(axis, shape, complex_input, inverse)
+    npfn = np.fft.ifft if inverse else np.fft.fft
+    exact = npfn(x + 1j * y, axis=1 if axis == "rows" else 0)
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(got, want, atol=2e-6 * scale)
+    np.testing.assert_allclose(got, exact, atol=2e-6 * scale)
+
+
+def test_fft2_mxu_round_trip_matches_jax():
+    x, _ = _planes((64, 96), 3, False)
+    fr, fi = tpf.fft2_mxu(torch.from_numpy(x))
+    jr, ji = jpf.fft2_mxu(jnp.asarray(x))
+    want = np.asarray(jr) + 1j * np.asarray(ji)
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(_c((fr, fi)), want, atol=2e-6 * scale)
+    np.testing.assert_allclose(_c((fr, fi)), np.fft.fft2(x), atol=2e-6 * scale)
+    back_r, back_i = tpf.ifft2_mxu(fr, fi)
+    np.testing.assert_allclose(back_r.numpy(), x, atol=1e-5)
+    np.testing.assert_allclose(back_i.numpy(), 0.0, atol=1e-5)
+
+
+@pytest.mark.parametrize("n", [96, 128, 64, 97, 8192, 4096, 14336])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_factor_tables_bit_equal(n, inverse):
+    got = tpf._factors(n, inverse, "cpu")
+    want = jpf._factors(n, inverse)
+    assert len(got) == len(want) == 6
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        assert np.array_equal(g.numpy(), w)
+
+
+@pytest.mark.parametrize("n", [8192, 4096, 14336, 48, 7, 97, 1, 2, 96, 128, 1024, 4128])
+def test_good_split_equal(n):
+    assert tpf.good_split(n) == jpf.good_split(n)
+
+
+def test_dft_wrapper_on_cpu_runs_the_plain_version():
+    x, y = _planes((32, 64), 4)
+    xr, xi = torch.from_numpy(x), torch.from_numpy(y)
+    tpf.reset_launch_counts()
+    for fn, plain in ((tpf.dft_rows, tpf.dft_rows_plain), (tpf.dft_cols, tpf.dft_cols_plain)):
+        for inverse in (False, True):
+            got = fn(xr, xi, inverse=inverse)
+            want = plain(xr, xi, inverse=inverse)
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert sum(tpf.launch_counts.values()) == 0
+
+
+@pytest.mark.parametrize("shape", RFFT_SHAPES)
+def test_rfft2_matches_jax_and_numpy(shape):
+    x, _ = _planes(shape, 5, False)
+    got = tfv.rfft2_vpu(torch.from_numpy(x))
+    want = _jax_rfft2(shape)
+    assert got.dtype == torch.complex64 and got.shape == want.shape
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(got.numpy(), want, atol=4e-6 * scale)
+    np.testing.assert_allclose(got.numpy(), np.fft.rfftn(x, axes=(-2, -1)), atol=4e-6 * scale)
+
+
+@pytest.mark.parametrize("shape", [(64, 128), (128, 448)])
+def test_irfft2_round_trip(shape):
+    x, _ = _planes(shape, 5, False)
+    spec = tfv.rfft2_vpu(torch.from_numpy(x))
+    back = tfv.irfft2_vpu(spec, shape)
+    assert back.dtype == torch.float32 and back.shape == shape
+    np.testing.assert_allclose(back.numpy(), x, atol=1e-5)
+    # the port's inverse of the JAX forward's spectrum
+    from_jax = tfv.irfft2_vpu(torch.from_numpy(_jax_rfft2(shape)), shape)
+    np.testing.assert_allclose(from_jax.numpy(), x, atol=1e-5)
+
+
+def test_irfft2_from_numpy_spectrum_matches_jax():
+    shape = (64, 128)
+    x, _ = _planes(shape, 6, False)
+    spec = np.fft.rfftn(x, axes=(-2, -1)).astype(np.complex64)
+    got = tfv.irfft2_vpu(torch.from_numpy(spec), shape).numpy()
+    want = np.asarray(jfv.irfft2_vpu(jnp.asarray(spec), shape))
+    np.testing.assert_allclose(got, x, atol=1e-5)
+    np.testing.assert_allclose(got, want, atol=1e-5)
+
+
+# radix 4 and 2 both ways and N = 8 (no stage); radices 7, 3 and 5 reach
+# the JAX kernel through test_rfft2_matches_jax_and_numpy's shapes
+@pytest.mark.parametrize("B,N,inverse", [(16, 64, False), (16, 64, True), (8, 8, False)])
+def test_fft_batched_plain_matches_jax(B, N, inverse):
+    zr, zi = _planes((B, N), N)
+    got = _c(tfv.fft_batched_plain(torch.from_numpy(zr), torch.from_numpy(zi), inverse))
+    jr, ji = jfv._fft_batched(jnp.asarray(zr), jnp.asarray(zi), inverse)
+    want = np.asarray(jr) + 1j * np.asarray(ji)
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(got, want, atol=4e-6 * scale)
+    exact = (np.fft.ifft if inverse else np.fft.fft)(zr + 1j * zi, axis=-1)
+    np.testing.assert_allclose(got, exact, atol=4e-6 * scale)
+
+
+def test_fft_batched_wrapper_on_cpu_and_its_gate():
+    zr, zi = _planes((16, 64), 9)
+    tfv.reset_launch_counts()
+    got = tfv.fft_batched(torch.from_numpy(zr), torch.from_numpy(zi), False)
+    want = tfv.fft_batched_plain(torch.from_numpy(zr), torch.from_numpy(zi), False)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert tfv.launch_counts["fft_batched"] == 0
+    for bad in ((12, 64), (16, 8192), (16, 88)):  # B % 8, N > 4096, 11 does not factor
+        with pytest.raises(ValueError):
+            tfv.fft_batched(torch.zeros(bad), torch.zeros(bad), False)
+
+
+@pytest.mark.parametrize("n", [4096, 7168, 11, 1, 512, 448, 960, 3584, 120, 22])
+def test_factorize_equal(n):
+    assert tfv.factorize(n) == jfv.factorize(n)
+
+
+@pytest.mark.parametrize("shape", GATE_SHAPES)
+def test_plan_and_gate_equal(shape):
+    assert tfv._plan(shape) == jfv._plan(shape)
+    assert tfv.vpu_supported(shape) == jfv.vpu_supported(shape)
+
+
+@pytest.mark.parametrize("n", [128, 8192, 448])
+def test_untangle_table_bit_equal(n):
+    got = tfv._untangle_w(n)
+    want = jfv._untangle_w(n)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and np.array_equal(g.numpy(), np.asarray(w))

@@ -16,16 +16,20 @@ Phases (each prints one line or a few; any failure exits non-zero):
    the generate (B 4, S 256) and serve (B 8, S 4096) shapes, each with a
    masked tail, random holes, and only the last 7 slots valid (relL2 <=
    1e-5, finite); time it, the plain version and SDPA;
-5. fft: the spectral transforms. ``dft_rows``/``dft_cols`` (four-step
-   DFT) at the Llama-3.1-8B shapes (4096, 8192), (4096, 4096), (1024,
-   4096), (14336, 4096), (4096, 14336) and (64, 97), and ``fft_batched``
+5. fft: the spectral transforms. ``dft_rows``/``dft_cols`` (radix FFTs
+   in shared memory) at the Llama-3.1-8B shapes (4096, 8192), (4096, 4096),
+   (1024, 4096), (14336, 4096), (4096, 14336), (128256, 64) (split (334,
+   384), a radix-167 stage), the prime (64, 97) and (8, 32768) (rows no
+   block holds: two passes), and ``fft_batched``
    (Stockham) at the rfft2/irfft2 passes of the three supported 8B shapes
    and at N = 448, 960, 3584, forward and inverse, each held to its plain
    version and to a complex128 torch.fft truth (relL2 <= 1e-5, finite);
    the rfft2 -> irfft2 round trip of scripts/bench_fft_vpu.py and the
    fft2_mxu -> ifft2_mxu one at (4096, 8192) must return the input (relL2
    <= 1e-5) with every transform kernel launched on the way; per-kernel
-   times beside the plain version, torch.fft and the bound;
+   times beside the plain version, torch.fft and the bound, for the DFTs
+   also at (4096, 14336) rows and (14336, 4096) columns, with each route's
+   device launches;
 6. checkpoints: base + 2 finetunes at Llama-3.1-8B widths cut to 2 layers,
    bf16, 2 shards each, random weights from seeded generators;
 7. merge: ``python -m shardmerge_tpu_torch merge cfg.json`` (alphas 0.8 and
@@ -115,8 +119,10 @@ SERVE_ATTN = (SERVE_SLOTS, SERVE_CACHE)
 # the spectral-transform path: the merge's bench shape, which
 # scripts/bench_fft_vpu.py round-trips through rfft2/irfft2
 FFT_SHAPE = (4096, 8192)
-# four-step DFT cases: Llama-3.1-8B tensor shapes and one prime length
-DFT_SHAPES = [(4096, 8192), (4096, 4096), (1024, 4096), (14336, 4096), (4096, 14336), (64, 97)]
+# DFT cases: Llama-3.1-8B tensor shapes, one prime length, and rows longer
+# than a block holds
+DFT_SHAPES = [(4096, 8192), (4096, 4096), (1024, 4096), (14336, 4096), (4096, 14336), (128256, 64), (64, 97),
+              (8, 32768)]
 # Stockham (B, N): the rows and (padded) columns passes of rfft2 at
 # (4096, 8192), (4096, 4096) and (1024, 4096), then radices 7, 3 and 5
 STOCKHAM_SHAPES = [(4096, 4096), (4128, 4096), (4096, 2048), (2080, 4096), (1024, 2048), (2080, 1024),
@@ -339,11 +345,13 @@ def fft_bound(lines: int, length: int):
     return bound(16 * lines * length, 5 * length * math.log2(length) * lines, F32_FLOPS)
 
 
-def four_step_flops(lines: int, length: int) -> float:
-    """The four-step formulation's own count: 8 * L * (n1 + n2) per line."""
-    from shardmerge_tpu_torch.ops.pallas_fft import good_split
-
-    return 8.0 * length * sum(good_split(length)) * lines
+def dft_route(pf, name: str, shape) -> str:
+    """The DFT kernel's route at ``shape``: its passes (length, radices,
+    lines per block, threads) and device launches."""
+    passes = pf._plan(name, *shape)
+    desc = "; ".join(f"L={p.L} radices {list(p.radices)} {p.W} lines x {p.threads or 'direct'} threads"
+                     for p in passes)
+    return f"{len(passes)} device launch{'es' if len(passes) > 1 else ''} ({desc})"
 
 
 def fft_check(torch, label, got, want, truth):
@@ -385,7 +393,7 @@ def phase_fft(torch, pf, fv):
                 truth = torch.fft.ifft(z, dim=dim) if inverse else torch.fft.fft(z, dim=dim)
                 torch.cuda.synchronize()
                 passed, err = fft_check(
-                    torch, f"{name} ({m}, {n}) split {pf.good_split(length)} "
+                    torch, f"{name} ({m}, {n}) length {length}, {dft_route(pf, name, (m, n))} "
                     f"{'inverse' if inverse else 'forward'}", got, want, truth)
                 ok &= passed
                 errs[(name, m, n, inverse)] = err
@@ -445,29 +453,32 @@ def phase_fft(torch, pf, fv):
         raise SystemExit(f"[fft] kernels not on the path: {launches}")
     del out_vpu, out_mxu, lib
 
-    # per-kernel times at the round trip's shapes
+    # per-kernel times at the round trip's shapes, then the DFTs at the
+    # 14336-long axes (radix 7 in one pass for rows, two passes for columns)
     m, n = FFT_SHAPE
     xr = torch.randn(FFT_SHAPE, device=dev, generator=gen)
     xi = torch.randn(FFT_SHAPE, device=dev, generator=gen)
-    zc = torch.complex(xr, xi)
     summaries = {}
     cases = [("dft_rows", pf.dft_rows, pf.dft_rows_plain, xr, xi, 1, m, n),
              ("dft_cols", pf.dft_cols, pf.dft_cols_plain, xr, xi, 0, n, m)]
+    for name, kernel, plain, shape, dim in (("dft_rows", pf.dft_rows, pf.dft_rows_plain, (4096, 14336), 1),
+                                            ("dft_cols", pf.dft_cols, pf.dft_cols_plain, (14336, 4096), 0)):
+        cases.append((f"{name} long axis", kernel, plain, torch.randn(shape, device=dev, generator=gen),
+                      torch.randn(shape, device=dev, generator=gen), dim, shape[1 - dim], shape[dim]))
     for b in (m, fv._plan(FFT_SHAPE)["p"]):  # rows pass (4096, 4096), padded columns pass (4128, 4096)
         zr = torch.randn((b, n // 2), device=dev, generator=gen)
         zi = torch.randn((b, n // 2), device=dev, generator=gen)
         cases.append((f"fft_batched B={b}", lambda r, i: fv.fft_batched(r, i, False),
                       lambda r, i: fv.fft_batched_plain(r, i, False), zr, zi, 1, b, n // 2))
     for name, kernel, plain, r, i, dim, lines, length in cases:
-        zlib = zc if r is xr else torch.complex(r, i)
+        zlib = torch.complex(r, i)
         k_ms = time_ms(torch, lambda: kernel(r, i), flush)
         p_ms = time_ms(torch, lambda: plain(r, i), flush)
         l_ms = time_ms(torch, lambda: torch.fft.fft(zlib, dim=dim), flush)
+        del zlib
         bound_ms, bound_by = fft_bound(lines, length)
-        flops = four_step_flops(lines, length) if name.startswith("dft") else None
-        note = (f"; the four-step formulation does {flops / 1e9:.1f} GFLOP, "
-                f"{bound(0, flops, F32_FLOPS)[0]:.4f} ms at the f32 peak") if flops else ""
         key = name.split()[0]
+        note = f"; {dft_route(pf, key, tuple(r.shape))}" if key.startswith("dft") else ""
         err = errs.get((key, m, n, False)) if key != "fft_batched" else errs.get((key, lines, length, False))
         summaries.setdefault(key, dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms,
                                        bound_by=bound_by, library_ms=l_ms))

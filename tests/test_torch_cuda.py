@@ -284,7 +284,11 @@ def _fft_planes(card, shape, seed):
         (97, 40),  # prime M: cols split (1, 97)
         (24, 48),  # splits (6, 8) and (4, 6): ragged 64-wide tiles
         (4096, 8192),  # the Llama-3.1-8B bench shape: splits (64, 128) and (64, 64)
-        (4096, 14336),  # rows split (112, 128)
+        (4096, 14336),  # rows: radix 7, one 14336-value line per block
+        (4096, 4096),
+        (14336, 4096),  # columns: two passes, split (112, 128), radix 7
+        (8, 32768),  # rows: a line no block holds, two passes, split (128, 256)
+        (128256, 64),  # columns: two passes, split (334, 384), a radix-167 stage
     ],
 )
 def test_dft_kernels_match_plain_version(f32_card, axis, shape, inverse):
@@ -301,6 +305,25 @@ def test_dft_kernels_match_plain_version(f32_card, axis, shape, inverse):
     got_c = torch.complex(got[0].double(), got[1].double())
     assert got[0].shape == shape and bool(torch.isfinite(got_c).all())
     assert _rel(got_c, torch.complex(want[0].double(), want[1].double())) <= 1e-5
+    assert _rel(got_c, truth) <= 1e-5
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+def test_dft_rows_direct_route_matches_truth(card, inverse):
+    """N = 2 * 16411: the prime pass is longer than a block holds and runs
+    the direct sum (the plain version's 16411 x 16411 tables are not built
+    here: the complex128 truth is the yardstick)."""
+    from shardmerge_tpu_torch.ops import pallas_fft as pf
+
+    shape = (3, 2 * 16411)
+    assert [p.threads for p in pf._plan("dft_rows", *shape)] == [0, 512]
+    xr, xi = _fft_planes(card, shape, 5)
+    got = pf.dft_rows(xr, xi, inverse=inverse)
+    torch.cuda.synchronize()
+    z = torch.complex(xr.double(), xi.double())
+    truth = torch.fft.ifft(z, dim=1) if inverse else torch.fft.fft(z, dim=1)
+    got_c = torch.complex(got[0].double(), got[1].double())
+    assert bool(torch.isfinite(got_c).all())
     assert _rel(got_c, truth) <= 1e-5
 
 

@@ -100,6 +100,138 @@ def test_good_split_equal(n):
     assert tpf.good_split(n) == jpf.good_split(n)
 
 
+@pytest.mark.parametrize(
+    "n,want",
+    [(8192, (8, 8, 8, 8, 2)), (14336, (8, 8, 8, 4, 7)), (4096, (8, 8, 8, 8)), (128, (8, 8, 2)), (112, (8, 2, 7)),
+     (384, (8, 8, 2, 3)), (334, (2, 167)), (128256, (8, 8, 4, 3, 167)), (97, (97,)), (96, (8, 4, 3)),
+     (48, (8, 2, 3)), (40, (8, 5)), (1, ()), (2, (2,)), (121, (11, 11)), (2 * 16411, (2, 16411))],
+)
+def test_radix_factorization(n, want):
+    assert tpf._radices(n) == want
+    assert np.prod(want, dtype=np.int64) == n
+
+
+# (kernel, shape) -> each pass's (length, adjacent lines per block, threads;
+# 0 = the direct sum)
+PLAN_CASES = [
+    ("dft_rows", (4096, 8192), [(8192, 1, 512)]),  # one line per block, two blocks per SM
+    ("dft_rows", (4096, 14336), [(14336, 1, 1024)]),
+    ("dft_rows", (4096, 4096), [(4096, 2, 512)]),
+    ("dft_rows", (64, 97), [(97, 64, 512)]),
+    ("dft_rows", (8, 32768), [(256, 32, 512), (128, 64, 512)]),  # split (128, 512)
+    ("dft_rows", (3, 2 * 16411), [(16411, 1, 0), (2, 4096, 512)]),
+    ("dft_cols", (4096, 8192), [(4096, 4, 1024)]),  # a strip of 4 columns, 128 KB
+    ("dft_cols", (4096, 14336), [(4096, 4, 1024)]),
+    ("dft_cols", (1024, 4096), [(1024, 16, 1024)]),
+    ("dft_cols", (14336, 4096), [(128, 32, 512), (112, 32, 512)]),  # split (112, 128)
+    ("dft_cols", (128256, 64), [(384, 32, 1024), (334, 32, 1024)]),  # split (334, 384)
+    ("dft_cols", (97, 40), [(97, 32, 512)]),
+    ("dft_cols", (24, 48), [(24, 32, 512)]),
+]
+
+
+@pytest.mark.parametrize("name,shape,want", PLAN_CASES)
+def test_plan_route(name, shape, want):
+    passes = tpf._plan(name, *shape)
+    assert [(p.L, p.W, p.threads) for p in passes] == want
+    length = shape[1] if name == "dft_rows" else shape[0]
+    if len(passes) == 2:
+        assert (passes[1].L, passes[0].L) == tpf.good_split(length)
+        assert passes[0].twiddle and not passes[1].twiddle
+    # only the last pass scales the inverse; a block holds what it is given
+    assert [p.div for p in passes] == [0] * (len(passes) - 1) + [length]
+    assert all(p.W * p.L <= tpf._capacity(p.L, small=p.threads == 512) for p in passes if p.threads)
+
+
+@pytest.mark.parametrize("n", [8192, 14336, 97, 334, 128256, 1])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_roots_table_bit_equal(n, inverse):
+    """Every root and twiddle the kernel reads: e^(sign*2*pi*i*t/n) in
+    float64, rounded once to f32."""
+    tr, ti = tpf._roots(n, inverse, "cpu")
+    w = np.exp((2j if inverse else -2j) * np.pi * np.arange(n) / n)
+    assert tr.dtype == ti.dtype == torch.float32
+    assert np.array_equal(tr.numpy(), w.real.astype(np.float32))
+    assert np.array_equal(ti.numpy(), w.imag.astype(np.float32))
+
+
+@pytest.mark.parametrize("length", [8192, 14336, 112, 334, 97, 1])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_stage_twiddles_bit_equal(length, inverse):
+    """The stages' twiddles: w_m^(p*e) in float64, rounded once to f32, at
+    (e - 1)*(m/r) + p after the earlier stages' entries."""
+    radices = tpf._radices(length)
+    w = tpf._stage_twiddles(length, radices, inverse, "cpu")
+    tr, ti = w[:, 0].contiguous(), w[:, 1].contiguous()
+    want, m = [], length
+    for r in radices:
+        for e in range(1, r):
+            want.append(np.exp((2j if inverse else -2j) * np.pi * e * np.arange(m // r) / m))
+        m //= r
+    want = np.concatenate(want) if want else np.ones(1)
+    assert tr.dtype == torch.float32 and tr.shape == want.shape
+    assert np.array_equal(tr.numpy(), want.real.astype(np.float32))
+    assert np.array_equal(ti.numpy(), want.imag.astype(np.float32))
+
+
+def _run_schedule(name, shape, inverse, plan=None):
+    m, n = shape
+    length = n if name == "dft_rows" else m
+    rng = np.random.default_rng(sum(shape))
+    x = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+    tab = np.exp((2j if inverse else -2j) * np.pi * np.arange(length) / length)
+    flat = x.ravel()
+    for p in plan or tpf._plan(name, m, n):
+        out = np.full(m * n, np.nan, complex)
+        tpf._simulate(p, length, flat, tab, out, inverse)
+        flat = out
+    want = (np.fft.ifft if inverse else np.fft.fft)(x, axis=1 if name == "dft_rows" else 0)
+    np.testing.assert_allclose(flat.reshape(shape), want, atol=1e-12 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize(
+    "name,shape",
+    [("dft_rows", (8, 32768)), ("dft_cols", (14336, 3)), ("dft_cols", (128256, 2)), ("dft_rows", (24, 48)),
+     ("dft_cols", (24, 48)), ("dft_rows", (5, 97)), ("dft_cols", (97, 5)), ("dft_rows", (3, 1)),
+     ("dft_cols", (1, 5)), ("dft_rows", (6, 14336))],
+)
+def test_schedule_matches_numpy_fft(name, shape, inverse):
+    """The kernel's stage order, index maps and table indices, run in
+    float64 numpy, give the transform."""
+    _run_schedule(name, shape, inverse)
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize(
+    "name,shape,want",
+    [("dft_rows", (4, 96), [(12, 2, 1024), (8, 2, 512)]), ("dft_cols", (96, 4), [(12, 2, 1024), (8, 4, 1024)]),
+     ("dft_rows", (3, 2 * 37), [(37, 1, 0), (2, 8, 512)]), ("dft_cols", (2 * 37, 3), [(37, 1, 0), (2, 3, 512)]),
+     ("dft_cols", (37, 3), [(37, 1, 0), (1, 3, 512)]), ("dft_rows", (3, 37), [(37, 1, 0), (1, 16, 512)])],
+)
+def test_schedule_of_small_blocks(monkeypatch, name, shape, inverse, want):
+    """Blocks shrunk to 32 values: short shapes take the two-pass route,
+    a prime the direct sum (threads 0) and a pass of length 1, and the
+    schedule still gives the transform."""
+    monkeypatch.setattr(tpf, "_MAX_BLOCK", 32)
+    monkeypatch.setattr(tpf, "_SMALL_BLOCK", 16)
+    plan = tpf._plan.__wrapped__(name, *shape)
+    assert [(p.L, p.W, p.threads) for p in plan] == want
+    _run_schedule(name, shape, inverse, plan)
+
+
+def test_pass_descriptor_layout():
+    (p,) = tpf._plan("dft_rows", 4096, 14336)
+    fwd = tpf._desc(p, 14336, False)
+    inv = tpf._desc(p, 14336, True)
+    assert fwd.dtype == np.int64
+    # L, W, G1, lines, in strides, out strides, rs, n, twiddle, tw_g1, tw_c,
+    # div, threads, inverse, nst, radices
+    assert fwd.tolist() == [14336, 1, 1, 4096, 0, 14336, 1, 0, 14336, 1, 1, 14336, 0, 0, 0, 0, 1024, 0, 5,
+                            8, 8, 8, 4, 7]
+    assert inv[15] == 14336 and inv[17] == 1
+
+
 def test_dft_wrapper_on_cpu_runs_the_plain_version():
     x, y = _planes((32, 64), 4)
     xr, xi = torch.from_numpy(x), torch.from_numpy(y)

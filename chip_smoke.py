@@ -15,21 +15,26 @@ Phases (each prints one line or a few; any failure exits non-zero):
    geometry (KVH 8, G 4, D 128), B = 1, 4, 16 x S = 2048, 8192, 32768 plus
    the generate (B 4, S 256) and serve (B 8, S 4096) shapes, each with a
    masked tail, random holes, and only the last 7 slots valid (relL2 <=
-   1e-5, finite); time it, the plain version and SDPA;
+   1e-5, finite; the call over a slot list compacted beforehand, as the
+   forward makes it, must give the same bits); time it over the step's slot
+   list (the per-layer call) and compacting itself, beside the previous
+   design's times, the plain version, SDPA and the bound;
 5. fft: the spectral transforms. ``dft_rows``/``dft_cols`` (radix FFTs
    in shared memory) at the Llama-3.1-8B shapes (4096, 8192), (4096, 4096),
    (1024, 4096), (14336, 4096), (4096, 14336), (128256, 64) (split (334,
    384), a radix-167 stage), the prime (64, 97) and (8, 32768) (rows no
-   block holds: two passes), and ``fft_batched``
-   (Stockham) at the rfft2/irfft2 passes of the three supported 8B shapes
-   and at N = 448, 960, 3584, forward and inverse, each held to its plain
-   version and to a complex128 torch.fft truth (relL2 <= 1e-5, finite);
-   the rfft2 -> irfft2 round trip of scripts/bench_fft_vpu.py and the
-   fft2_mxu -> ifft2_mxu one at (4096, 8192) must return the input (relL2
-   <= 1e-5) with every transform kernel launched on the way; per-kernel
-   times beside the plain version, torch.fft and the bound, for the DFTs
-   also at (4096, 14336) rows and (14336, 4096) columns, with each route's
-   device launches;
+   block holds: two passes), and ``fft_batched`` (register-resident
+   Stockham passes) at the rfft2/irfft2 passes of the three supported 8B
+   shapes and at N = 448, 960, 3584, forward and inverse, each held to its
+   plain version and to a complex128 torch.fft truth (relL2 <= 1e-5,
+   finite); the rfft2 -> irfft2 round trip of scripts/bench_fft_vpu.py and
+   the fft2_mxu -> ifft2_mxu one at (4096, 8192) must return the input
+   (relL2 <= 1e-5) with every transform kernel launched on the way, and
+   the first is profiled once for its device-time split between
+   ``fft_batched`` and the PyTorch passes around it; per-kernel times
+   beside the plain version, torch.fft and the bound (``fft_batched``
+   beside the previous design's time), for the DFTs also at (4096, 14336) rows
+   and (14336, 4096) columns, with each route's device launches;
 6. checkpoints: base + 2 finetunes at Llama-3.1-8B widths cut to 2 layers,
    bf16, 2 shards each, random weights from seeded generators;
 7. merge: ``python -m shardmerge_tpu_torch merge cfg.json`` (alphas 0.8 and
@@ -48,9 +53,11 @@ Phases (each prints one line or a few; any failure exits non-zero):
    step). Then a pool over a 2048-slot cache, driven step by step until a
    join compacts it: one step on its compacted, gapped rows must agree
    with the same step on the plain attention (its attention outputs at
-   relL2 1e-5, its logits at 2e-2), and its four completions must equal
-   the solo stream; an A/B of that pool step against the einsum path, and
-   the device's busy share over profiled pool steps;
+   relL2 1e-5, its logits at 2e-2), its four completions must equal the
+   solo stream, and its slot list must be compacted once per decode step
+   (flash launches = layers x compactions); an A/B of that pool step
+   against the einsum path, and, over profiled pool steps, the device's
+   busy share, its launches per step and the flash kernels' share;
 10. the kernel summary line (all five kernels), the card line, and the result line.
 
 It imports nothing of JAX. With no CUDA device it exits 1 and prints no
@@ -116,6 +123,12 @@ FLASH_SHAPES = [(b, s) for b in (1, 4, 16) for s in (2048, 8192, 32768)]
 GENERATE_ATTN = (4, 256)  # generate_batch: 4 prompts, one 256-slot bucket
 SERVE_SLOTS, SERVE_CACHE = 8, 4096
 SERVE_ATTN = (SERVE_SLOTS, SERVE_CACHE)
+# the previous designs' times (PERF.md §6, NVIDIA H100 80GB HBM3, 700.00 W):
+# flash decode with three launches a call at these shapes, and the in-place
+# shared-memory Stockham kernel on the (4096, 4096) rows pass
+FLASH_PREVIOUS_MS = {SERVE_ATTN: 0.0748, GENERATE_ATTN: 0.0377}
+STOCKHAM_PREVIOUS_MS = 0.2416
+STOCKHAM_KERNELS = ("pow2_kernel", "mixed_kernel")  # csrc/stockham_fft.cu's instances
 # the spectral-transform path: the merge's bench shape, which
 # scripts/bench_fft_vpu.py round-trips through rfft2/irfft2
 FFT_SHAPE = (4096, 8192)
@@ -290,10 +303,12 @@ def phase_flash(torch, ak):
         for name, mask in masks.items():
             got = ak.flash_decode(q, k, v, mask)
             want = ak.flash_decode_plain(q, k, v, mask)
+            # the forward's route: the step's slot list, compacted once
+            again = ak.flash_decode(q, k, v, mask, slots=ak.compact(mask))
             torch.cuda.synchronize()
             rel = rel_l2(got, want)
             finite = bool(torch.isfinite(got).all())
-            passed = rel <= 1e-5 and finite and got.shape == q.shape
+            passed = rel <= 1e-5 and finite and got.shape == q.shape and torch.equal(again, got)
             ok &= passed
             err = float((got - want).abs().max())
             worst = max(worst, err)
@@ -307,7 +322,11 @@ def phase_flash(torch, ak):
             return sdpa(q_lib, k, v, attn_mask=m_lib, scale=1.0, enable_gqa=True)
 
         lib_rel = rel_l2(lib().float().reshape(q.shape), ak.flash_decode_plain(q, k, v, mask))
-        ms = time_ms(torch, lambda: ak.flash_decode(q, k, v, mask), flush)
+        slots = ak.compact(mask)
+        # per layer the path runs one launch over the step's slot list; a
+        # call without one also compacts the mask (two launches)
+        ms = time_ms(torch, lambda: ak.flash_decode(q, k, v, mask, slots=slots), flush)
+        alone_ms = time_ms(torch, lambda: ak.flash_decode(q, k, v, mask), flush)
         plain = time_ms(torch, lambda: ak.flash_decode_plain(q, k, v, mask), flush)
         lib_ms = time_ms(torch, lib, flush)
         # the kernel reads the K and V rows of valid slots only: the bound
@@ -320,10 +339,12 @@ def phase_flash(torch, ak):
         bound_ms, bound_by = bound(nbytes, 4 * valid * KVH * GROUP * HEAD_DIM, F32_FLOPS)
         every_slot_ms, _ = bound(nbytes + 2 * (b * s - valid) * KVH * HEAD_DIM * 2, 0, F32_FLOPS)
         rows[(b, s)] = dict(ms=ms, plain_ms=plain, library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
+        old = FLASH_PREVIOUS_MS.get((b, s))
         say(
-            f"[flash] B={b:2d} S={s:5d} relL2 {', '.join(errs)} (tol 1e-5) | kernel {ms:.4f} ms "
-            f"({kv_bytes / (ms * 1e-3) / 1e9:.0f} GB/s of valid K+V, {valid / (b * s):.0%} of slots) "
-            f"plain {plain:.4f} ms "
+            f"[flash] B={b:2d} S={s:5d} relL2 {', '.join(errs)} (tol 1e-5) | kernel {ms:.4f} ms over the step's "
+            f"slot list ({kv_bytes / (ms * 1e-3) / 1e9:.0f} GB/s of valid K+V, {valid / (b * s):.0%} of slots), "
+            f"{alone_ms:.4f} ms compacting itself"
+            f"{f' (previous design, compacting: {old} ms)' if old else ''}; plain {plain:.4f} ms "
             f"SDPA {lib_ms:.4f} ms (bf16 q, relL2 {lib_rel:.1e}) bound {bound_ms:.4f} ms ({bound_by}; "
             f"{every_slot_ms:.4f} ms were every slot valid)"
         )
@@ -331,8 +352,12 @@ def phase_flash(torch, ak):
     if not ok:
         raise SystemExit("flash_decode disagrees with its plain version")
     summary = {"max_abs_err": worst, **rows[SERVE_ATTN]}
-    say(f"[flash] serve-pool shape B={SERVE_ATTN[0]} S={SERVE_ATTN[1]}: kernel {summary['ms']:.4f} ms, "
-        f"plain {summary['plain_ms']:.4f} ms, SDPA {summary['library_ms']:.4f} ms; max abs err {worst:.3e}")
+    for name, shape in (("serve-pool", SERVE_ATTN), ("generate", GENERATE_ATTN)):
+        r = rows[shape]
+        say(f"[flash] {name} shape B={shape[0]} S={shape[1]}: kernel {r['ms']:.4f} ms (previous design "
+            f"{FLASH_PREVIOUS_MS[shape]} ms), SDPA {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms, "
+            f"plain {r['plain_ms']:.4f} ms")
+    say(f"[flash] max abs err vs plain {worst:.3e}")
     del flush
     return summary
 
@@ -409,7 +434,7 @@ def phase_fft(torch, pf, fv):
             truth = torch.fft.ifft(z, dim=1) if inverse else torch.fft.fft(z, dim=1)
             torch.cuda.synchronize()
             passed, err = fft_check(
-                torch, f"fft_batched B={b} N={n} radices {fv.factorize(n // 8)}+8 "
+                torch, f"fft_batched B={b} N={n} radices {list(fv._schedule(n))} "
                 f"{'inverse' if inverse else 'forward'}", got, want, truth)
             ok &= passed
             errs[("fft_batched", b, n, inverse)] = err
@@ -452,6 +477,7 @@ def phase_fft(torch, pf, fv):
     if min(launches.values()) < 1:
         raise SystemExit(f"[fft] kernels not on the path: {launches}")
     del out_vpu, out_mxu, lib
+    round_trip_split(torch, fv, vpu_round)
 
     # per-kernel times at the round trip's shapes, then the DFTs at the
     # 14336-long axes (radix 7 in one pass for rows, two passes for columns)
@@ -482,11 +508,45 @@ def phase_fft(torch, pf, fv):
         err = errs.get((key, m, n, False)) if key != "fft_batched" else errs.get((key, lines, length, False))
         summaries.setdefault(key, dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms,
                                        bound_by=bound_by, library_ms=l_ms))
+        if key == "fft_batched" and lines == m:
+            note = f"; the previous design took {STOCKHAM_PREVIOUS_MS} ms"
         say(f"[fft] {name} at ({r.shape[0]}, {r.shape[1]}) forward: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
             f"torch.fft.fft {l_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: {16 * lines * length / 1e6:.0f} MB, "
             f"{5 * length * math.log2(length) * lines / 1e9:.2f} GFLOP){note}")
     del flush
     return summaries, launches
+
+
+def device_kernels(torch, prof):
+    """(device microseconds, launches) by kernel name from a profile."""
+    return {e.key: (e.self_device_time_total, e.count) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0}
+
+
+def round_trip_split(torch, fv, fn, calls: int = 5):
+    """Device time of the rfft2 -> irfft2 round trip under torch.profiler,
+    split between the fft_batched kernel and the PyTorch passes around it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = device_kernels(torch, prof)
+    if not kernels:
+        say("[fft] round trip device-time split: not measured (the profiler saw no device time)")
+        return
+    ours = {k: v for k, v in kernels.items() if any(n in k for n in STOCKHAM_KERNELS)}
+    rest = {k: v for k, v in kernels.items() if k not in ours}
+    fft_us = sum(t for t, _ in ours.values()) / calls
+    rest_us = sum(t for t, _ in rest.values()) / calls
+    top = ", ".join(f"{k[:36]} {t / calls / 1e3:.4f} ms x{n // calls}"
+                    for k, (t, n) in sorted(rest.items(), key=lambda kv: -kv[1][0])[:6])
+    say(f"[fft] round trip device time (profiler, mean of {calls}): {(fft_us + rest_us) / 1e3:.4f} ms = "
+        f"fft_batched {fft_us / 1e3:.4f} ms ({sum(n for _, n in ours.values()) // calls} launches) + PyTorch "
+        f"passes {rest_us / 1e3:.4f} ms ({sum(n for _, n in rest.values()) // calls} launches: {top})")
 
 
 def write_checkpoints(torch, root: Path):
@@ -844,7 +904,8 @@ def phase_serve(torch, engine):
             t.join(timeout=900)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {"int4_gemv": qk.launch_counts["int4_gemv"], "flash_decode": ak.launch_counts["flash_decode"]}
+        launches = {"int4_gemv": qk.launch_counts["int4_gemv"], "flash_decode": ak.launch_counts["flash_decode"],
+                    "flash_compact": ak.launch_counts["flash_compact"]}
         stats = dict(server.pool.stats)
         metrics = server.pool.metrics()
     finally:
@@ -893,10 +954,11 @@ def phase_serve(torch, engine):
     # the solo stream
     pool = ContinuousEngine(engine, slots=SERVE_SLOTS, cache_len=COMPACT_CACHE, greedy=True, use_template=False)
     prompts = [(text_of(chars, 200 + chars), n) for chars, n in COMPACT_REQUESTS]
-    driven = {"launches": 0, "dispatches": 0}
+    driven = {"launches": 0, "dispatches": 0, "compactions": 0}
 
     def drive(until):
         launches0, dispatches0 = ak.launch_counts["flash_decode"], pool.stats["decode_dispatches"]
+        compacts0 = ak.launch_counts["flash_compact"]
         for _ in range(1000):
             if until():
                 break
@@ -906,6 +968,7 @@ def phase_serve(torch, engine):
             raise SystemExit(f"[serve] the compaction pool is stuck: {pool.stats}")
         driven["launches"] += ak.launch_counts["flash_decode"] - launches0
         driven["dispatches"] += pool.stats["decode_dispatches"] - dispatches0
+        driven["compactions"] += ak.launch_counts["flash_compact"] - compacts0
 
     handles = [pool.submit(p, max_new_tokens=n) for p, n in prompts[:2]]
     drive(handles[0].done)
@@ -928,9 +991,12 @@ def phase_serve(torch, engine):
 
         seen = []  # the pool step's attention inputs, layer by layer
 
-        def recording(*args):
-            seen.append(args)
-            return kernel(*args)
+        def recording(*args, **kw):
+            seen.append((args, kw))
+            return kernel(*args, **kw)
+
+        def plain(q, k, v, m, slots=None):
+            return ak.flash_decode_plain(q, k, v, m)
 
         kernel = ak.flash_decode
         before = ak.launch_counts["flash_decode"]
@@ -938,11 +1004,11 @@ def phase_serve(torch, engine):
             with_kernel = step({k: v.clone() for k, v in pool._kv.items()})
         if ak.launch_counts["flash_decode"] - before != LAYERS:
             raise SystemExit("[serve] the pool step did not run the flash kernel in every layer")
-        with mock.patch.object(ak, "flash_decode", ak.flash_decode_plain):
+        with mock.patch.object(ak, "flash_decode", plain):
             with_plain = step({k: v.clone() for k, v in pool._kv.items()})
         # the kernel on the pool's own tensors (gapped masks, free rows)
         live = [b for b, row in enumerate(pool._rows) if row is not None]
-        attn = max(rel_l2(kernel(*a)[live], ak.flash_decode_plain(*a)[live]) for a in seen)
+        attn = max(rel_l2(kernel(*a, **kw)[live], ak.flash_decode_plain(*a)[live]) for a, kw in seen)
     # the live rows: a free row is all masked and its logits are never read
     # (the kernel gives it zeros, the plain softmax a mean of V). The logits
     # gate is the bf16 class of the generate phase: the attention output is
@@ -961,11 +1027,14 @@ def phase_serve(torch, engine):
     solo = ["".join(engine.stream_generation(p, max_new_tokens=n, **greedy)) for p, n in prompts]
     equal = sum(h.result() == want for h, want in zip(handles, solo))
     say(f"[serve] compaction pool: {equal} of {len(handles)} completions equal the solo stream token for "
-        f"token; {driven['dispatches']} pool steps, flash launches {driven['launches']}")
+        f"token; {driven['dispatches']} pool steps, flash launches {driven['launches']}, slot-list compactions "
+        f"{driven['compactions']} (one per decode forward step: {LAYERS} flash launches each)")
     if equal != len(handles):
         raise SystemExit("[serve] compaction pool completions differ from the solo stream")
     if driven["launches"] < LAYERS * driven["dispatches"]:
         raise SystemExit(f"[serve] compaction pool: flash kernel not on the path: {driven}")
+    if driven["launches"] != LAYERS * driven["compactions"]:
+        raise SystemExit(f"[serve] compaction pool: the slot list was not compacted once per step: {driven}")
     return launches
 
 
@@ -995,12 +1064,14 @@ def pool_step_profile(torch, ak, step, pool):
         flash_b = per_step()
         say(f"[serve] A/B one pool step (B={SERVE_SLOTS}, frontier {pool._t}, means of 50, in turn): flash "
             f"kernel {flash_a:.3f} / {flash_b:.3f} ms, einsum path {einsum_a:.3f} / {einsum_b:.3f} ms")
+        counts0 = dict(ak.launch_counts)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(10):
                 step(kv)
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
+        flash_per_step = {k: (v - counts0.get(k, 0)) / 10 for k, v in ak.launch_counts.items()}
     # device-side events only (a CPU op's row repeats its kernels' time)
     rows = [
         (e.self_device_time_total, e.key)
@@ -1012,8 +1083,13 @@ def pool_step_profile(torch, ak, step, pool):
         say("[serve] device busy share: not measured (the profiler saw no device time)")
         return
     top = ", ".join(f"{k[:40]} {t / 10 / 1e3:.3f} ms" for t, k in sorted(rows, reverse=True)[:6])
+    kernels = device_kernels(torch, prof)
+    flash_us = sum(t for k, (t, _) in kernels.items() if "flash_" in k) / 10
     say(f"[serve] profiled pool steps: device busy {device_us / wall_us:.1%} of {wall_us / 10 / 1e3:.3f} ms "
         f"per step (profiler on); per step: {top}")
+    say(f"[serve] device launches per pool step: {sum(n for _, n in kernels.values()) / 10:.1f} in all; flash "
+        f"{flash_per_step} ({LAYERS} layers); flash kernels' device time {flash_us / 1e3:.4f} ms per step, "
+        f"{flash_us * 10 / device_us:.1%} of the step's device time")
 
 
 def main() -> int:

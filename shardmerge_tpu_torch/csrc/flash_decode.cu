@@ -20,35 +20,38 @@
 //
 // What bounds it: every K and V element (2 bytes) is read once and used by
 // G query heads, 2 G flops, so 4 flops per byte at G = 4, far below the
-// card's balance point: it is bound by the K + V bytes streamed from device
-// memory (only the valid slots' bytes, see below).
+// card's balance point: it is bound by the K + V bytes of the valid slots.
+// That is also why it runs on the CUDA cores in f32 and not on the tensor
+// cores: at 4 flops a byte the f32 pipes are idle most of the time, and q
+// is f32 by contract.
 //
-// Design (simple first). The TPU kernel walks S in order on one core and
-// carries (m, l, acc) across grid steps; on a GPU the (b, kvh) pairs alone
-// give 8-512 blocks for 132 SMs, so S is split across blocks instead, and
-// the splits are cut over each row's VALID slots:
-//   - flash_compact_kernel: block b lists row b's valid slots in slot order
-//     (a block-wide prefix count of mask > -1e8, 2048 slots per pass) and
-//     their number.
-//   - flash_split_kernel: block (split, kvh, b) owns valid slots
-//     [split * kSplit, (split + 1) * kSplit) of row b, and exits at once if
-//     the row has fewer. A group of D / 8 lanes takes one slot (a half-warp
-//     at D = 128, a quarter-warp at D = 64): each lane loads 16 bytes
-//     (8 dims) of K with q's matching 8 dims for all G heads in registers,
-//     and a shuffle tree within the group finishes the G dot products.
-//     Scores plus mask go to shared memory; warp g then takes head g's max
-//     (seeded at -1e30), exponentials and sum; the lane groups stream V with
-//     16-byte loads and accumulate p * v; the 8 warps' partial outputs meet
-//     in shared memory. Each block writes its split's (m, l, acc) to scratch.
-//   - flash_combine_kernel: per (b, kvh, g), rescales each of the row's
-//     splits by exp(m_i - M), sums (4 groups of splits in parallel, added in
-//     a fixed order), divides by the summed l.
-// Why valid slots: the continuous pool carves a row's history out of a
-// shared slot axis, with join gaps and finished rows masked. Reading only
-// valid slots skips those bytes, and it makes a row's result depend only on
-// its own valid K/V rows, in order: not on the batch, the cache length or
-// where the gaps fall. So a request decoded in the pool gets the same bits
-// as decoded alone. No TMA, cp.async or tensor cores yet.
+// Two kernels:
+//   - flash_compact_kernel, once per decode step (the mask is the same for
+//     every layer): block b lists row b's valid slots in slot order (a
+//     block-wide prefix count of mask > -1e8) and their number.
+//   - flash_kernel, once per layer: block (split, kvh, b) owns valid slots
+//     [256 split, 256 split + 256) of row b and exits at once if the row has
+//     fewer. It streams their K and V rows through a ring of 4 shared-memory
+//     stages of 32 slots (cp.async 16-byte copies gathered through the slot
+//     list, zero-filled past the block's slots), three chunks in flight
+//     while one is computed; the mask values are gathered while the first
+//     chunks fly. A group of D / 8 lanes takes a slot (a half-warp at
+//     D = 128), each lane 8 dims, with q's matching 8 dims for all G heads
+//     in registers, and carries an online softmax (m, l, acc) over its slots
+//     in slot order, as the TPU kernel carries them over its grid steps.
+//     The groups of a warp, then the 8 warps, then the row's splits merge
+//     their (m, l, acc) in a fixed order. A row with one split writes its
+//     output at once; otherwise each split writes its partial, and the last
+//     block of the row to finish (an atomic counter per (b, kvh), which
+//     that block resets for the next call) merges the partials in split
+//     order.
+// The split size is one constant, so a row's bits depend only on its valid
+// K/V rows in slot order: not on the batch, the cache length, or where the
+// continuous pool's join gaps fall, and a request decoded in the pool gets
+// the same bits as decoded alone. Each slot's K and V rows are contiguous
+// and could each be one TMA bulk copy, but a bulk copy per row measured
+// slower than the 16-byte cp.async gather, and tensor-map TMA copies boxes,
+// not a list of rows.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -58,20 +61,23 @@ namespace {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kSplit = 64;  // valid slots per block: fixed, so rows split alike
+constexpr int kMinBlocks = 2;  // resident blocks per SM: 128 registers a thread
+constexpr int kSplit = 256;  // valid slots per block: fixed, so rows split alike
 constexpr int kMaxG = 8;
 constexpr float kNegInit = -1e30f;  // running-max seed, as in the TPU kernel
 constexpr float kMaskedAt = -1e8f;  // mask values at or below: a masked slot
+#define kNegInf __int_as_float(0xff800000)  // a dead slot's score
 
 // block b: row b's valid slots in slot order, and their number. Each
 // thread tests kPerThread consecutive slots; a warp shuffle scan and the
 // warps' totals give every thread its first output position.
 constexpr int kPerThread = 8;
+constexpr int kCompactWarps = 8;
+constexpr int kCompactThreads = kCompactWarps * 32;
 
-__global__ void __launch_bounds__(kThreads)
-flash_compact_kernel(const float* __restrict__ mask, int* __restrict__ idx,
-                     int* __restrict__ count, int Sm) {
-  __shared__ int warp_total[kWarps];
+__global__ void __launch_bounds__(kCompactThreads)
+flash_compact_kernel(const float* __restrict__ mask, int* __restrict__ idx, int* __restrict__ count, int Sm) {
+  __shared__ int warp_total[kCompactWarps];
   __shared__ int base;
   const int b = blockIdx.x;
   const int warp = threadIdx.x >> 5;
@@ -80,7 +86,7 @@ flash_compact_kernel(const float* __restrict__ mask, int* __restrict__ idx,
   int* ir = idx + (size_t)b * Sm;
   if (threadIdx.x == 0) base = 0;
   __syncthreads();
-  for (int s0 = 0; s0 < Sm; s0 += kThreads * kPerThread) {
+  for (int s0 = 0; s0 < Sm; s0 += kCompactThreads * kPerThread) {
     const int first = s0 + threadIdx.x * kPerThread;
     unsigned bits = 0;
 #pragma unroll
@@ -105,7 +111,7 @@ flash_compact_kernel(const float* __restrict__ mask, int* __restrict__ idx,
     __syncthreads();  // every thread has read base and warp_total
     if (threadIdx.x == 0) {
       int total = 0;
-      for (int w = 0; w < kWarps; ++w) total += warp_total[w];
+      for (int w = 0; w < kCompactWarps; ++w) total += warp_total[w];
       base += total;
     }
     __syncthreads();
@@ -123,43 +129,103 @@ __device__ __forceinline__ void unpack8(const uint4& u, float* f) {
   }
 }
 
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+constexpr int kChunk = 32;  // slots a pipeline stage holds
+constexpr int kStages = 4;  // stages in the ring: three chunks in flight while one is computed
+constexpr int kMaxSmem = 200 * 1024;  // dynamic shared memory a block may ask for
+
+// dynamic shared memory: the block's slot indices and mask values, then one
+// region used in turn by the K/V stages, the warps' (m, l, acc) and the last
+// block's split weights
 template <int D, int G>
-__global__ void __launch_bounds__(kThreads)
-flash_split_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                   const __nv_bfloat16* __restrict__ v, const float* __restrict__ mask,
-                   const int* __restrict__ idx, const int* __restrict__ count,
-                   float* __restrict__ part_m, float* __restrict__ part_l,
-                   float* __restrict__ part_acc, int KVH, int Sm, int S, int nsplit) {
-  constexpr int kLanes = D / 8;                  // lanes per slot, 8 dims each
-  constexpr int kPerWarp = 32 / kLanes;          // slots a warp takes at once
-  constexpr int kPerPass = kWarps * kPerWarp;    // slots the block takes at once
-  // one buffer, two uses: probabilities [G][kSplit], then the warps'
-  // partial outputs [kWarps][G][D]
-  constexpr int kSmem = kWarps * G * D > G * kSplit ? kWarps * G * D : G * kSplit;
-  __shared__ __align__(16) float smem[kSmem];
+struct Smem {
+  static constexpr int kStageBytes = 2 * kChunk * D * 2;  // K and V rows of a chunk, bf16
+  static constexpr int kRing = kStages * kStageBytes;
+  static constexpr int kWarpState = (kWarps * G * D + 2 * kWarps * G) * 4;
+  static constexpr int kHead = 2 * kSplit * 4;
+  static int bytes(int nsplit) {
+    int region = kRing > kWarpState ? kRing : kWarpState;
+    if (2 * nsplit * G * 4 > region) region = 2 * nsplit * G * 4;
+    return kHead + region;
+  }
+};
+
+template <int D, int G>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+flash_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
+             const float* __restrict__ mask, const int* __restrict__ idx, const int* __restrict__ count,
+             float* __restrict__ part_m, float* __restrict__ part_l, float* __restrict__ part_acc,
+             int* __restrict__ counter, float* __restrict__ out, int KVH, int Sm, int S, int nsplit) {
+  constexpr int kLanes = D / 8;                           // lanes per slot, 8 dims each
+  constexpr int kGroups = 32 / kLanes;                    // slot groups per warp
+  constexpr int U = kChunk / (kWarps * kGroups);          // slots a group takes from a chunk
+  constexpr int kCopies = 2 * kChunk * kLanes / kThreads;  // 16-byte copies a thread issues per chunk
+  static_assert(U >= 1 && kCopies >= 1, "a chunk feeds every group and thread");
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* s_idx = reinterpret_cast<int*>(smem);
+  float* s_mask = reinterpret_cast<float*>(smem) + kSplit;
+  unsigned char* region = smem + Smem<D, G>::kHead;
+  uint4* ring = reinterpret_cast<uint4*>(region);  // [kStages][2][kChunk][kLanes]
+  float* sm_acc = reinterpret_cast<float*>(region);  // [kWarps][G][D]
+  float* sm_m = sm_acc + kWarps * G * D;               // [kWarps][G]
+  float* sm_l = sm_m + kWarps * G;
+  __shared__ int last_block;
 
   const int split = blockIdx.x;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int s0 = split * kSplit;
-  const int nb = count[b];
-  if (s0 >= nb) return;  // the row has no valid slot this far
-  const int n = min(kSplit, nb - s0);
   const int tid = threadIdx.x;
+  const size_t bh = (size_t)b * KVH + h;
+  const int nb = count[b];
+  const int used = (nb + kSplit - 1) / kSplit;
+  if (split >= used) {
+    if (split == 0)  // the row has no valid slot: zeros
+      for (int o = tid; o < G * D; o += kThreads) out[bh * G * D + o] = 0.f;
+    return;
+  }
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int sub = lane / kLanes;  // the warp's slot this lane works on
+  const int grp = lane / kLanes;  // the lane's slot group in the warp
   const int li = lane % kLanes;   // the lane's 8 dims: [8 li, 8 li + 8)
-  const size_t bh = (size_t)b * KVH + h;
-  // K / V row of slot s: D / 8 uint4 of 8 bf16 each
+  const int s0 = split * kSplit;
+  const int n = min(kSplit, nb - s0);  // valid slots of this block
+  const int nchunks = (n + kChunk - 1) / kChunk;
   const uint4* kr = reinterpret_cast<const uint4*>(k + bh * S * D);
   const uint4* vr = reinterpret_cast<const uint4*>(v + bh * S * D);
-  const float* mr = mask + (size_t)b * Sm;
-  const int* ir = idx + (size_t)b * Sm + s0;  // this split's slots
 
-  // 1. scores: a lane group per slot, lane li holds dims [8 li, 8 li + 8)
+  for (int i = tid; i < n; i += kThreads) s_idx[i] = idx[(size_t)b * Sm + s0 + i];
+  __syncthreads();
+
+  // chunk c's K and V rows into stage c % kStages; past the block's slots
+  // the copies zero-fill (a dead slot's V is then 0, not stale bits)
+  auto issue = [&](int c) {
+    if (c < nchunks) {
+      uint4* stage = ring + (c % kStages) * 2 * kChunk * kLanes;
+#pragma unroll
+      for (int i = 0; i < kCopies; ++i) {
+        const int p = tid + i * kThreads;
+        const int kv = p / (kChunk * kLanes);
+        const int rem = p % (kChunk * kLanes);
+        const int si = c * kChunk + rem / kLanes;
+        const bool live = si < n;
+        const uint4* src = (kv ? vr : kr) + (size_t)(live ? s_idx[si] : 0) * kLanes + rem % kLanes;
+        cp_async16(stage + p, src, live ? 16 : 0);
+      }
+    }
+    cp_async_commit();  // one group per chunk, empty past the last, so the waits count alike
+  };
+
+  float qr[G][8];
   {
-    float qr[G][8];
     const float* qb = q + bh * G * D + li * 8;
 #pragma unroll
     for (int g = 0; g < G; ++g) {
@@ -168,165 +234,161 @@ flash_split_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict_
       qr[g][0] = a.x; qr[g][1] = a.y; qr[g][2] = a.z; qr[g][3] = a.w;
       qr[g][4] = c.x; qr[g][5] = c.y; qr[g][6] = c.z; qr[g][7] = c.w;
     }
-    for (int base = warp * kPerWarp; base < n; base += kPerPass) {  // uniform per warp
-      const int s = base + sub;
-      const bool live = s < n;
-      float kf[8];
-      const int slot = live ? ir[s] : 0;
-      if (live) {
-        unpack8(__ldg(kr + (size_t)slot * kLanes + li), kf);
-      } else {
+  }
+  float m[G], l[G], acc[G][8];
 #pragma unroll
-        for (int j = 0; j < 8; ++j) kf[j] = 0.f;
-      }
-      float dot[G];
+  for (int g = 0; g < G; ++g) {
+    m[g] = kNegInit;
+    l[g] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[g][j] = 0.f;
+  }
+
+#pragma unroll
+  for (int c = 0; c < kStages - 1; ++c) issue(c);
+  // the mask values arrive while the first chunks are in flight (the
+  // loop's first barrier publishes them)
+  for (int i = tid; i < n; i += kThreads) s_mask[i] = mask[(size_t)b * Sm + s_idx[i]];
+  for (int c = 0; c < nchunks; ++c) {
+    cp_async_wait<kStages - 2>();  // this thread's copies of chunk c have landed
+    __syncthreads();               // everyone's have, and chunk c - 1's stage is free
+    issue(c + kStages - 1);
+    const uint4* stage = ring + (c % kStages) * 2 * kChunk * kLanes;
+    // the group's U slots of the chunk, in order
+    const int sb = (warp * kGroups + grp) * U;
+    float sc[U][G];
+    float vf[U][8];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      float kf[8];
+      unpack8(stage[(sb + u) * kLanes + li], kf);
+      unpack8(stage[(kChunk + sb + u) * kLanes + li], vf[u]);
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         float d = 0.f;
 #pragma unroll
         for (int j = 0; j < 8; ++j) d = fmaf(qr[g][j], kf[j], d);
-        dot[g] = d;
-      }
-#pragma unroll
-      for (int off = kLanes / 2; off > 0; off >>= 1)
-#pragma unroll
-        for (int g = 0; g < G; ++g) dot[g] += __shfl_xor_sync(0xffffffffu, dot[g], off);
-      if (live && li < G) {
-        float d = 0.f;
-#pragma unroll
-        for (int g = 0; g < G; ++g)
-          if (g == li) d = dot[g];
-        smem[li * kSplit + s] = d + mr[slot];
+        sc[u][g] = d;
       }
     }
-  }
-  __syncthreads();
-
-  // 2. softmax statistics of this split: warp g takes head g
-  if (warp < G) {
-    float* row = smem + warp * kSplit;
-    float m = kNegInit;
-    for (int i = lane; i < n; i += 32) m = fmaxf(m, row[i]);
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-    float l = 0.f;
-    for (int i = lane; i < n; i += 32) {
-      const float p = expf(row[i] - m);
-      row[i] = p;
-      l += p;
-    }
+    for (int off = kLanes / 2; off > 0; off >>= 1)
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) l += __shfl_xor_sync(0xffffffffu, l, off);
-    if (lane == 0) {
-      const size_t o = (bh * nsplit + split) * G + warp;
-      part_m[o] = m;
-      part_l[o] = l;
-    }
-  }
-  __syncthreads();
-
-  // 3. p @ V: lane group (warp, sub) takes slots warp * kPerWarp + sub,
-  // then every kPerPass-th after it
-  float acc[G][8];
+      for (int u = 0; u < U; ++u)
 #pragma unroll
-  for (int g = 0; g < G; ++g)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[g][j] = 0.f;
-  for (int s = warp * kPerWarp + sub; s < n; s += kPerPass) {
-    float vf[8];
-    unpack8(__ldg(vr + (size_t)ir[s] * kLanes + li), vf);
+        for (int g = 0; g < G; ++g) sc[u][g] += __shfl_xor_sync(0xffffffffu, sc[u][g], off);
 #pragma unroll
     for (int g = 0; g < G; ++g) {
-      const float p = smem[g * kSplit + s];
+      float cm = m[g];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[g][j] = fmaf(p, vf[j], acc[g][j]);
+      for (int u = 0; u < U; ++u) {
+        const int si = c * kChunk + sb + u;
+        sc[u][g] = si < n ? sc[u][g] + s_mask[si] : kNegInf;
+        cm = fmaxf(cm, sc[u][g]);
+      }
+      const float scale = expf(m[g] - cm);
+      m[g] = cm;
+      l[g] *= scale;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[g][j] *= scale;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const float p = expf(sc[u][g] - cm);
+        l[g] += p;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[g][j] = fmaf(p, vf[u][j], acc[g][j]);
+      }
     }
   }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring becomes the warps' state
+
+  // the warp's groups, merged by a shuffle tree
 #pragma unroll
-  for (int off = kLanes; off < 32; off <<= 1)
-#pragma unroll
-    for (int g = 0; g < G; ++g)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[g][j] += __shfl_xor_sync(0xffffffffu, acc[g][j], off);
-  __syncthreads();  // probabilities consumed: smem becomes [kWarps][G][D]
-  if (sub == 0) {
+  for (int off = kLanes; off < 32; off <<= 1) {
 #pragma unroll
     for (int g = 0; g < G; ++g) {
-      float4* dst = reinterpret_cast<float4*>(smem + (warp * G + g) * D + li * 8);
+      const float om = __shfl_xor_sync(0xffffffffu, m[g], off);
+      const float ol = __shfl_xor_sync(0xffffffffu, l[g], off);
+      const float mm = fmaxf(m[g], om);
+      const float a = expf(m[g] - mm), c = expf(om - mm);
+      m[g] = mm;
+      l[g] = l[g] * a + ol * c;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float oa = __shfl_xor_sync(0xffffffffu, acc[g][j], off);
+        acc[g][j] = acc[g][j] * a + oa * c;
+      }
+    }
+  }
+  if (grp == 0) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      float4* dst = reinterpret_cast<float4*>(sm_acc + (warp * G + g) * D + li * 8);
       dst[0] = make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
       dst[1] = make_float4(acc[g][4], acc[g][5], acc[g][6], acc[g][7]);
+      if (li == 0) {
+        sm_m[warp * G + g] = m[g];
+        sm_l[warp * G + g] = l[g];
+      }
     }
   }
   __syncthreads();
-  float* out = part_acc + (bh * nsplit + split) * G * D;
+
+  // the 8 warps, in order: this split's (m, l, acc) per output (g, d)
+  const size_t row_part = bh * nsplit * G;  // split i, head g at row_part + i * G + g
   for (int o = tid; o < G * D; o += kThreads) {
-    float a = 0.f;
+    const int g = o / D, d = o % D;
+    float mm = kNegInit;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) a += smem[w * G * D + o];
-    out[o] = a;
-  }
-}
-
-constexpr int kGroups = 4;  // split groups of a combine block
-
-// a max or a sum over the block's kNumWarps warps, the same bits for every
-// thread: a shuffle tree per warp, then the warps' values in order
-template <bool kMax, int kNumWarps>
-__device__ __forceinline__ float block_reduce(float v, float* red) {
+    for (int w = 0; w < kWarps; ++w) mm = fmaxf(mm, sm_m[w * G + g]);
+    float ll = 0.f, aa = 0.f;
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float o = __shfl_xor_sync(0xffffffffu, v, off);
-    v = kMax ? fmaxf(v, o) : v + o;
+    for (int w = 0; w < kWarps; ++w) {
+      const float e = expf(sm_m[w * G + g] - mm);
+      ll = fmaf(sm_l[w * G + g], e, ll);
+      aa = fmaf(sm_acc[(w * G + g) * D + d], e, aa);
+    }
+    if (used == 1) {
+      out[bh * G * D + o] = aa / ll;
+    } else {
+      part_acc[(row_part + (size_t)split * G) * D + o] = aa;
+      if (d == 0) {
+        part_m[row_part + split * G + g] = mm;
+        part_l[row_part + split * G + g] = ll;
+      }
+    }
   }
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  if (used == 1) return;
+
+  // the last split of the row to finish merges the partials in split order
+  __threadfence();
   __syncthreads();
-  float t = red[0];
-  for (int w = 1; w < kNumWarps; ++w) t = kMax ? fmaxf(t, red[w]) : t + red[w];
-  __syncthreads();  // red is reused by the next call
-  return t;
-}
-
-// block bhg = (b * KVH + h) * G + g over the row's splits only; thread
-// (group, d) sums every kGroups-th split's acc[d], the groups then add in
-// order, so the result depends only on the row's number of splits
-template <int D>
-__global__ void __launch_bounds__(kGroups * D)
-flash_combine_kernel(const float* __restrict__ part_m, const float* __restrict__ part_l,
-                     const float* __restrict__ part_acc, const int* __restrict__ count,
-                     float* __restrict__ out, int KVH, int G, int nsplit) {
-  constexpr int kCombineThreads = kGroups * D;
-  constexpr int kNumWarps = kCombineThreads / 32;
-  __shared__ float red[kNumWarps];
-  __shared__ float acc_by_group[kGroups][D];
-  const int bhg = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int d = tid % D;
-  const int group = tid / D;
-  const size_t bh = bhg / G;
-  const int g = bhg % G;
-  const int used = (count[bh / KVH] + kSplit - 1) / kSplit;
-  const float* pm = part_m + bh * nsplit * G + g;  // split i at pm[i * G]
-  const float* pl = part_l + bh * nsplit * G + g;
-  const float* pa = part_acc + (bh * nsplit * G + g) * D + d;  // split i at pa[i * G * D]
-
-  float m = kNegInit;
-  for (int i = tid; i < used; i += kCombineThreads) m = fmaxf(m, pm[i * G]);
-  const float m_all = block_reduce<true, kNumWarps>(m, red);
-  float l = 0.f;
-  for (int i = tid; i < used; i += kCombineThreads) l = fmaf(expf(pm[i * G] - m_all), pl[i * G], l);
-  const float l_all = block_reduce<false, kNumWarps>(l, red);
-  float a = 0.f;
-#pragma unroll 4
-  for (int i = group; i < used; i += kGroups)
-    a = fmaf(expf(pm[i * G] - m_all), pa[(size_t)i * G * D], a);
-  acc_by_group[group][d] = a;
+  if (tid == 0) last_block = atomicAdd(counter + bh, 1) == used - 1;
   __syncthreads();
-  if (group == 0) {
-    float t = acc_by_group[0][d];
-#pragma unroll
-    for (int j = 1; j < kGroups; ++j) t += acc_by_group[j][d];
-    out[(size_t)bhg * D + d] = t / fmaxf(l_all, 1e-30f);
+  if (!last_block) return;
+  __threadfence();
+  float* w_m = reinterpret_cast<float*>(region);  // [used][G], the region is free again
+  float* w_l = w_m + used * G;
+  for (int i = tid; i < used * G; i += kThreads) {
+    w_m[i] = __ldcg(part_m + row_part + i);
+    w_l[i] = __ldcg(part_l + row_part + i);
   }
+  __syncthreads();
+  for (int o = tid; o < G * D; o += kThreads) {
+    const int g = o / D;
+    float mm = kNegInit;
+    for (int i = 0; i < used; ++i) mm = fmaxf(mm, w_m[i * G + g]);
+    float ll = 0.f, aa = 0.f;
+#pragma unroll 8
+    for (int i = 0; i < used; ++i) {
+      const float e = expf(w_m[i * G + g] - mm);
+      ll = fmaf(w_l[i * G + g], e, ll);
+      aa = fmaf(__ldcg(part_acc + (row_part + (size_t)i * G) * D + o), e, aa);
+    }
+    out[bh * G * D + o] = aa / ll;
+  }
+  if (tid == 0) counter[bh] = 0;  // ready for the next call
 }
 
 struct Args {
@@ -339,57 +401,63 @@ struct Args {
   float* part_m;
   float* part_l;
   float* part_acc;
+  int* counter;
   float* out;
-  int B, KVH, G, Sm, S, nsplit;
+  int B, KVH, Sm, S, nsplit;
 };
 
 template <int D, int G>
-cudaError_t launch_split(const Args& a, cudaStream_t stream) {
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  static const cudaError_t attr = cudaFuncSetAttribute(flash_kernel<D, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                       kMaxSmem);
+  if (attr != cudaSuccess) return attr;
+  const int bytes = Smem<D, G>::bytes(a.nsplit);
+  if (bytes > kMaxSmem) return cudaErrorInvalidValue;
   dim3 grid(a.nsplit, a.KVH, a.B);
-  flash_split_kernel<D, G><<<grid, kThreads, 0, stream>>>(
-      a.q, static_cast<const __nv_bfloat16*>(a.k), static_cast<const __nv_bfloat16*>(a.v),
-      a.mask, a.idx, a.count, a.part_m, a.part_l, a.part_acc, a.KVH, a.Sm, a.S, a.nsplit);
+  flash_kernel<D, G><<<grid, kThreads, bytes, stream>>>(
+      a.q, static_cast<const __nv_bfloat16*>(a.k), static_cast<const __nv_bfloat16*>(a.v), a.mask, a.idx, a.count,
+      a.part_m, a.part_l, a.part_acc, a.counter, a.out, a.KVH, a.Sm, a.S, a.nsplit);
   return cudaGetLastError();
 }
 
-// the split and combine passes for head dim D
 template <int D>
-cudaError_t launch_head_dim(const Args& a, cudaStream_t s) {
-  cudaError_t err;
-  switch (a.G) {
-    case 1: err = launch_split<D, 1>(a, s); break;
-    case 2: err = launch_split<D, 2>(a, s); break;
-    case 3: err = launch_split<D, 3>(a, s); break;
-    case 4: err = launch_split<D, 4>(a, s); break;
-    case 5: err = launch_split<D, 5>(a, s); break;
-    case 6: err = launch_split<D, 6>(a, s); break;
-    case 7: err = launch_split<D, 7>(a, s); break;
-    default: err = launch_split<D, 8>(a, s); break;
+cudaError_t launch_head_dim(const Args& a, int G, cudaStream_t s) {
+  switch (G) {
+    case 1: return launch<D, 1>(a, s);
+    case 2: return launch<D, 2>(a, s);
+    case 3: return launch<D, 3>(a, s);
+    case 4: return launch<D, 4>(a, s);
+    case 5: return launch<D, 5>(a, s);
+    case 6: return launch<D, 6>(a, s);
+    case 7: return launch<D, 7>(a, s);
+    default: return launch<D, 8>(a, s);
   }
-  if (err != cudaSuccess) return err;
-  flash_combine_kernel<D><<<a.B * a.KVH * a.G, kGroups * D, 0, s>>>(
-      a.part_m, a.part_l, a.part_acc, a.count, a.out, a.KVH, a.G, a.nsplit);
-  return cudaGetLastError();
 }
 
 }  // namespace
 
-// C entry point, bound with ctypes. Scratch: idx B*Sm and count B ints;
-// part_m / part_l B*KVH*nsplit*G and part_acc B*KVH*nsplit*G*D floats, with
-// nsplit = ceil(Sm / 64). Returns the cudaError_t of the launches (0 =
-// success).
-extern "C" int flash_decode(const float* q, const void* k, const void* v, const float* mask,
-                            int* idx, int* count, float* part_m, float* part_l,
-                            float* part_acc, float* out, int B, int KVH, int G, int D, int Sm,
-                            int S, void* stream) {
-  if (B < 1 || KVH < 1 || G < 1 || G > kMaxG || (D != 64 && D != 128) || Sm < 1 || Sm > S ||
-      KVH > 65535 || B > 65535)
+// C entry points, bound with ctypes; each returns the cudaError_t of its
+// launch (0 = success).
+//
+// flash_compact: idx (B, Sm) and count (B) ints from the (B, Sm) mask.
+extern "C" int flash_compact(const float* mask, int* idx, int* count, int B, int Sm, void* stream) {
+  if (B < 1 || Sm < 1 || B > 2147483647 / Sm) return int(cudaErrorInvalidValue);
+  flash_compact_kernel<<<B, kCompactThreads, 0, static_cast<cudaStream_t>(stream)>>>(mask, idx, count, Sm);
+  return int(cudaGetLastError());
+}
+
+// flash_decode: one launch over the slot list of flash_compact. Scratch:
+// part_m / part_l B*KVH*nsplit*G and part_acc B*KVH*nsplit*G*D floats with
+// nsplit = ceil(Sm / 256); counter B*KVH ints, zero before the first call
+// (the kernel leaves them zero).
+extern "C" int flash_decode(const float* q, const void* k, const void* v, const float* mask, const int* idx,
+                            const int* count, float* part_m, float* part_l, float* part_acc, int* counter,
+                            float* out, int B, int KVH, int G, int D, int Sm, int S, void* stream) {
+  if (B < 1 || KVH < 1 || G < 1 || G > kMaxG || (D != 64 && D != 128) || Sm < 1 || Sm > S || KVH > 65535 ||
+      B > 65535)
     return int(cudaErrorInvalidValue);
+  const Args a{q, k, v, mask, idx, count, part_m, part_l, part_acc, counter, out,
+               B, KVH, Sm, S, (Sm + kSplit - 1) / kSplit};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Args a{q, k, v, mask, idx, count, part_m, part_l, part_acc, out,
-               B, KVH, G, Sm, S, (Sm + kSplit - 1) / kSplit};
-  flash_compact_kernel<<<B, kThreads, 0, s>>>(mask, idx, count, Sm);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return int(err);
-  return int(D == 64 ? launch_head_dim<64>(a, s) : launch_head_dim<128>(a, s));
+  return int(D == 64 ? launch_head_dim<64>(a, G, s) : launch_head_dim<128>(a, G, s));
 }

@@ -1,20 +1,25 @@
 """Flash-decode attention: the hand-written CUDA kernel and its plain
 version (counterpart of shardmerge_tpu/models/attn_kernels.py).
 
-``flash_decode(q, k_cache, v_cache, mask)`` is the masked attention of one
-query token per row: q (B, KVH, G, D) f32, already scaled by 1/sqrt(D); the
-bf16 caches (B, KVH, S, D); the additive f32 mask (B, Sm), Sm <= S, that
-``LlamaModel.forward`` builds (0 valid / -1e9 masked; slots from Sm on are
-masked), so causal horizons, left pads and the continuous pool's join gaps
-ride through unchanged. It returns (B, KVH, G, D) f32.
+``flash_decode(q, k_cache, v_cache, mask, slots=None)`` is the masked
+attention of one query token per row: q (B, KVH, G, D) f32, already scaled
+by 1/sqrt(D); the bf16 caches (B, KVH, S, D); the additive f32 mask (B, Sm),
+Sm <= S, that ``LlamaModel.forward`` builds (0 valid / -1e9 masked; slots
+from Sm on are masked), so causal horizons, left pads and the continuous
+pool's join gaps ride through unchanged. It returns (B, KVH, G, D) f32.
 
-The kernel reads only each row's valid slots and splits them into blocks
-of 64 in slot order, so a row's result does not depend on the batch, the
-cache length or where its gaps fall: a request decoded in the pool gets the
-same bits as decoded alone, and its greedy tokens match the solo stream.
-On a CUDA tensor it launches ``csrc/flash_decode.cu`` (built for sm_90a
-with ``nvcc`` at first use, bound with ctypes) or raises; on a CPU tensor
-it runs :func:`flash_decode_plain`.
+The kernel reads only each row's valid slots, from a slot list that
+:func:`compact` builds once per decode step (the mask is the same in every
+layer; ``LlamaModel.forward`` hands one :class:`Slots` to every layer, and
+the list is compacted at its first use), and splits them into blocks of
+``SPLIT`` in slot order, merged in split order. So a row's result does not
+depend on the batch, the cache length or where its gaps fall: a request
+decoded in the pool gets the same bits as decoded alone, and its greedy
+tokens match the solo stream. :func:`flash_decode_split_order` is that
+order in plain torch. Called without ``slots``, ``flash_decode`` compacts
+the mask itself. On a CUDA tensor it launches ``csrc/flash_decode.cu``
+(built for sm_90a with ``nvcc`` at first use, bound with ctypes) or raises;
+on a CPU tensor it runs :func:`flash_decode_plain`.
 
 Unlike the JAX package, where the kernel is opt-in, the port routes every
 T=1 decode attention on the card through it (:func:`use_flash_decode`):
@@ -25,7 +30,9 @@ cannot take is refused when it is built on the card
 (:func:`check_geometry`), and a call with inputs the kernel cannot take
 raises.
 
-Each launch adds one to ``launch_counts["flash_decode"]``.
+Each attention launch adds one to ``launch_counts["flash_decode"]``, each
+compaction launch one to ``launch_counts["flash_compact"]``: their sum is
+the device launches, one per call after the step's compaction.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ from __future__ import annotations
 import ctypes
 from collections import Counter
 from pathlib import Path
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -41,6 +49,10 @@ from .. import kernel_build
 __all__ = [
     "flash_decode",
     "flash_decode_plain",
+    "flash_decode_split_order",
+    "Slots",
+    "compact",
+    "compact_plain",
     "supported",
     "check_geometry",
     "use_flash_decode",
@@ -50,11 +62,16 @@ __all__ = [
 ]
 
 HEAD_DIMS = (64, 128)  # the kernel's D: D / 8 lanes of 16-byte loads per row
-MAX_GROUP = 8  # query heads per KV head: one warp each for the softmax
-SPLIT = 64  # valid slots per block (the kernel's kSplit)
+MAX_GROUP = 8  # query heads per KV head
+SPLIT = 256  # valid slots per block (the kernel's kSplit)
+_MASKED_AT = -1e8  # mask values at or below: a masked slot (the kernel's kMaskedAt)
 _SOURCE = kernel_build.CSRC / "flash_decode.cu"
 
 launch_counts: Counter = Counter()
+# per (device, stream): the kernel's partials and per-row counters, grown
+# on demand; every launch writes its partials before it reads them and
+# leaves the counters zero, so launches in stream order may share them
+_scratch: Dict[Tuple[int, int], Dict[str, torch.Tensor]] = {}
 
 
 def reset_launch_counts() -> None:
@@ -99,7 +116,9 @@ def build(verbose: bool = False) -> Path:
 
 
 def _bind(lib) -> None:
-    lib.flash_decode.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.flash_compact.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    lib.flash_compact.restype = ctypes.c_int
+    lib.flash_decode.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     lib.flash_decode.restype = ctypes.c_int
 
 
@@ -115,9 +134,110 @@ def flash_decode_plain(q, k_cache, v_cache, mask) -> torch.Tensor:
     return torch.einsum("bhgs,bhsd->bhgd", probs, v_cache[:, :, :sm].to(torch.float32))
 
 
-def flash_decode(q, k_cache, v_cache, mask) -> torch.Tensor:
+def compact_plain(mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Row b's valid slots (mask > -1e8) in slot order as idx[b, :count[b]]
+    (int32; the rest of the row 0), and count (B,) int32: the compaction
+    kernel's output in plain torch."""
+    valid = mask > _MASKED_AT
+    count = valid.sum(dim=-1, dtype=torch.int32)
+    slot = torch.arange(mask.shape[-1], device=mask.device, dtype=torch.int32).expand_as(mask)
+    # stable sort puts the valid slots first, in slot order
+    order = torch.sort((~valid).to(torch.int8), dim=-1, stable=True).indices
+    idx = torch.where(slot < count[:, None], torch.gather(slot, -1, order), torch.zeros_like(slot))
+    return idx.to(torch.int32), count
+
+
+class Slots:
+    """A decode step's valid-slot list: the (B, Sm) mask and, once compacted
+    (at the first :func:`flash_decode` that takes it, or by :func:`compact`),
+    the kernel's idx (B, Sm) and count (B,) int32 tensors. One per forward
+    step, shared by every layer."""
+
+    __slots__ = ("mask", "idx", "count")
+
+    def __init__(self, mask: torch.Tensor):
+        self.mask = mask
+        self.idx: Optional[torch.Tensor] = None
+        self.count: Optional[torch.Tensor] = None
+
+
+def compact(mask_or_slots) -> Slots:
+    """Compact a (B, Sm) mask (or fill a :class:`Slots`) into the valid-slot
+    list: one launch of the compaction kernel on a CUDA tensor, the plain
+    version on a CPU tensor."""
+    slots = mask_or_slots if isinstance(mask_or_slots, Slots) else Slots(mask_or_slots)
+    mask = slots.mask
+    if not mask.is_cuda:
+        slots.idx, slots.count = compact_plain(mask)
+        return slots
+    if mask.dtype != torch.float32 or mask.dim() != 2 or not mask.is_contiguous():
+        raise ValueError("compact: the mask must be a contiguous (B, Sm) float32 tensor")
+    b, sm = mask.shape
+    dev = mask.device
+    idx = torch.empty((b, sm), dtype=torch.int32, device=dev)
+    count = torch.empty((b,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = kernel_build.load(_SOURCE, _bind).flash_compact(
+            mask.data_ptr(), idx.data_ptr(), count.data_ptr(), b, sm, torch.cuda.current_stream(dev).cuda_stream
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_compact launch failed: cudaError {err}")
+    launch_counts["flash_compact"] += 1
+    slots.idx, slots.count = idx, count
+    return slots
+
+
+def flash_decode_split_order(q, k_cache, v_cache, mask) -> torch.Tensor:
+    """The kernel's order in plain torch: each row's valid slots in slot
+    order, cut into blocks of ``SPLIT``; each block's f32 (max, sum, p @ V)
+    and the blocks merged in block order. A row with no valid slot gives
+    zeros. Every value a row's result depends on is gathered from that row
+    alone, so it does not change with the other rows, the gaps or the cache
+    length."""
+    b, kvh, g, d = q.shape
+    idx, count = compact_plain(mask)
+    out = torch.zeros((b, kvh, g, d), dtype=torch.float32, device=q.device)
+    for row in range(b):
+        slots = idx[row, : int(count[row])].long()
+        if slots.numel() == 0:
+            continue
+        m_all = l_all = acc_all = None
+        for s0 in range(0, slots.numel(), SPLIT):
+            blk = slots[s0 : s0 + SPLIT]
+            k = k_cache[row][:, blk].to(torch.float32)  # (KVH, n, D)
+            v = v_cache[row][:, blk].to(torch.float32)
+            s = torch.einsum("hgd,hnd->hgn", q[row].to(torch.float32), k) + mask[row, blk].to(torch.float32)
+            m = s.max(dim=-1).values
+            p = torch.exp(s - m[..., None])
+            l, acc = p.sum(dim=-1), torch.einsum("hgn,hnd->hgd", p, v)
+            if m_all is None:
+                m_all, l_all, acc_all = m, l, acc
+                continue
+            mm = torch.maximum(m_all, m)
+            a, c = torch.exp(m_all - mm), torch.exp(m - mm)
+            m_all, l_all, acc_all = mm, l_all * a + l * c, acc_all * a[..., None] + acc * c[..., None]
+        out[row] = acc_all / l_all[..., None]
+    return out
+
+
+def _scratch_for(dev: torch.device, stream: int, n_part: int, n_row: int) -> Dict[str, torch.Tensor]:
+    """The (device, stream)'s partials, grown to at least ``n_part`` (m, l)
+    entries (their acc rows sized for the largest head dim), and its
+    per-row counters, grown to ``n_row`` (new counters start at zero)."""
+    buf = _scratch.setdefault((dev.index, stream), {})
+    if "part_m" not in buf or buf["part_m"].numel() < n_part:
+        buf["part_m"] = torch.empty(n_part, dtype=torch.float32, device=dev)
+        buf["part_l"] = torch.empty(n_part, dtype=torch.float32, device=dev)
+        buf["part_acc"] = torch.empty(n_part * max(HEAD_DIMS), dtype=torch.float32, device=dev)
+    if "counter" not in buf or buf["counter"].numel() < n_row:
+        buf["counter"] = torch.zeros(n_row, dtype=torch.int32, device=dev)
+    return buf
+
+
+def flash_decode(q, k_cache, v_cache, mask, slots: Optional[Slots] = None) -> torch.Tensor:
     """Masked decode attention, (B, KVH, G, D) f32. CUDA tensors launch the
-    kernel; CPU tensors take the plain version."""
+    kernel (and, without ``slots`` or with ``slots`` not yet compacted, the
+    compaction first); CPU tensors take the plain version."""
     if not q.is_cuda:
         return flash_decode_plain(q, k_cache, v_cache, mask)
     b, kvh, g, d = q.shape
@@ -141,13 +261,16 @@ def flash_decode(q, k_cache, v_cache, mask) -> torch.Tensor:
         raise ValueError(f"flash_decode: mask must be ({b}, Sm <= {s}) on q's device")
     q = q.contiguous()
     mask = mask.contiguous()
-    nsplit = -(-sm // SPLIT)
+    if slots is None:
+        slots = Slots(mask)
+    elif slots.mask.data_ptr() != mask.data_ptr() or slots.mask.shape != mask.shape:
+        raise ValueError("flash_decode: slots were built from another mask")
+    if slots.idx is None:
+        compact(slots)
     dev = q.device
-    idx = torch.empty((b, sm), dtype=torch.int32, device=dev)
-    count = torch.empty((b,), dtype=torch.int32, device=dev)
-    part_m = torch.empty((b, kvh, nsplit, g), dtype=torch.float32, device=dev)
-    part_l = torch.empty_like(part_m)
-    part_acc = torch.empty((b, kvh, nsplit, g, d), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    nsplit = -(-sm // SPLIT)
+    buf = _scratch_for(dev, stream, b * kvh * nsplit * g, b * kvh)
     out = torch.empty((b, kvh, g, d), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = kernel_build.load(_SOURCE, _bind).flash_decode(
@@ -155,11 +278,12 @@ def flash_decode(q, k_cache, v_cache, mask) -> torch.Tensor:
             k_cache.data_ptr(),
             v_cache.data_ptr(),
             mask.data_ptr(),
-            idx.data_ptr(),
-            count.data_ptr(),
-            part_m.data_ptr(),
-            part_l.data_ptr(),
-            part_acc.data_ptr(),
+            slots.idx.data_ptr(),
+            slots.count.data_ptr(),
+            buf["part_m"].data_ptr(),
+            buf["part_l"].data_ptr(),
+            buf["part_acc"].data_ptr(),
+            buf["counter"].data_ptr(),
             out.data_ptr(),
             b,
             kvh,
@@ -167,7 +291,7 @@ def flash_decode(q, k_cache, v_cache, mask) -> torch.Tensor:
             d,
             sm,
             s,
-            torch.cuda.current_stream(dev).cuda_stream,
+            stream,
         )
     if err != 0:
         raise RuntimeError(f"flash_decode launch failed: cudaError {err}")

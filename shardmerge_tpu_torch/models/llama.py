@@ -218,7 +218,7 @@ class Attention(nn.Module):
         for name in ("q_proj", "k_proj", "v_proj", "o_proj"):
             setattr(self, name, Projection(layer[name]))
 
-    def forward(self, x, cos, sin, positions, kv_cache, layer_idx, cache_pos, mask):
+    def forward(self, x, cos, sin, positions, kv_cache, layer_idx, cache_pos, mask, slots=None):
         cfg = self.cfg
         B, T, _ = x.shape
         H, KVH, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
@@ -237,9 +237,10 @@ class Attention(nn.Module):
         scale = float(np.sqrt(np.float32(D)))
         if attn_kernels.use_flash_decode(cfg, T, q):
             # decode: the kernel reads the bf16 cache once; same additive
-            # mask, same f32 softmax semantics as the einsum path below
+            # mask, same f32 softmax semantics as the einsum path below; the
+            # step's slot list is compacted once and shared by every layer
             qs = qg[:, :, :, 0, :].to(torch.float32) / scale
-            ctx = attn_kernels.flash_decode(qs, k_cache, v_cache, mask[:, 0, :])
+            ctx = attn_kernels.flash_decode(qs, k_cache, v_cache, mask[:, 0, :], slots=slots)
             return self.o_proj(ctx.reshape(B, T, H * D).to(x.dtype))
         # the mask covers the first attn_len slots; the rest are masked
         sm = mask.shape[-1]
@@ -273,9 +274,9 @@ class DecoderLayer(nn.Module):
         self.self_attn = Attention(cfg, layer)
         self.mlp = MLP(layer)
 
-    def forward(self, x, cos, sin, positions, kv_cache, layer_idx, cache_pos, mask):
+    def forward(self, x, cos, sin, positions, kv_cache, layer_idx, cache_pos, mask, slots=None):
         h = rms_norm(x, self.input_layernorm, self.eps)
-        x = x + self.self_attn(h, cos, sin, positions, kv_cache, layer_idx, cache_pos, mask)
+        x = x + self.self_attn(h, cos, sin, positions, kv_cache, layer_idx, cache_pos, mask, slots)
         h = rms_norm(x, self.post_attention_layernorm, self.eps)
         return x + self.mlp(h)
 
@@ -343,8 +344,9 @@ class LlamaModel(nn.Module):
             torch.full((), -1e9, dtype=torch.float32, device=x.device),
         )
         cos, sin = rope
+        slots = attn_kernels.Slots(mask[:, 0, :]) if input_ids.shape[1] == 1 else None
         for i, layer in enumerate(self.layers):
-            x = layer(x, cos, sin, positions, kv_cache, i, cache_pos, mask)
+            x = layer(x, cos, sin, positions, kv_cache, i, cache_pos, mask, slots)
         x = rms_norm(x, self.norm, self.cfg.rms_norm_eps)
         logits = self.lm_head(x).to(torch.float32)
         return logits, kv_cache

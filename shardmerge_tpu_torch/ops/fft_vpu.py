@@ -3,13 +3,21 @@
 
 ``fft_batched(zr, zi, inverse)`` is the complex FFT along the last axis of
 batch-major (B, N) f32 planes, in natural order, with the 1/N scale on the
-inverse. N = 8*m with m a product of the radices {4, 2, 7, 3, 5}: DIF
-Stockham stages of those radices, largest first, then a DFT-8 tail. On a
-CUDA tensor it launches ``csrc/stockham_fft.cu`` (built for sm_90a with
-``nvcc`` at first use, bound with ctypes) or raises; on a CPU tensor it
-runs :func:`fft_batched_plain`, the JAX module's ``_flat_stockham`` in f32
-torch (the flat (m, s*b) layout, quarter-turn twiddles snapped exact, the
-DFT-8 as a matmul, and the reorder to natural order).
+inverse. N = 8*m with m a product of the radices {4, 2, 7, 3, 5}, N <= 4096
+(the JAX module's gate). On a CUDA tensor it launches
+``csrc/stockham_fft.cu`` (built for sm_90a with ``nvcc`` at first use,
+bound with ctypes) or raises; on a CPU tensor it runs
+:func:`fft_batched_plain`, the JAX module's ``_flat_stockham`` in f32 torch
+(the flat (m, s*b) layout, quarter-turn twiddles snapped exact, the DFT-8
+as a matmul, and the reorder to natural order).
+
+The kernel runs decimation-in-time Stockham passes of large radices
+(:func:`_schedule`: 16s, then 8, 4 or 2, then 7, 5, 3): the first pass
+reads the input planes into registers, the last writes natural order, and
+the passes between exchange through shared memory. :func:`_simulate` runs
+that schedule, with the kernel's index maps, table indices and exchange
+swizzle (:func:`_swizzle`), in float64 numpy for the CPU tests; the roots
+and twiddles come from one table (:func:`_table`).
 
 ``rfft2_vpu``/``irfft2_vpu`` are the JAX module's functions in plain torch
 around ``fft_batched``: the rows pass packs even/odd samples into an
@@ -181,18 +189,81 @@ def fft_batched_plain(zr: torch.Tensor, zi: torch.Tensor, inverse: bool):
     return reorder(fr), reorder(fi)
 
 
+def _schedule(n: int) -> Tuple[int, ...]:
+    """The kernel's radices for a line of n: 16s over the power of two, its
+    remainder (8, 4 or 2) after them, then the odd factors 7, 5, 3 (the
+    C++ ``schedule`` checks the host's list against its own)."""
+    assert _supported_len(n), n
+    two = n & -n
+    lg = two.bit_length() - 1
+    radices = [16] * (lg // 4) + ([1 << (lg % 4)] if lg % 4 else [])
+    odd = n // two
+    for r in (7, 5, 3):
+        while odd % r == 0:
+            radices.append(r)
+            odd //= r
+    return tuple(radices)
+
+
+def _swizzle(f: np.ndarray, ns: int, r: int) -> np.ndarray:
+    """Where the exchange written by a pass of (Ns, R) keeps block-local
+    index f (the 2^k instance's ``swz``): the low five bits XOR the bits from
+    max(5, log2(Ns*R)) up, times Ns. A permutation within each aligned run of
+    32, so the next pass's contiguous reads stay free of bank conflicts."""
+    shift = max(5, (ns * r).bit_length() - 1)
+    return f ^ (((f >> shift) * ns) & 31)
+
+
+def _simulate(n: int, x: np.ndarray, tab: np.ndarray, inverse: bool) -> np.ndarray:
+    """The kernel's passes on (lines, n) complex x in float64 numpy:
+    butterfly j of a radix-R pass with Ns before it reads x[j + r*n/R],
+    multiplies by tab[(j mod Ns)*r*n/(Ns*R)], takes the DFT-R over the roots
+    tab[q*n/R] and writes (j div Ns)*Ns*R + (j mod Ns) + r*Ns. A 2^k length's
+    exchanges go through :func:`_swizzle`, as the kernel's shared planes do."""
+    pow2 = n & (n - 1) == 0
+    lines = x.shape[0]
+    data = x.reshape(-1)
+    line0 = (np.arange(lines) * n)[:, None, None]
+    radices = _schedule(n)
+    ns, prev = 1, None
+    for p, r in enumerate(radices):
+        j = np.arange(n // r)[None, :, None]
+        e = np.arange(r)[None, None, :]
+        k = j % ns
+        src = line0 + j + e * (n // r)
+        if p and pow2:
+            src = _swizzle(src, *prev)
+        v = data[src] * tab[k * e * (n // (ns * r))]
+        v = v @ tab[(np.outer(np.arange(r), np.arange(r)) % r) * (n // r)]
+        dst = line0 + (j // ns) * ns * r + k + e * ns
+        if p + 1 < len(radices) and pow2:
+            dst = _swizzle(dst, ns, r)
+        data = np.full_like(data, np.nan)
+        data[dst] = v
+        prev, ns = (ns, r), ns * r
+    out = data.reshape(lines, n)
+    return out / n if inverse else out
+
+
 @lru_cache(maxsize=32)
-def _roots(n: int, inverse: bool, device) -> Tuple[torch.Tensor, torch.Tensor]:
+def _table(n: int, inverse: bool, device) -> torch.Tensor:
     """e^{sign*2pi*i*t/n} for t in [0, n), computed in float64 with the
-    quarter turns snapped exact, as f32 planes on ``device``."""
+    quarter turns snapped exact, rounded once to f32: an (n, 2) re/im
+    tensor on ``device`` (the kernel reads it as float2)."""
     sgnc = 2j * np.pi if inverse else -2j * np.pi
     w = np.array([_snap(complex(v)) for v in np.exp(sgnc * np.arange(n) / n)])
-    return (torch.from_numpy(w.real.astype(np.float32)).to(device),
-            torch.from_numpy(w.imag.astype(np.float32)).to(device))
+    return torch.from_numpy(np.stack([w.real, w.imag], axis=1).astype(np.float32)).to(device)
+
+
+@lru_cache(maxsize=32)
+def _radix_arg(n: int):
+    radices = _schedule(n)
+    return (ctypes.c_int * len(radices))(*radices), len(radices)
 
 
 def _bind(lib) -> None:
-    lib.stockham_fft.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.stockham_fft.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+                                 + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p])
     lib.stockham_fft.restype = ctypes.c_int
 
 
@@ -212,20 +283,22 @@ def fft_batched(zr: torch.Tensor, zi: torch.Tensor, inverse: bool):
     zr = zr.contiguous()
     zi = zi.contiguous()
     dev = zr.device
-    wr, wi = _roots(N, inverse, dev)
+    tab = _table(N, inverse, dev)
+    radices, npass = _radix_arg(N)
     out_r = torch.empty_like(zr)
     out_i = torch.empty_like(zr)
     with torch.cuda.device(dev):
         err = kernel_build.load(_SOURCE, _bind).stockham_fft(
             zr.data_ptr(),
             zi.data_ptr(),
-            wr.data_ptr(),
-            wi.data_ptr(),
+            tab.data_ptr(),
             out_r.data_ptr(),
             out_i.data_ptr(),
             B,
             N,
             int(inverse),
+            radices,
+            npass,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:

@@ -164,3 +164,106 @@ def test_decode_logits_through_flash_route_match_jax(monkeypatch, padded):
         tl, _ = model(torch.from_numpy(ids[:, -1:]), torch.from_numpy(step_pos.copy()), tkv, T - 1, trope, T, **kw_t1)
     assert calls.count(1) == tcfg.num_hidden_layers  # the decode step took the route
     np.testing.assert_allclose(tl[:, -1].numpy(), np.asarray(jl[:, -1]), **TOL)
+
+
+def test_compact_plain_lists_each_rows_valid_slots_in_order():
+    rng = np.random.default_rng(4)
+    ok = rng.random((4, 300)) > 0.4
+    ok[2] = False  # a row with no valid slot
+    ok[3, -1] = True
+    mask = np.where(ok, 0.0, -1e9).astype(np.float32)
+    mask[1, 5] = -3.0  # an additive penalty, not a masked slot
+    idx, count = ak.compact_plain(torch.from_numpy(mask))
+    assert idx.dtype == count.dtype == torch.int32 and idx.shape == (4, 300)
+    for row in range(4):
+        want = np.nonzero(mask[row] > -1e8)[0]
+        assert int(count[row]) == want.size
+        np.testing.assert_array_equal(idx[row, : want.size].numpy(), want)
+
+
+@pytest.mark.parametrize(
+    "b,kvh,g,s,valid",
+    [
+        (2, 2, 4, 768, "holes"),  # up to ~380 valid slots: two splits
+        (1, 1, 8, 640, "holes"),
+        (3, 2, 2, 640, "last7"),  # one split, the last 7 slots
+    ],
+)
+def test_split_order_model_matches_jax_kernel_and_plain(b, kvh, g, s, valid):
+    """The kernel's order in plain torch (valid slots in blocks of SPLIT,
+    merged in block order) against the JAX kernel in interpret mode and the
+    plain version."""
+    q, k, v, mask = _inputs(s + g, b, kvh, g, 128, s, valid)
+    want = np.asarray(jak.flash_decode(jnp.asarray(q), k, v, jnp.asarray(mask)))
+    got = ak.flash_decode_split_order(_torch(q), _torch(k), _torch(v), _torch(mask))
+    assert got.dtype == torch.float32 and np.isfinite(got.numpy()).all()
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    plain = ak.flash_decode_plain(_torch(q), _torch(k), _torch(v), _torch(mask))
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_split_order_model_row_does_not_depend_on_other_rows_gaps_or_length(d):
+    """A row's history of 300 valid slots (two splits) alone in a 512-slot
+    cache, or in a batch of 3 over 1200 slots with gaps and a shorter
+    mask, gives the same bits; a row with no valid slot gives zeros."""
+    rng = np.random.default_rng(d)
+    hist_k = rng.standard_normal((2, 300, d)).astype(np.float32)
+    hist_v = rng.standard_normal((2, 300, d)).astype(np.float32)
+    q = torch.from_numpy(rng.standard_normal((3, 2, 4, d)).astype(np.float32))
+    k1 = torch.zeros((1, 2, 512, d), dtype=torch.bfloat16)
+    v1 = torch.zeros((1, 2, 512, d), dtype=torch.bfloat16)
+    k1[0, :, :300] = torch.from_numpy(hist_k).to(torch.bfloat16)
+    v1[0, :, :300] = torch.from_numpy(hist_v).to(torch.bfloat16)
+    m1 = torch.full((1, 512), -1e9)
+    m1[0, :300] = 0.0
+    k3 = torch.from_numpy(rng.standard_normal((3, 2, 1200, d)).astype(np.float32)).to(torch.bfloat16)
+    v3 = torch.from_numpy(rng.standard_normal((3, 2, 1200, d)).astype(np.float32)).to(torch.bfloat16)
+    spans = [(0, 120), (500, 600), (1000, 1080)]  # 300 slots around two join gaps
+    m3 = torch.full((3, 1100), -1e9)
+    at = 0
+    for a, e in spans:
+        k3[0, :, a:e] = k1[0, :, at : at + e - a]
+        v3[0, :, a:e] = v1[0, :, at : at + e - a]
+        m3[0, a:e] = 0.0
+        at += e - a
+    m3[1, :900] = 0.0  # row 2 has no valid slot
+    alone = ak.flash_decode_split_order(q[:1], k1, v1, m1)
+    pooled = ak.flash_decode_split_order(q, k3, v3, m3)
+    assert torch.equal(pooled[0], alone[0])
+    assert torch.equal(pooled[2], torch.zeros_like(pooled[2]))
+    plain = ak.flash_decode_plain(q[:1], k1, v1, m1)
+    np.testing.assert_allclose(alone.numpy(), plain.numpy(), **TOL)
+
+
+def test_forward_hands_every_decode_layer_one_slot_list(monkeypatch):
+    """A T=1 forward builds one Slots of its mask and hands it to every
+    layer (so the card compacts once per step); prefill hands none. On the
+    CPU the flash route computes the plain attention, so the logits equal
+    the einsum path's."""
+    seen = []
+
+    def recording(q, k, v, mask, slots=None):
+        seen.append((mask, slots))
+        return ak.flash_decode_plain(q, k, v, mask)
+
+    cfg = tllama.ModelConfig.from_hf_config(FLASH_HF)
+    jcfg = jllama.ModelConfig.from_hf_config(FLASH_HF)
+    params = jax.tree_util.tree_map(np.asarray, jllama.init_params(jcfg, jax.random.PRNGKey(3), dtype=jnp.float32))
+    model = tllama.LlamaModel(cfg, params_from_jax(params))
+    rope = tllama.rope_tables(cfg, 64)
+    ids = torch.from_numpy(np.random.default_rng(1).integers(0, 128, (2, 9)))
+    pos = torch.arange(8)[None].expand(2, 8)
+    with torch.inference_mode():
+        kv = tllama.init_kv_cache(cfg, 2, 64, torch.float32)
+        _, kv = model(ids[:, :8], pos, kv, 0, rope, 8)
+        kv_einsum = {n: t.clone() for n, t in kv.items()}
+        want, _ = model(ids[:, 8:], torch.full((2, 1), 8), kv_einsum, 8, rope, 9)
+        monkeypatch.setattr(ak, "use_flash_decode", lambda cfg, t, q: t == 1)
+        monkeypatch.setattr(ak, "flash_decode", recording)
+        got, _ = model(ids[:, 8:], torch.full((2, 1), 8), kv, 8, rope, 9)
+    assert len(seen) == cfg.num_hidden_layers
+    slots = {id(s) for _, s in seen}
+    assert len(slots) == 1 and seen[0][1] is not None
+    assert all(torch.equal(m, seen[0][1].mask) for m, _ in seen)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)

@@ -147,6 +147,93 @@ def test_flash_kernel_row_bits_do_not_depend_on_batch_length_or_gaps(card):
     assert torch.equal(pooled[0], alone[0])
 
 
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("g", range(1, 9))
+def test_flash_kernel_at_the_split_edges(card, g, d):
+    """Rows with SPLIT - 1, SPLIT and SPLIT + 1 valid slots (one split, one
+    full split, a second split of one slot), scattered over the cache, and
+    a row with none (zeros)."""
+    split = ak.SPLIT
+    q, k, v = _attn_inputs(card, 4, 2, g, 3 * split, seed=g, d=d)
+    rng = np.random.default_rng(g * d)
+    ok = np.zeros((4, 3 * split), bool)
+    for row, n in enumerate((split - 1, split, split + 1)):
+        ok[row, np.sort(rng.choice(3 * split, n, replace=False))] = True
+    mask = torch.where(torch.from_numpy(ok).to(card), 0.0, -1e9)
+    got = ak.flash_decode(q, k, v, mask)
+    want = ak.flash_decode_plain(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    rel = float((got[:3] - want[:3]).norm() / want[:3].norm())
+    assert rel <= 1e-5, rel
+    assert torch.equal(got[3], torch.zeros_like(got[3]))
+
+
+def test_flash_kernel_row_bits_with_the_step_slot_list(card):
+    """The bits test above with the slot list compacted once and handed to
+    the call, as the forward does: the same bits as the call that compacts
+    itself, and as the row alone."""
+    q, _, _ = _attn_inputs(card, 1, 8, 4, 1, seed=5)
+    _, k8, v8 = _attn_inputs(card, 8, 8, 4, 4096, seed=6)
+    spans = [(0, 100), (2000, 2250), (3000, 3010)]  # 360 valid slots: two splits
+    k1, v1 = (torch.zeros((1, 8, 512, 128), dtype=torch.bfloat16, device=card) for _ in range(2))
+    k1[0, :, :360] = torch.cat([k8[0, :, a:b] for a, b in spans], dim=1)
+    v1[0, :, :360] = torch.cat([v8[0, :, a:b] for a, b in spans], dim=1)
+    m1 = torch.full((1, 512), -1e9, device=card)
+    m1[:, :360] = 0.0
+    m8 = torch.full((8, 3500), -1e9, device=card)
+    for a, b in spans:
+        m8[0, a:b] = 0.0
+    m8[1:, :3300] = 0.0
+    q8 = torch.cat([q, torch.randn((7, 8, 4, 128), device=card)])
+    alone = ak.flash_decode(q, k1, v1, m1, slots=ak.compact(m1))
+    slots = ak.compact(m8)
+    pooled = ak.flash_decode(q8, k8, v8, m8, slots=slots)
+    assert torch.equal(pooled[0], alone[0])
+    assert torch.equal(ak.flash_decode(q8, k8, v8, m8), pooled)
+    assert int(slots.count[0]) == 360 and torch.equal(slots.count[1:].cpu(), torch.full((7,), 3300, dtype=torch.int32))
+
+
+def test_flash_kernel_one_device_launch_per_call_after_the_step_compaction(card):
+    """A call with the step's slot list is one device launch; a forward
+    decode step compacts once for all its layers."""
+    from shardmerge_tpu_torch.models import llama
+
+    q, k, v = _attn_inputs(card, 2, 2, 4, 700)
+    mask = torch.zeros((2, 700), device=card)
+    mask[1, 300:] = -1e9
+    ak.reset_launch_counts()
+    slots = ak.compact(mask)
+    outs = [ak.flash_decode(q, k, v, mask, slots=slots) for _ in range(3)]
+    assert ak.launch_counts == {"flash_compact": 1, "flash_decode": 3}
+    assert all(torch.equal(o, outs[0]) for o in outs)
+    ak.flash_decode(q, k, v, mask)  # no slot list: it compacts itself
+    assert ak.launch_counts == {"flash_compact": 2, "flash_decode": 4}
+    with pytest.raises(ValueError, match="another mask"):
+        ak.flash_decode(q, k, v, mask.clone(), slots=slots)
+
+    cfg = llama.ModelConfig(vocab_size=64, hidden_size=512, intermediate_size=128, num_hidden_layers=3,
+                            num_attention_heads=4, num_key_value_heads=1)
+    gen = torch.Generator().manual_seed(1)
+
+    def w(*shape):
+        return (torch.randn(shape, generator=gen) * 0.05).to(card)
+
+    layer = {"q_proj": w(512, 512), "k_proj": w(128, 512), "v_proj": w(128, 512), "o_proj": w(512, 512),
+             "gate_proj": w(128, 512), "up_proj": w(128, 512), "down_proj": w(512, 128),
+             "input_layernorm": torch.ones(512, device=card), "post_attention_layernorm": torch.ones(512, device=card)}
+    model = llama.LlamaModel(cfg, {"embed_tokens": w(64, 512), "norm": torch.ones(512, device=card),
+                                   "lm_head": w(64, 512), "layers": [layer] * 3})
+    rope = llama.rope_tables(cfg, 64, card)
+    kv = llama.init_kv_cache(cfg, 2, 64, torch.bfloat16, card)
+    with torch.inference_mode():
+        model(torch.ones((2, 5), dtype=torch.long, device=card), torch.arange(5, device=card)[None].expand(2, 5),
+              kv, 0, rope, 5)
+        ak.reset_launch_counts()
+        model(torch.ones((2, 1), dtype=torch.long, device=card), torch.full((2, 1), 5, device=card), kv, 5, rope, 6)
+    assert ak.launch_counts == {"flash_compact": 1, "flash_decode": 3}
+
+
 @pytest.mark.parametrize("rows", [4, 8, 64])
 def test_decode_ops_give_a_row_the_same_bits_at_any_batch(card, rows):
     """What pool-vs-solo exactness rests on besides the flash kernel: the
@@ -225,7 +312,7 @@ def test_decode_attention_routes_to_the_flash_kernel(card):
         kv_plain = {n: t.clone() for n, t in kv.items()}
         got, _ = model(tok, step, kv, 9, rope, 10)
         assert ak.launch_counts["flash_decode"] == 2
-        with mock.patch.object(ak, "flash_decode", ak.flash_decode_plain):
+        with mock.patch.object(ak, "flash_decode", lambda q, k, v, m, slots=None: ak.flash_decode_plain(q, k, v, m)):
             want, _ = model(tok, step, kv_plain, 9, rope, 10)
     assert float((got - want).norm() / want.norm()) <= 2e-3
 
@@ -338,6 +425,9 @@ def test_dft_rows_direct_route_matches_truth(card, inverse):
         (256, 960),  # radices 3 and 5
         (256, 3584),  # radix 7 at full depth
         (4128, 4096),  # the padded columns pass of rfft2 at (4096, 8192)
+        # every 2^k instance and the 7 / 3·5 lengths at B = 40: a ragged last
+        # block wherever a block holds more than 8 lines
+        *[(40, n) for n in (8, 16, 32, 64, 128, 256, 512, 2048, 4096, 448, 960, 3584, 120)],
     ],
 )
 def test_stockham_kernel_matches_plain_version(card, B, N, inverse):

@@ -320,3 +320,84 @@ def test_untangle_table_bit_equal(n):
     want = jfv._untangle_w(n)
     for g, w in zip(got, want):
         assert g.dtype == torch.float32 and np.array_equal(g.numpy(), np.asarray(w))
+
+
+# the Stockham kernel's length classes: every 2^k instance, and mixed
+# lengths with radices 7 (448, 3584), 5 and 3 (960, 120), 3^2, 3^5 and 5^3
+STOCKHAM_LENGTHS = [8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 448, 960, 3584, 120, 24, 40, 56, 72, 840,
+                    1944, 4000]
+
+
+def _stockham_truth(n, inverse, lines=3):
+    rng = np.random.default_rng(n)
+    x = rng.standard_normal((lines, n)) + 1j * rng.standard_normal((lines, n))
+    tab = np.exp((2j if inverse else -2j) * np.pi * np.arange(n) / n)
+    return x, tab, (np.fft.ifft if inverse else np.fft.fft)(x, axis=1)
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("n", STOCKHAM_LENGTHS)
+def test_stockham_schedule_matches_numpy_fft(n, inverse):
+    """The kernel's passes, index maps, table indices and exchange swizzle,
+    run in float64 numpy, give the transform."""
+    x, tab, want = _stockham_truth(n, inverse)
+    got = tfv._simulate(n, x, tab, inverse)
+    np.testing.assert_allclose(got, want, atol=1e-12 * np.abs(want).max())
+
+
+def test_stockham_schedule_covers_every_admitted_length():
+    lengths = [n for n in range(8, tfv._MAX_LEN + 1, 8) if tfv._supported_len(n)]
+    assert len(lengths) == 106
+    for n in lengths:
+        radices = tfv._schedule(n)
+        assert np.prod(radices) == n and set(radices) <= {16, 8, 4, 2, 7, 5, 3}
+        x, tab, want = _stockham_truth(n, False, lines=1)
+        np.testing.assert_allclose(tfv._simulate(n, x, tab, False), want, atol=1e-12 * np.abs(want).max())
+
+
+@pytest.mark.parametrize(
+    "n,want",
+    [(4096, (16, 16, 16)), (2048, (16, 16, 8)), (1024, (16, 16, 4)), (512, (16, 16, 2)), (32, (16, 2)),
+     (16, (16,)), (8, (8,)), (448, (16, 4, 7)), (960, (16, 4, 5, 3)), (3584, (16, 16, 2, 7)), (120, (8, 5, 3))],
+)
+def test_stockham_radices(n, want):
+    assert tfv._schedule(n) == want
+
+
+@pytest.mark.parametrize("n", [8, 4096, 448, 960])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_stockham_table_bit_equal(n, inverse):
+    """Every root and twiddle the kernel reads: e^(sign*2*pi*i*t/n) in
+    float64, the quarter turns exact, rounded once to f32, as (re, im)."""
+    tab = tfv._table(n, inverse, "cpu")
+    w = np.exp((2j if inverse else -2j) * np.pi * np.arange(n) / n)
+    quarter = np.arange(n) % (n // 4) == 0
+    w[quarter] = np.array([1, -1j, -1, 1j] if not inverse else [1, 1j, -1, -1j])[np.arange(n)[quarter] // (n // 4)]
+    assert tab.dtype == torch.float32 and tab.shape == (n, 2)
+    assert np.array_equal(tab[:, 0].numpy(), w.real.astype(np.float32))
+    assert np.array_equal(tab[:, 1].numpy(), w.imag.astype(np.float32))
+
+
+@pytest.mark.parametrize("n", [512, 1024, 2048, 4096])
+def test_stockham_exchanges_are_free_of_bank_conflicts(n):
+    """In the 2^k instance (16 values a thread, n/16 threads a line) every
+    warp's exchange writes, (j div Ns)*Ns*R + (j mod Ns) + r*Ns, and the next
+    pass's reads, j + r*n/R', hit 32 distinct banks through the swizzle, which
+    is a permutation of the line."""
+    radices, threads = tfv._schedule(n), n // 16
+    ns = 1
+    for r, r_next in zip(radices, radices[1:]):
+        assert np.array_equal(np.sort(tfv._swizzle(np.arange(n), ns, r)), np.arange(n))
+        for warp in range(threads // 32):
+            t = warp * 32 + np.arange(32)
+            for b in range(16 // r):
+                j = t + b * threads
+                for e in range(r):
+                    banks = tfv._swizzle((j // ns) * ns * r + j % ns + e * ns, ns, r) % 32
+                    assert len(set(banks.tolist())) == 32, (n, ns, r, b, e)
+            for b in range(16 // r_next):
+                j = t + b * threads
+                for e in range(r_next):
+                    banks = tfv._swizzle(j + e * (n // r_next), ns, r) % 32
+                    assert len(set(banks.tolist())) == 32, (n, ns, r_next, b, e)
+        ns *= r

@@ -9,16 +9,24 @@ Phases (each prints one line or a few; any failure exits non-zero):
 2. build: the four kernel sources of csrc/ (nvcc, sm_90a), one nvcc each,
    all started together;
 3. kernel int4_gemv: hold it to ``int4_matmul_plain`` at the Llama-3.1-8B
-   decode shapes, B = 1, 4, 8, 64, f32 and bf16 x (relL2 <= 1e-5 f32,
-   <= 4e-3 bf16), timing both;
+   decode shapes, B = 1, 4, 8, 32, 64, f32 and bf16 x (relL2 <= 1e-5 f32,
+   <= 4e-3 bf16), and row 0's bits at B = 1 to those at every other B;
+   device times (CUDA graphs, L2 flushed by a read) beside the PR 1
+   design's, the plain version, the bound, the bf16 dense matmul (4x the
+   bytes) and ``torch._weight_int4pack_mm`` (bf16 scales; a yardstick);
+   one decode layer's seven GEMVs summed at B = 1, 4, 8, 64;
 4. kernel flash_decode: hold it to ``flash_decode_plain`` at the 8B decode
    geometry (KVH 8, G 4, D 128), B = 1, 4, 16 x S = 2048, 8192, 32768 plus
-   the generate (B 4, S 256) and serve (B 8, S 4096) shapes, each with a
-   masked tail, random holes, and only the last 7 slots valid (relL2 <=
-   1e-5, finite; the call over a slot list compacted beforehand, as the
-   forward makes it, must give the same bits); time it over the step's slot
-   list (the per-layer call) and compacting itself, beside the previous
-   design's times, the plain version, SDPA and the bound;
+   the generate (B 4, S 256) and serve (B 8, S 4096) shapes, and at
+   Llama-3.1-405B's (KVH 8, G 16: four head chunks) at B 4, S 8192, each
+   with a masked tail, random holes, and only the last 7 slots valid
+   (relL2 <= 1e-5, finite; the call over a slot list compacted
+   beforehand, as the forward makes it, must give the same bits); time it
+   over the step's slot list (the per-layer call) and compacting itself,
+   beside the previous design's times, the plain version, SDPA and the
+   bound; then a G = 16 model and a head-dim-96 model built and decoded on
+   the card: the first through the kernel, the second through the counted
+   einsum path, their logits held to the einsum attention's (2e-2);
 5. fft: the spectral transforms. ``dft_rows``/``dft_cols`` (radix FFTs
    in shared memory) at the Llama-3.1-8B shapes (4096, 8192), (4096, 4096),
    (1024, 4096), (14336, 4096), (4096, 14336), (128256, 64) (split (334,
@@ -116,9 +124,26 @@ LLAMA_31_8B = {
 GEMV_SHAPES = [(4096, 4096), (1024, 4096), (14336, 4096), (4096, 14336)]
 LAYER_GEMVS = [(4096, 4096), (1024, 4096), (1024, 4096), (4096, 4096),
                (14336, 4096), (14336, 4096), (4096, 14336)]
-GEMV_ROWS = (1, 4, 8, 64)
+GEMV_ROWS = (1, 4, 8, 32, 64)
+# the PR 1 design of csrc/int4_gemv.cu at GEMV_SHAPES x GEMV_ROWS: device ms
+# per call as graph_ms times it (scripts/bench_int4_torch.py --previous,
+# NVIDIA H100 80GB HBM3, 700.00 W)
+GEMV_PREVIOUS_MS = {
+    "bfloat16": {(4096, 4096): (0.0105, 0.0148, 0.0239, 0.0788, 0.1527),
+                 (1024, 4096): (0.0091, 0.0115, 0.0186, 0.0237, 0.0434),
+                 (14336, 4096): (0.0234, 0.0402, 0.0709, 0.2629, 0.5085),
+                 (4096, 14336): (0.0287, 0.0451, 0.0762, 0.2640, 0.5141)},
+    "float32": {(4096, 4096): (0.0107, 0.0148, 0.0240, 0.0778, 0.1505),
+                (1024, 4096): (0.0092, 0.0117, 0.0192, 0.0234, 0.0427),
+                (14336, 4096): (0.0228, 0.0421, 0.0708, 0.2613, 0.5088),
+                (4096, 14336): (0.0297, 0.0474, 0.0778, 0.2628, 0.5117)},
+}
 # decode attention at 8B geometry: KV heads, query heads per KV head, head dim
 KVH, GROUP, HEAD_DIM = 8, 4, 128
+# Llama-3.1-405B's (KV heads, query heads per KV head) at head dim 128, and
+# a (B, S) for it: four head chunks of 4 on the card
+GEOMETRY_405B = (8, 16)
+ATTN_405B = (4, 8192)
 FLASH_SHAPES = [(b, s) for b in (1, 4, 16) for s in (2048, 8192, 32768)]
 GENERATE_ATTN = (4, 256)  # generate_batch: 4 prompts, one 256-slot bucket
 SERVE_SLOTS, SERVE_CACHE = 8, 4096
@@ -215,60 +240,89 @@ def gemv_bound(rows: int, shapes=LAYER_GEMVS, x_bytes: int = 2):
 
 
 def phase_kernel(torch, qk):
+    """int4_gemv at the 8B decode shapes x GEMV_ROWS, f32 and bf16 x: held
+    to the plain version, row 0's bits at B = 1 held to every other B,
+    device times (graph_ms: CUDA graphs, the L2 flushed by a read) beside
+    the PR 1 design's, the plain version, the bound, the bf16 dense matmul
+    and the library int4 call (``torch._weight_int4pack_mm``, bf16 scales, a
+    yardstick that the port never calls)."""
+    from scripts.bench_int4_torch import graph_ms, library_int4
+
     dev = torch.device("cuda:0")
     gen = torch.Generator(device=dev).manual_seed(1)
-    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
-    weights = {}
+    flush = torch.zeros(128 << 20, dtype=torch.uint8, device=dev)  # read: over twice the 50 MB L2
+    results = {}
+    ok = True
     for n, k in GEMV_SHAPES:
         q = torch.randint(0, 256, (n, k // 2), dtype=torch.uint8, device=dev, generator=gen)
         s = torch.rand((n, 1), dtype=torch.float32, device=dev, generator=gen) * 0.02 + 1e-3
-        weights[(n, k)] = (q, s)
-    results = {}
-    ok = True
-    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 4e-3)):
-        for n, k in GEMV_SHAPES:
-            q, s = weights[(n, k)]
-            for b in GEMV_ROWS:
-                x = torch.randn((b, k), device=dev, generator=gen).to(dtype)
+        dense = (torch.randn((n, k), device=dev, generator=gen) * 0.02).to(torch.bfloat16)
+        lib, why = library_int4(torch, q, s)
+        for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 4e-3)):
+            name = str(dtype)[6:]
+            x_all = torch.randn((max(GEMV_ROWS), k), device=dev, generator=gen).to(dtype)
+            row0 = qk.int4_matmul(x_all[:1], q, s)[0]
+            for i, b in enumerate(GEMV_ROWS):
+                x = x_all[:b]
                 got = qk.int4_matmul(x, q, s)
                 want = qk.int4_matmul_plain(x, q, s)
                 torch.cuda.synchronize()
                 rel = rel_l2(got.float(), want.float())
                 err = float((got.float() - want.float()).abs().max())
-                ms = time_ms(torch, lambda: qk.int4_matmul(x, q, s), flush)
-                plain = time_ms(torch, lambda: qk.int4_matmul_plain(x, q, s), flush)
-                gbs = q.numel() / (ms * 1e-3) / 1e9
-                bound_ms, bound_by = gemv_bound(b, [(n, k)], x.element_size())
-                passed = rel <= tol and got.dtype == dtype and got.shape == (b, n)
+                same_bits = bool(torch.equal(got[0], row0))
+                passed = rel <= tol and got.dtype == dtype and got.shape == (b, n) and same_bits
+                passed &= bool(torch.isfinite(got).all())
                 ok &= passed
-                results[(str(dtype), n, k, b)] = (err, ms, plain)
+                ms = graph_ms(torch, lambda: qk.int4_matmul(x, q, s), flush)
+                plain = graph_ms(torch, lambda: qk.int4_matmul_plain(x, q, s), flush)
+                row = dict(err=err, ms=ms, plain=plain, previous=GEMV_PREVIOUS_MS[name][(n, k)][i])
+                extra = ""
+                if dtype == torch.bfloat16:
+                    row["dense"] = graph_ms(torch, lambda: torch.matmul(x, dense.T), flush)
+                    row["library"] = None
+                    if lib is not None:
+                        try:
+                            row["library"] = graph_ms(torch, lambda: lib(x), flush)
+                        except Exception as exc:  # a yardstick only: say why it does not run
+                            lib, why = None, f"{type(exc).__name__}: {str(exc).splitlines()[0][:120]}"
+                    extra = (f" bf16 dense (4x the bytes) {row['dense']:.4f} ms; library int4 "
+                             + (f"_weight_int4pack_mm (bf16 scales) {row['library']:.4f} ms" if lib is not None
+                                else f"not run ({why})"))
+                bound_ms, bound_by = gemv_bound(b, [(n, k)], x.element_size())
+                results[(name, n, k, b)] = dict(row, bound=bound_ms)
                 say(
-                    f"[kernel] {str(dtype)[6:]:8s} N={n:5d} K={k:5d} B={b:2d} "
-                    f"relL2={rel:.2e} (tol {tol:.0e}) max_abs={err:.3e} "
-                    f"kernel={ms:.4f} ms ({gbs:.0f} GB/s of q) plain={plain:.4f} ms "
-                    f"bound={bound_ms:.4f} ms ({bound_by}) {'ok' if passed else 'FAIL'}"
+                    f"[kernel] {name:8s} N={n:5d} K={k:5d} B={b:2d} plan {qk.plan(n, k, dtype)[:2]} relL2={rel:.2e} "
+                    f"(tol {tol:.0e}) max_abs={err:.3e} row 0 {'=' if same_bits else '!='} B=1's bits | kernel "
+                    f"{ms:.4f} ms ({q.numel() / (ms * 1e-3) / 1e9:.0f} GB/s of packed bytes; PR 1 design "
+                    f"{row['previous']:.4f} ms) plain {plain:.4f} ms bound {bound_ms:.4f} ms ({bound_by});{extra} "
+                    f"{'ok' if passed else 'FAIL'}"
                 )
+            del x_all, row0
+        del q, s, dense, lib
     if not ok:
-        raise SystemExit("kernel disagrees with its plain version")
-    # one decode layer's seven GEMVs at the generate batch (B=4) and at the
-    # serve pool's slot count (B=8, the summary), bf16
-    for b in (4, SERVE_SLOTS):
-        layer = [results[("torch.bfloat16", n, k, b)] for n, k in LAYER_GEMVS]
+        raise SystemExit("kernel disagrees with its plain version, or row 0's bits depend on B")
+    # one decode layer's seven bf16 GEMVs at B = 1, 4 (generate), 8 (the
+    # serve pool's slots, the summary) and 64
+    for b in (1, 4, 64, SERVE_SLOTS):
+        layer = [results[("bfloat16", n, k, b)] for n, k in LAYER_GEMVS]
         bound_ms, bound_by = gemv_bound(b)
+        total = {key: sum(r[key] for r in layer) for key in ("ms", "previous", "plain", "dense")}
+        lib_ms = None if any(r["library"] is None for r in layer) else sum(r["library"] for r in layer)
         summary = {
-            "max_abs_err": max(r[0] for r in layer),
-            "ms": sum(r[1] for r in layer),
-            "plain_ms": sum(r[2] for r in layer),
+            "max_abs_err": max(r["err"] for r in layer),
+            "ms": total["ms"],
+            "plain_ms": total["plain"],
             "bound_ms": bound_ms,
             "bound_by": bound_by,
-            "library_ms": None,  # no one PyTorch call computes the split-half int4 product
+            "library_ms": lib_ms,  # torch._weight_int4pack_mm: the nearest library int4 product
         }
         say(
-            f"[kernel] one layer's 7 decode GEMVs, B={b} bf16: kernel "
-            f"{summary['ms']:.4f} ms, plain {summary['plain_ms']:.4f} ms, "
-            f"bound {bound_ms:.4f} ms ({bound_by})"
+            f"[kernel] one layer's 7 decode GEMVs, B={b} bf16: kernel {total['ms']:.4f} ms (PR 1 design "
+            f"{total['previous']:.4f} ms), plain {total['plain']:.4f} ms, bf16 dense {total['dense']:.4f} ms, "
+            f"library int4 {'not run' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound {bound_ms:.4f} ms "
+            f"({bound_by})"
         )
-    del flush, weights
+    del flush
     return summary
 
 
@@ -294,10 +348,12 @@ def phase_flash(torch, ak):
     ok = True
     worst = 0.0
     rows = {}
-    for b, s in FLASH_SHAPES + [GENERATE_ATTN, SERVE_ATTN]:
-        q = torch.randn((b, KVH, GROUP, HEAD_DIM), device=dev, generator=gen) / HEAD_DIM**0.5
-        k = torch.randn((b, KVH, s, HEAD_DIM), device=dev, generator=gen).to(torch.bfloat16)
-        v = torch.randn((b, KVH, s, HEAD_DIM), device=dev, generator=gen).to(torch.bfloat16)
+    cases = [(b, s, KVH, GROUP) for b, s in FLASH_SHAPES + [GENERATE_ATTN, SERVE_ATTN]]
+    cases.append((*ATTN_405B, *GEOMETRY_405B))
+    for b, s, kvh, group in cases:
+        q = torch.randn((b, kvh, group, HEAD_DIM), device=dev, generator=gen) / HEAD_DIM**0.5
+        k = torch.randn((b, kvh, s, HEAD_DIM), device=dev, generator=gen).to(torch.bfloat16)
+        v = torch.randn((b, kvh, s, HEAD_DIM), device=dev, generator=gen).to(torch.bfloat16)
         masks = attn_masks(torch, b, s, gen, dev)
         errs = []
         for name, mask in masks.items():
@@ -315,7 +371,7 @@ def phase_flash(torch, ak):
             errs.append(f"{name} {rel:.2e}{'' if passed else ' FAIL'}")
         mask = masks["holes"]
         # the library call: SDPA over (B, H, 1, D) bf16 queries, GQA, same mask
-        q_lib = q.reshape(b, KVH * GROUP, 1, HEAD_DIM).to(torch.bfloat16)
+        q_lib = q.reshape(b, kvh * group, 1, HEAD_DIM).to(torch.bfloat16)
         m_lib = mask[:, None, None, :].to(torch.bfloat16)
 
         def lib():
@@ -332,17 +388,18 @@ def phase_flash(torch, ak):
         # the kernel reads the K and V rows of valid slots only: the bound
         # counts those, the mask, q and the output
         valid = int((mask > -1e8).sum())
-        kv_bytes = 2 * valid * KVH * HEAD_DIM * 2
+        kv_bytes = 2 * valid * kvh * HEAD_DIM * 2
         nbytes = kv_bytes + 2 * q.numel() * 4 + mask.numel() * 4
         # operations at the f32 rate (q and the softmax are f32); the bytes
         # bound it at any rate the card has
-        bound_ms, bound_by = bound(nbytes, 4 * valid * KVH * GROUP * HEAD_DIM, F32_FLOPS)
-        every_slot_ms, _ = bound(nbytes + 2 * (b * s - valid) * KVH * HEAD_DIM * 2, 0, F32_FLOPS)
-        rows[(b, s)] = dict(ms=ms, plain_ms=plain, library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
-        old = FLASH_PREVIOUS_MS.get((b, s))
+        bound_ms, bound_by = bound(nbytes, 4 * valid * kvh * group * HEAD_DIM, F32_FLOPS)
+        every_slot_ms, _ = bound(nbytes + 2 * (b * s - valid) * kvh * HEAD_DIM * 2, 0, F32_FLOPS)
+        rows[(b, s, group)] = dict(ms=ms, plain_ms=plain, library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
+        old = FLASH_PREVIOUS_MS.get((b, s)) if group == GROUP else None
+        chunks = f", {ak.head_chunks(group)[0]} head chunks" if group > ak.CHUNK_GROUP else ""
         say(
-            f"[flash] B={b:2d} S={s:5d} relL2 {', '.join(errs)} (tol 1e-5) | kernel {ms:.4f} ms over the step's "
-            f"slot list ({kv_bytes / (ms * 1e-3) / 1e9:.0f} GB/s of valid K+V, {valid / (b * s):.0%} of slots), "
+            f"[flash] B={b:2d} S={s:5d} KVH={kvh} G={group}{chunks} relL2 {', '.join(errs)} (tol 1e-5) | kernel "
+            f"{ms:.4f} ms over the step's slot list ({kv_bytes / (ms * 1e-3) / 1e9:.0f} GB/s of valid K+V, {valid / (b * s):.0%} of slots), "
             f"{alone_ms:.4f} ms compacting itself"
             f"{f' (previous design, compacting: {old} ms)' if old else ''}; plain {plain:.4f} ms "
             f"SDPA {lib_ms:.4f} ms (bf16 q, relL2 {lib_rel:.1e}) bound {bound_ms:.4f} ms ({bound_by}; "
@@ -351,15 +408,69 @@ def phase_flash(torch, ak):
         del q, k, v, masks
     if not ok:
         raise SystemExit("flash_decode disagrees with its plain version")
-    summary = {"max_abs_err": worst, **rows[SERVE_ATTN]}
+    summary = {"max_abs_err": worst, **rows[(*SERVE_ATTN, GROUP)]}
     for name, shape in (("serve-pool", SERVE_ATTN), ("generate", GENERATE_ATTN)):
-        r = rows[shape]
+        r = rows[(*shape, GROUP)]
         say(f"[flash] {name} shape B={shape[0]} S={shape[1]}: kernel {r['ms']:.4f} ms (previous design "
             f"{FLASH_PREVIOUS_MS[shape]} ms), SDPA {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms, "
             f"plain {r['plain_ms']:.4f} ms")
+    r = rows[(*ATTN_405B, GEOMETRY_405B[1])]
+    say(f"[flash] Llama-3.1-405B geometry (KVH {GEOMETRY_405B[0]}, G {GEOMETRY_405B[1]}, D {HEAD_DIM}) "
+        f"B={ATTN_405B[0]} S={ATTN_405B[1]}: kernel {r['ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms, "
+        f"plain {r['plain_ms']:.4f} ms")
     say(f"[flash] max abs err vs plain {worst:.3e}")
     del flush
     return summary
+
+
+def phase_geometries(torch, ak):
+    """Two Llama geometries beside the 8B's, built and decoded on the card
+    (2 layers, random bf16 weights): Llama-3.1-405B's group of 16 query
+    heads per KV head at head dim 128 (hidden cut from 16384 to 2048: 16
+    heads over 1 KV head) runs the flash kernel; head dim 96 runs the
+    counted einsum path. Each decode step's logits are held to the same
+    step on the einsum attention."""
+    from shardmerge_tpu_torch.models import llama
+
+    dev = torch.device("cuda:0")
+    for label, heads, kv_heads, hidden, route in (("G=16 D=128", 16, 1, 2048, "flash_decode"),
+                                                   ("D=96", 2, 1, 192, "decode_einsum")):
+        cfg = llama.ModelConfig(vocab_size=1024, hidden_size=hidden, intermediate_size=512, num_hidden_layers=2,
+                                num_attention_heads=heads, num_key_value_heads=kv_heads)
+        gen = torch.Generator(device=dev).manual_seed(heads)
+        d, kv = cfg.head_dim, kv_heads * cfg.head_dim
+
+        def w(*shape):
+            return (torch.randn(shape, device=dev, generator=gen) * 0.05).to(torch.bfloat16)
+
+        def layer():
+            ones = torch.ones(hidden, device=dev).bfloat16()
+            return {"q_proj": w(hidden, hidden), "k_proj": w(kv, hidden), "v_proj": w(kv, hidden),
+                    "o_proj": w(hidden, hidden), "gate_proj": w(512, hidden), "up_proj": w(512, hidden),
+                    "down_proj": w(hidden, 512), "input_layernorm": ones, "post_attention_layernorm": ones}
+
+        model = llama.LlamaModel(cfg, {"embed_tokens": w(1024, hidden), "lm_head": w(1024, hidden),
+                                       "norm": torch.ones(hidden, device=dev).bfloat16(), "layers": [layer(), layer()]})
+        rope = llama.rope_tables(cfg, 512, dev)
+        cache = llama.init_kv_cache(cfg, 2, 512, torch.bfloat16, dev)
+        ids = torch.randint(0, 1024, (2, 300), device=dev, generator=gen)
+        with torch.inference_mode():
+            logits, cache = model(ids, torch.arange(300, device=dev)[None].expand(2, 300), cache, 0, rope, 300)
+            tok = logits[:, -1].argmax(-1)[:, None]
+            step = torch.full((2, 1), 300, device=dev)
+            plain_cache = {n: t.clone() for n, t in cache.items()}
+            ak.reset_launch_counts()
+            got, _ = model(tok, step, cache, 300, rope, 301)
+            counts = dict(ak.launch_counts)
+            with mock.patch.object(ak, "use_flash_decode", lambda *a: False):
+                want, _ = model(tok, step, plain_cache, 300, rope, 301)
+        rel = rel_l2(got, want)
+        ok = counts.get(route) == cfg.num_hidden_layers and rel <= 2e-2 and bool(torch.isfinite(got).all())
+        say(f"[geometry] {label} (head dim {d}, {heads // kv_heads} query heads per KV head): decode step routes "
+            f"{counts}; logits vs the einsum attention relL2 {rel:.2e} (tol 2e-2) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"[geometry] {label} did not decode through {route}")
+        del model, cache, plain_cache
 
 
 def fft_bound(lines: int, length: int):
@@ -1112,6 +1223,7 @@ def main() -> int:
     phase_build([qk, ak, pf, fv])
     int4 = phase_kernel(torch, qk)
     flash = phase_flash(torch, ak)
+    phase_geometries(torch, ak)
     fft, fft_launches = phase_fft(torch, pf, fv)
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:

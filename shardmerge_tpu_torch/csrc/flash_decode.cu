@@ -12,7 +12,7 @@
 //   out   (B, KVH, G, D)  f32; out[b, h, g] = softmax_s(q[b, h, g] . k[b, h, s]
 //                         + mask[b, s]) @ v[b, h]
 //
-// D = 64 or 128 (the Llama family's head dims), 1 <= G <= 8. Scores,
+// D = 64 or 128 (the Llama family's head dims), 1 <= G <= 64. Scores,
 // softmax and the weighted sum are f32. A masked slot (mask <= -1e8) is
 // skipped: its weight exp(-1e9 + score - m) is exactly 0 in f32 once any
 // slot is valid, and a decode row always has one (the token just written).
@@ -29,12 +29,17 @@
 //   - flash_compact_kernel, once per decode step (the mask is the same for
 //     every layer): block b lists row b's valid slots in slot order (a
 //     block-wide prefix count of mask > -1e8) and their number.
-//   - flash_kernel, once per layer: block (split, kvh, b) owns valid slots
-//     [256 split, 256 split + 256) of row b and exits at once if the row has
-//     fewer. It streams their K and V rows through a ring of 4 shared-memory
-//     stages of 32 slots (cp.async 16-byte copies gathered through the slot
-//     list, zero-filled past the block's slots), three chunks in flight
-//     while one is computed; the mask values are gathered while the first
+//   - flash_kernel, once per layer: block (split, kvh * chunks + chunk, b)
+//     owns valid slots [256 split, 256 split + 256) of row b for one chunk
+//     of at most 4 of the KV head's G query heads, and exits at once if
+//     the row has fewer slots. G > 4 splits into ceil(G / 4) balanced
+//     chunks, each reading the K/V rows again: a block of 5 to 8 heads
+//     spills registers under the 128-register cap of two blocks an SM and
+//     costs far more than the second pass over K/V that a chunk of 4
+//     costs (PERF.md, PR 6). It streams their K and V rows through a ring
+//     of 4 shared-memory stages of 32 slots (cp.async 16-byte copies
+//     gathered through the slot list, zero-filled past the block's slots),
+//     three chunks in flight while one is computed; the mask values are gathered while the first
 //     chunks fly. A group of D / 8 lanes takes a slot (a half-warp at
 //     D = 128), each lane 8 dims, with q's matching 8 dims for all G heads
 //     in registers, and carries an online softmax (m, l, acc) over its slots
@@ -42,16 +47,17 @@
 //     The groups of a warp, then the 8 warps, then the row's splits merge
 //     their (m, l, acc) in a fixed order. A row with one split writes its
 //     output at once; otherwise each split writes its partial, and the last
-//     block of the row to finish (an atomic counter per (b, kvh), which
-//     that block resets for the next call) merges the partials in split
-//     order.
+//     block of the row to finish (an atomic counter per (b, kvh, chunk),
+//     which that block resets for the next call) merges the partials in
+//     split order.
 // The split size is one constant, so a row's bits depend only on its valid
 // K/V rows in slot order: not on the batch, the cache length, or where the
 // continuous pool's join gaps fall, and a request decoded in the pool gets
-// the same bits as decoded alone. Each slot's K and V rows are contiguous
-// and could each be one TMA bulk copy, but a bulk copy per row measured
-// slower than the 16-byte cp.async gather, and tensor-map TMA copies boxes,
-// not a list of rows.
+// the same bits as decoded alone. A head's arithmetic never mixes with
+// another head's, so its bits do not depend on its chunk or on G either.
+// Each slot's K and V rows are contiguous and could each be one TMA bulk
+// copy, but a bulk copy per row measured slower than the 16-byte cp.async
+// gather, and tensor-map TMA copies boxes, not a list of rows.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -63,7 +69,8 @@ constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kMinBlocks = 2;  // resident blocks per SM: 128 registers a thread
 constexpr int kSplit = 256;  // valid slots per block: fixed, so rows split alike
-constexpr int kMaxG = 8;
+constexpr int kMaxG = 4;       // query heads a block takes (a chunk of the G heads)
+constexpr int kMaxGroup = 64;  // query heads per KV head
 constexpr float kNegInit = -1e30f;  // running-max seed, as in the TPU kernel
 constexpr float kMaskedAt = -1e8f;  // mask values at or below: a masked slot
 #define kNegInf __int_as_float(0xff800000)  // a dead slot's score
@@ -145,7 +152,7 @@ constexpr int kMaxSmem = 200 * 1024;  // dynamic shared memory a block may ask f
 
 // dynamic shared memory: the block's slot indices and mask values, then one
 // region used in turn by the K/V stages, the warps' (m, l, acc) and the last
-// block's split weights
+// block's split weights; G is the heads a block takes (a chunk)
 template <int D, int G>
 struct Smem {
   static constexpr int kStageBytes = 2 * kChunk * D * 2;  // K and V rows of a chunk, bf16
@@ -164,7 +171,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 flash_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
              const float* __restrict__ mask, const int* __restrict__ idx, const int* __restrict__ count,
              float* __restrict__ part_m, float* __restrict__ part_l, float* __restrict__ part_acc,
-             int* __restrict__ counter, float* __restrict__ out, int KVH, int Sm, int S, int nsplit) {
+             int* __restrict__ counter, float* __restrict__ out, int KVH, int Sm, int S, int nsplit, int Gt,
+             int nchunk) {
   constexpr int kLanes = D / 8;                           // lanes per slot, 8 dims each
   constexpr int kGroups = 32 / kLanes;                    // slot groups per warp
   constexpr int U = kChunk / (kWarps * kGroups);          // slots a group takes from a chunk
@@ -180,16 +188,20 @@ flash_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict__ k, c
   float* sm_l = sm_m + kWarps * G;
   __shared__ int last_block;
 
+  // the block's chunk: heads [g0, g0 + gn) of the KV head's Gt, gn <= G
   const int split = blockIdx.x;
-  const int h = blockIdx.y;
+  const int h = blockIdx.y / nchunk;
+  const int g0 = (blockIdx.y % nchunk) * G;
+  const int gn = min(G, Gt - g0);
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
   const size_t bh = (size_t)b * KVH + h;
+  float* const out_c = out + (bh * Gt + g0) * D;  // the chunk's heads, (gn, D)
   const int nb = count[b];
   const int used = (nb + kSplit - 1) / kSplit;
   if (split >= used) {
     if (split == 0)  // the row has no valid slot: zeros
-      for (int o = tid; o < G * D; o += kThreads) out[bh * G * D + o] = 0.f;
+      for (int o = tid; o < gn * D; o += kThreads) out_c[o] = 0.f;
     return;
   }
   const int warp = tid >> 5;
@@ -224,13 +236,14 @@ flash_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict__ k, c
     cp_async_commit();  // one group per chunk, empty past the last, so the waits count alike
   };
 
-  float qr[G][8];
+  float qr[G][8];  // a head past the chunk's gn gets q = 0 and is never written
   {
-    const float* qb = q + bh * G * D + li * 8;
+    const float* qb = q + (bh * Gt + g0) * D + li * 8;
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
     for (int g = 0; g < G; ++g) {
-      const float4 a = *reinterpret_cast<const float4*>(qb + g * D);
-      const float4 c = *reinterpret_cast<const float4*>(qb + g * D + 4);
+      const float4 a = g < gn ? *reinterpret_cast<const float4*>(qb + g * D) : zero;
+      const float4 c = g < gn ? *reinterpret_cast<const float4*>(qb + g * D + 4) : zero;
       qr[g][0] = a.x; qr[g][1] = a.y; qr[g][2] = a.z; qr[g][3] = a.w;
       qr[g][4] = c.x; qr[g][5] = c.y; qr[g][6] = c.z; qr[g][7] = c.w;
     }
@@ -336,8 +349,8 @@ flash_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict__ k, c
   __syncthreads();
 
   // the 8 warps, in order: this split's (m, l, acc) per output (g, d)
-  const size_t row_part = bh * nsplit * G;  // split i, head g at row_part + i * G + g
-  for (int o = tid; o < G * D; o += kThreads) {
+  const size_t row_part = bh * nsplit * Gt + g0;  // split i, head g0 + g at row_part + i * Gt + g
+  for (int o = tid; o < gn * D; o += kThreads) {
     const int g = o / D, d = o % D;
     float mm = kNegInit;
 #pragma unroll
@@ -350,12 +363,12 @@ flash_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict__ k, c
       aa = fmaf(sm_acc[(w * G + g) * D + d], e, aa);
     }
     if (used == 1) {
-      out[bh * G * D + o] = aa / ll;
+      out_c[o] = aa / ll;
     } else {
-      part_acc[(row_part + (size_t)split * G) * D + o] = aa;
+      part_acc[(row_part + (size_t)split * Gt) * D + o] = aa;
       if (d == 0) {
-        part_m[row_part + split * G + g] = mm;
-        part_l[row_part + split * G + g] = ll;
+        part_m[row_part + (size_t)split * Gt + g] = mm;
+        part_l[row_part + (size_t)split * Gt + g] = ll;
       }
     }
   }
@@ -364,18 +377,22 @@ flash_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict__ k, c
   // the last split of the row to finish merges the partials in split order
   __threadfence();
   __syncthreads();
-  if (tid == 0) last_block = atomicAdd(counter + bh, 1) == used - 1;
+  int* const cnt = counter + (size_t)blockIdx.z * gridDim.y + blockIdx.y;  // per (b, kvh, chunk)
+  if (tid == 0) last_block = atomicAdd(cnt, 1) == used - 1;
   __syncthreads();
   if (!last_block) return;
   __threadfence();
   float* w_m = reinterpret_cast<float*>(region);  // [used][G], the region is free again
   float* w_l = w_m + used * G;
   for (int i = tid; i < used * G; i += kThreads) {
-    w_m[i] = __ldcg(part_m + row_part + i);
-    w_l[i] = __ldcg(part_l + row_part + i);
+    const int sp = i / G, g = i % G;
+    if (g < gn) {
+      w_m[i] = __ldcg(part_m + row_part + (size_t)sp * Gt + g);
+      w_l[i] = __ldcg(part_l + row_part + (size_t)sp * Gt + g);
+    }
   }
   __syncthreads();
-  for (int o = tid; o < G * D; o += kThreads) {
+  for (int o = tid; o < gn * D; o += kThreads) {
     const int g = o / D;
     float mm = kNegInit;
     for (int i = 0; i < used; ++i) mm = fmaxf(mm, w_m[i * G + g]);
@@ -384,11 +401,11 @@ flash_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict__ k, c
     for (int i = 0; i < used; ++i) {
       const float e = expf(w_m[i * G + g] - mm);
       ll = fmaf(w_l[i * G + g], e, ll);
-      aa = fmaf(__ldcg(part_acc + (row_part + (size_t)i * G) * D + o), e, aa);
+      aa = fmaf(__ldcg(part_acc + (row_part + (size_t)i * Gt) * D + o), e, aa);
     }
-    out[bh * G * D + o] = aa / ll;
+    out_c[o] = aa / ll;
   }
-  if (tid == 0) counter[bh] = 0;  // ready for the next call
+  if (tid == 0) *cnt = 0;  // ready for the next call
 }
 
 struct Args {
@@ -403,7 +420,7 @@ struct Args {
   float* part_acc;
   int* counter;
   float* out;
-  int B, KVH, Sm, S, nsplit;
+  int B, KVH, Sm, S, nsplit, G, nchunk;
 };
 
 template <int D, int G>
@@ -413,24 +430,21 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   if (attr != cudaSuccess) return attr;
   const int bytes = Smem<D, G>::bytes(a.nsplit);
   if (bytes > kMaxSmem) return cudaErrorInvalidValue;
-  dim3 grid(a.nsplit, a.KVH, a.B);
+  dim3 grid(a.nsplit, a.KVH * a.nchunk, a.B);
   flash_kernel<D, G><<<grid, kThreads, bytes, stream>>>(
       a.q, static_cast<const __nv_bfloat16*>(a.k), static_cast<const __nv_bfloat16*>(a.v), a.mask, a.idx, a.count,
-      a.part_m, a.part_l, a.part_acc, a.counter, a.out, a.KVH, a.Sm, a.S, a.nsplit);
+      a.part_m, a.part_l, a.part_acc, a.counter, a.out, a.KVH, a.Sm, a.S, a.nsplit, a.G, a.nchunk);
   return cudaGetLastError();
 }
 
+// G: the heads a block takes, ceil(Gt / chunks) for chunks = ceil(Gt / kMaxG)
 template <int D>
 cudaError_t launch_head_dim(const Args& a, int G, cudaStream_t s) {
   switch (G) {
     case 1: return launch<D, 1>(a, s);
     case 2: return launch<D, 2>(a, s);
     case 3: return launch<D, 3>(a, s);
-    case 4: return launch<D, 4>(a, s);
-    case 5: return launch<D, 5>(a, s);
-    case 6: return launch<D, 6>(a, s);
-    case 7: return launch<D, 7>(a, s);
-    default: return launch<D, 8>(a, s);
+    default: return launch<D, 4>(a, s);
   }
 }
 
@@ -448,16 +462,18 @@ extern "C" int flash_compact(const float* mask, int* idx, int* count, int B, int
 
 // flash_decode: one launch over the slot list of flash_compact. Scratch:
 // part_m / part_l B*KVH*nsplit*G and part_acc B*KVH*nsplit*G*D floats with
-// nsplit = ceil(Sm / 256); counter B*KVH ints, zero before the first call
-// (the kernel leaves them zero).
+// nsplit = ceil(Sm / 256); counter B*KVH*ceil(G / 4) ints, zero before the
+// first call (the kernel leaves them zero).
 extern "C" int flash_decode(const float* q, const void* k, const void* v, const float* mask, const int* idx,
                             const int* count, float* part_m, float* part_l, float* part_acc, int* counter,
                             float* out, int B, int KVH, int G, int D, int Sm, int S, void* stream) {
-  if (B < 1 || KVH < 1 || G < 1 || G > kMaxG || (D != 64 && D != 128) || Sm < 1 || Sm > S || KVH > 65535 ||
-      B > 65535)
+  if (B < 1 || KVH < 1 || G < 1 || G > kMaxGroup || (D != 64 && D != 128) || Sm < 1 || Sm > S || B > 65535)
     return int(cudaErrorInvalidValue);
+  const int nchunk = (G + kMaxG - 1) / kMaxG;
+  if (KVH > 65535 / nchunk) return int(cudaErrorInvalidValue);
   const Args a{q, k, v, mask, idx, count, part_m, part_l, part_acc, counter, out,
-               B, KVH, Sm, S, (Sm + kSplit - 1) / kSplit};
+               B, KVH, Sm, S, (Sm + kSplit - 1) / kSplit, G, nchunk};
+  const int per_block = (G + nchunk - 1) / nchunk;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return int(D == 64 ? launch_head_dim<64>(a, G, s) : launch_head_dim<128>(a, G, s));
+  return int(D == 64 ? launch_head_dim<64>(a, per_block, s) : launch_head_dim<128>(a, per_block, s));
 }

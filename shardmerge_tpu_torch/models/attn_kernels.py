@@ -22,17 +22,20 @@ the mask itself. On a CUDA tensor it launches ``csrc/flash_decode.cu``
 on a CPU tensor it runs :func:`flash_decode_plain`.
 
 Unlike the JAX package, where the kernel is opt-in, the port routes every
-T=1 decode attention on the card through it (:func:`use_flash_decode`):
-the einsum path casts the whole cache layer to f32 twice per step and runs
-several launches where the kernel reads the bf16 cache once. There is no
-environment switch and no fallback: a model whose attention the kernel
-cannot take is refused when it is built on the card
-(:func:`check_geometry`), and a call with inputs the kernel cannot take
-raises.
+T=1 decode attention on the card whose geometry the kernel takes (head_dim
+64 or 128, 1 to 64 query heads per KV head: :func:`supported`) through it
+(:func:`use_flash_decode`): the einsum path casts the whole cache layer to
+f32 twice per step and runs several launches where the kernel reads the
+bf16 cache once. Every other geometry (head_dim 96 or 256, more than 64
+query heads per KV head) takes the einsum path on the card, the JAX
+model's default route. The route is chosen by shape alone, never by a
+failure: a call to the kernel with inputs it cannot take raises.
 
 Each attention launch adds one to ``launch_counts["flash_decode"]``, each
 compaction launch one to ``launch_counts["flash_compact"]``: their sum is
-the device launches, one per call after the step's compaction.
+the device launches, one per call after the step's compaction. A T=1 call
+on the card that the route sends to the einsum path adds one to
+``launch_counts["decode_einsum"]`` instead.
 """
 
 from __future__ import annotations
@@ -54,7 +57,7 @@ __all__ = [
     "compact",
     "compact_plain",
     "supported",
-    "check_geometry",
+    "head_chunks",
     "use_flash_decode",
     "build",
     "launch_counts",
@@ -62,15 +65,17 @@ __all__ = [
 ]
 
 HEAD_DIMS = (64, 128)  # the kernel's D: D / 8 lanes of 16-byte loads per row
-MAX_GROUP = 8  # query heads per KV head
+MAX_GROUP = 64  # query heads per KV head (the JAX kernel's limit)
+CHUNK_GROUP = 4  # query heads a kernel block takes (the kernel's kMaxG: more spill its registers)
 SPLIT = 256  # valid slots per block (the kernel's kSplit)
 _MASKED_AT = -1e8  # mask values at or below: a masked slot (the kernel's kMaskedAt)
 _SOURCE = kernel_build.CSRC / "flash_decode.cu"
 
 launch_counts: Counter = Counter()
-# per (device, stream): the kernel's partials and per-row counters, grown
-# on demand; every launch writes its partials before it reads them and
-# leaves the counters zero, so launches in stream order may share them
+# per (device, stream): the kernel's partials and its counters (one per
+# row, KV head and head chunk), grown on demand; every launch writes its
+# partials before it reads them and leaves the counters zero, so launches
+# in stream order may share them
 _scratch: Dict[Tuple[int, int], Dict[str, torch.Tensor]] = {}
 
 
@@ -80,33 +85,35 @@ def reset_launch_counts() -> None:
 
 def supported(q_shape, s: int) -> bool:
     """True when the kernel takes a (B, KVH, G, D) query over an S-slot
-    cache: D = 64 or 128, 1 <= G <= 8, any S >= 1 (the engine's buckets are
+    cache: D = 64 or 128, 1 <= G <= 64, any S >= 1 (the engine's buckets are
     multiples of 256)."""
     b, kvh, g, d = q_shape
     return d in HEAD_DIMS and 1 <= g <= MAX_GROUP and b >= 1 and kvh >= 1 and s >= 1
 
 
-def check_geometry(cfg) -> None:
-    """Raise ``NotImplementedError`` for a model whose decode attention the
-    kernel cannot take (head_dim not 64 or 128, or more than 8 query heads
-    per KV head). Called when a model is built on the card, so such a
-    model fails at load instead of at its first decode step."""
-    group = cfg.num_attention_heads // cfg.num_key_value_heads
-    if not supported((1, cfg.num_key_value_heads, group, cfg.head_dim), 1):
-        raise NotImplementedError(
-            f"flash_decode on the card takes head_dim in {HEAD_DIMS} and at most "
-            f"{MAX_GROUP} query heads per KV head; this model has head_dim "
-            f"{cfg.head_dim} and {group}"
-        )
+def head_chunks(g: int) -> Tuple[int, int]:
+    """(chunks, heads per chunk): the kernel's grid splits a KV head's G
+    query heads into ceil(G / 4) chunks of at most 4, balanced; the last
+    may hold fewer. A head's arithmetic does not depend on its chunk."""
+    n = -(-g // CHUNK_GROUP)
+    return n, -(-g // n)
 
 
 def use_flash_decode(cfg, t: int, q: torch.Tensor) -> bool:
     """Route one attention call: True for a single query token (T = 1) on a
-    CUDA tensor, whatever its geometry (:func:`flash_decode` raises on one
-    it cannot take). Prefill (T > 1) and CPU tensors take the einsum path.
-    Attention sinks and logit softcaps, which the kernel does not compute,
-    never reach it: ModelConfig rejects the configs that have them."""
-    return t == 1 and q.is_cuda
+    CUDA tensor whose geometry the kernel takes (:func:`supported`). A T=1
+    call on the card of any other geometry takes the einsum path and is
+    counted under ``launch_counts["decode_einsum"]``. Prefill (T > 1) and
+    CPU tensors take the einsum path. Attention sinks and logit softcaps,
+    which the kernel does not compute, never reach it: ModelConfig rejects
+    the configs that have them."""
+    if t != 1 or not q.is_cuda:
+        return False
+    group = cfg.num_attention_heads // cfg.num_key_value_heads
+    if supported((1, cfg.num_key_value_heads, group, cfg.head_dim), 1):
+        return True
+    launch_counts["decode_einsum"] += 1
+    return False
 
 
 def build(verbose: bool = False) -> Path:
@@ -223,7 +230,7 @@ def flash_decode_split_order(q, k_cache, v_cache, mask) -> torch.Tensor:
 def _scratch_for(dev: torch.device, stream: int, n_part: int, n_row: int) -> Dict[str, torch.Tensor]:
     """The (device, stream)'s partials, grown to at least ``n_part`` (m, l)
     entries (their acc rows sized for the largest head dim), and its
-    per-row counters, grown to ``n_row`` (new counters start at zero)."""
+    counters, grown to ``n_row`` (new counters start at zero)."""
     buf = _scratch.setdefault((dev.index, stream), {})
     if "part_m" not in buf or buf["part_m"].numel() < n_part:
         buf["part_m"] = torch.empty(n_part, dtype=torch.float32, device=dev)
@@ -270,7 +277,7 @@ def flash_decode(q, k_cache, v_cache, mask, slots: Optional[Slots] = None) -> to
     dev = q.device
     stream = torch.cuda.current_stream(dev).cuda_stream
     nsplit = -(-sm // SPLIT)
-    buf = _scratch_for(dev, stream, b * kvh * nsplit * g, b * kvh)
+    buf = _scratch_for(dev, stream, b * kvh * nsplit * g, b * kvh * head_chunks(g)[0])
     out = torch.empty((b, kvh, g, d), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = kernel_build.load(_SOURCE, _bind).flash_decode(

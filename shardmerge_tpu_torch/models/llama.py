@@ -288,8 +288,6 @@ class LlamaModel(nn.Module):
 
     def __init__(self, cfg: ModelConfig, params: dict):
         super().__init__()
-        if params["embed_tokens"].is_cuda:
-            attn_kernels.check_geometry(cfg)  # every T=1 decode runs the kernel
         self.cfg = cfg
         self.register_buffer("embed_tokens", params["embed_tokens"])
         self.register_buffer("norm", params["norm"])

@@ -87,20 +87,33 @@ def test_routing_takes_kernel_only_for_decode_on_the_card():
     class Cuda:  # the attribute routing reads, on a pretend CUDA tensor
         is_cuda = True
 
-    assert ak.use_flash_decode(cfg, 1, Cuda())  # every decode on the card
+    ak.reset_launch_counts()
+    assert ak.use_flash_decode(cfg, 1, Cuda())  # a decode on the card
     assert not ak.use_flash_decode(cfg, 4, Cuda())  # prefill
-    # the slice's geometry: D=128, G=4, S a multiple of the cache bucket;
-    # and the family's other head dim, 64 (Llama-3.2-1B, TinyLlama)
-    assert ak.supported((8, 8, 4, 128), 4096) and ak.supported((1, 8, 4, 128), 256)
-    assert ak.supported((1, 8, 4, 64), 256)
-    assert not ak.supported((1, 8, 4, 96), 256)  # D
-    assert not ak.supported((1, 2, 16, 128), 256)  # G
-    # a model the kernel cannot take is refused when it is built on the card
-    ak.check_geometry(cfg)
-    ak.check_geometry(tllama.ModelConfig.from_hf_config({**FLASH_HF, "hidden_size": 128}))  # D = 64
-    for bad in ({"hidden_size": 192}, {"num_attention_heads": 16, "hidden_size": 2048}):  # D = 96; G = 16
-        with pytest.raises(NotImplementedError, match="flash_decode"):
-            ak.check_geometry(tllama.ModelConfig.from_hf_config({**FLASH_HF, **bad}))
+    assert ak.launch_counts["decode_einsum"] == 0
+    # the kernel takes D in {64, 128} and 1 <= G <= 64 (the JAX kernel's limit)
+    for g in (1, 8, 16, 64):
+        for d in (64, 128):
+            assert ak.supported((2, 8, g, d), 4096)
+    for g, d in ((4, 96), (4, 256), (65, 128), (65, 64)):
+        assert not ak.supported((2, 8, g, d), 4096)
+    # a model's geometry routes its decode: G = 16 (Llama-3.1-405B) to the
+    # kernel, head_dim 96 or 256 and G = 65 to the counted einsum path
+    g16 = tllama.ModelConfig.from_hf_config({**FLASH_HF, "num_attention_heads": 16, "hidden_size": 2048})
+    assert ak.use_flash_decode(g16, 1, Cuda())
+    for bad in ({"hidden_size": 192}, {"hidden_size": 512}, {"num_attention_heads": 65, "hidden_size": 65 * 64}):
+        other = tllama.ModelConfig.from_hf_config({**FLASH_HF, **bad})  # D = 96; D = 256; G = 65
+        assert not ak.use_flash_decode(other, 1, Cuda())
+    assert ak.launch_counts["decode_einsum"] == 3 and ak.launch_counts["flash_decode"] == 0
+
+
+@pytest.mark.parametrize("g", range(1, 65))
+def test_head_chunks_cover_the_group_once(g):
+    """The kernel's grid cuts a KV head's G query heads into ceil(G / 4)
+    balanced chunks of at most 4, every chunk non-empty."""
+    n, per = ak.head_chunks(g)
+    assert n == -(-g // ak.CHUNK_GROUP) and per <= ak.CHUNK_GROUP == 4
+    assert (n - 1) * per < g <= n * per
 
 
 @pytest.mark.parametrize("sm", [1, 100, 256])
@@ -187,6 +200,7 @@ def test_compact_plain_lists_each_rows_valid_slots_in_order():
         (2, 2, 4, 768, "holes"),  # up to ~380 valid slots: two splits
         (1, 1, 8, 640, "holes"),
         (3, 2, 2, 640, "last7"),  # one split, the last 7 slots
+        (1, 2, 16, 512, "holes"),  # Llama-3.1-405B's G = 16: two head chunks on the card
     ],
 )
 def test_split_order_model_matches_jax_kernel_and_plain(b, kvh, g, s, valid):
@@ -267,3 +281,52 @@ def test_forward_hands_every_decode_layer_one_slot_list(monkeypatch):
     assert len(slots) == 1 and seen[0][1] is not None
     assert all(torch.equal(m, seen[0][1].mask) for m, _ in seen)
     np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+
+
+class _StubTokenizer:
+    """One token per character, decoded injectively."""
+
+    chat_template = None
+    eos_token_id = 1
+
+    def encode(self, text):
+        return [ord(c) % 96 + 2 for c in text]
+
+    def decode(self, ids, skip_special_tokens=True):
+        return "".join(f"<{i}>" for i in ids)
+
+
+@pytest.mark.parametrize(
+    "geometry,flash",
+    [
+        ({"num_attention_heads": 16, "num_key_value_heads": 1, "hidden_size": 1024}, True),  # G = 16, D = 64
+        ({"num_attention_heads": 2, "num_key_value_heads": 1, "hidden_size": 192}, False),  # head_dim 96
+    ],
+)
+def test_greedy_decode_of_other_geometries_matches_jax(monkeypatch, geometry, flash):
+    """Greedy tokens of a G = 16 model and of a head_dim 96 model equal the
+    JAX engine's on the same seeded weights (carried across by
+    models/convert.py). The G = 16 model decodes through the flash route
+    (its plain version on the CPU), as it does through the kernel on the
+    card; the head_dim 96 model takes the einsum path, as on the card."""
+    from shardmerge_tpu.inference import InferenceEngine as JaxEngine
+    from shardmerge_tpu_torch.inference import InferenceEngine
+
+    hf = {**FLASH_HF, **geometry, "vocab_size": 128, "intermediate_size": 128}
+    jcfg = jllama.ModelConfig.from_hf_config(hf)
+    tcfg = tllama.ModelConfig.from_hf_config(hf)
+    params = jax.tree_util.tree_map(np.asarray, jllama.init_params(jcfg, jax.random.PRNGKey(11), dtype=jnp.float32))
+    routed = []
+
+    def route(cfg, t, q):
+        routed.append(t)
+        return flash and t == 1
+
+    monkeypatch.setattr(ak, "use_flash_decode", route)
+    jeng = JaxEngine(jcfg, jax.tree_util.tree_map(jnp.asarray, params), _StubTokenizer())
+    teng = InferenceEngine(tcfg, tllama.LlamaModel(tcfg, params_from_jax(params)), _StubTokenizer())
+    prompts = ["hello there", "a", "the quick brown fox"]
+    kw = dict(max_new_tokens=5, greedy=True, return_meta=True)
+    ours = teng.generate_batch(prompts, **kw)
+    assert ours == jeng.generate_batch(prompts, use_template=False, **kw)
+    assert all(t for t in ours[0]) and routed.count(1) >= tcfg.num_hidden_layers

@@ -34,10 +34,11 @@ def _weights(n, k, card, seed=0):
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 4e-3)])
-@pytest.mark.parametrize("rows", [1, 3, 9, 64])
+@pytest.mark.parametrize("rows", [1, 3, 9, 32, 64])
 def test_kernel_matches_plain_version(card, dtype, tol, rows):
-    """Ragged shapes: N not a multiple of the 16-row block, K/2 not a
-    multiple of the 512-byte tile, row counts across the 1/4/8 variants."""
+    """Ragged shapes: N not a multiple of the 32-row tile, K/2 not a
+    multiple of the 256-byte (bf16 x) or 64-byte (f32 x, split in two by
+    the plan) chunk, row counts across the kernel's variants."""
     q, s = _weights(1000, 1056, card)
     x = torch.randn((rows, 1056), device=card).to(dtype)
     got = qk.int4_matmul(x, q, s)
@@ -103,6 +104,10 @@ def _attn_inputs(card, b, kvh, g, s, seed=0, d=128):
         (4, 8, 4, 2048, "holes", 64),  # head_dim 64 (Llama-3.2-1B)
         (2, 4, 8, 1000, "last7", 64),  # TinyLlama's G = 8, ragged S
         (1, 8, 3, 13, "tail", 64),
+        (4, 8, 16, 2048, "holes", 128),  # Llama-3.1-405B's G = 16: two head chunks
+        (2, 2, 64, 1000, "last7", 128),  # G = 64, the JAX kernel's limit: eight chunks
+        (3, 1, 12, 700, "tail", 64),  # G = 12: two chunks of 6
+        (2, 1, 9, 300, "holes", 128),  # G = 9: chunks of 5 and 4
     ],
 )
 def test_flash_kernel_matches_plain_version(card, b, kvh, g, s, valid, d):
@@ -126,12 +131,14 @@ def test_flash_kernel_matches_plain_version(card, b, kvh, g, s, valid, d):
     assert rel <= 1e-5, rel
 
 
-def test_flash_kernel_row_bits_do_not_depend_on_batch_length_or_gaps(card):
+@pytest.mark.parametrize("g", [4, 16, 64])
+def test_flash_kernel_row_bits_do_not_depend_on_batch_length_or_gaps(card, g):
     """A row's output depends only on its valid K/V rows in order: the same
     history alone in a 256-slot cache, or in a batch of 8 over 4096 slots
-    with a join gap and a short mask, gives the same bits."""
-    q, k1, v1 = _attn_inputs(card, 1, 8, 4, 256, seed=5)
-    _, k8, v8 = _attn_inputs(card, 8, 8, 4, 4096, seed=6)
+    with a join gap and a short mask, gives the same bits; with G > 8 the
+    heads run in chunks, and a head's bits do not depend on them."""
+    q, k1, v1 = _attn_inputs(card, 1, 8, g, 256, seed=5)
+    _, k8, v8 = _attn_inputs(card, 8, 8, g, 4096, seed=6)
     for src, dst in ((k1, k8), (v1, v8)):
         dst[0, :, :100] = src[0, :, :100]
         dst[0, :, 2000:2050] = src[0, :, 100:150]
@@ -141,10 +148,14 @@ def test_flash_kernel_row_bits_do_not_depend_on_batch_length_or_gaps(card):
     m8[0, :100] = 0.0
     m8[0, 2000:2050] = 0.0
     m8[1:, :2500] = 0.0
-    q8 = torch.cat([q, torch.randn((7, 8, 4, 128), device=card)])
+    q8 = torch.cat([q, torch.randn((7, 8, g, 128), device=card)])
     alone = ak.flash_decode(q, k1, v1, m1)
     pooled = ak.flash_decode(q8, k8, v8, m8)
     assert torch.equal(pooled[0], alone[0])
+    if g > 4:  # head h of a G-head call equals the same head in a call of 4 heads
+        for h0 in (0, g - 4):
+            part = ak.flash_decode(q[:, :, h0 : h0 + 4].contiguous(), k1, v1, m1)
+            assert torch.equal(part[0], alone[0, :, h0 : h0 + 4])
 
 
 @pytest.mark.parametrize("d", [64, 128])
@@ -251,6 +262,32 @@ def test_decode_ops_give_a_row_the_same_bits_at_any_batch(card, rows):
     assert torch.equal(qk.int4_matmul(x[:, 0], q, s)[0], qk.int4_matmul(x[:1, 0], q, s)[0])
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,k", [(14336, 4096), (1024, 4096), (4096, 14336)])
+def test_int4_kernel_row_bits_at_any_batch(card, n, k, dtype):
+    """Row 0 of the GEMV has the same bits at B = 1, 8, 32 and 64 at the
+    Llama-3.1-8B shapes (one split, or two; eight for f32 x at N = 1024):
+    the plan and the K order never depend on B."""
+    q, s = _weights(n, k, card, seed=n + k)
+    gen = torch.Generator(device=card).manual_seed(n)
+    x = torch.randn((64, k), device=card, generator=gen).to(dtype)
+    alone = qk.int4_matmul(x[:1], q, s)
+    for rows in (8, 32, 64):
+        assert torch.equal(qk.int4_matmul(x[:rows], q, s)[0], alone[0]), rows
+
+
+def test_int4_kernel_copies_a_misaligned_x(card):
+    """x at an offset that is not 16-byte aligned (a view into a larger
+    buffer) is copied, not misread."""
+    q, s = _weights(512, 1024, card)
+    buf = torch.randn(4 * 1024 + 3, device=card).to(torch.bfloat16)
+    x = buf[3:].view(4, 1024)
+    assert x.data_ptr() % 16
+    got = qk.int4_matmul(x, q, s)
+    want = qk.int4_matmul_plain(x, q, s)
+    assert float((got.float() - want.float()).norm() / want.float().norm()) <= 4e-3
+
+
 def test_flash_kernel_counts_launches_and_raises_instead_of_falling_back(card):
     q, k, v = _attn_inputs(card, 2, 2, 4, 256)
     mask = torch.zeros((2, 256), device=card)
@@ -265,6 +302,8 @@ def test_flash_kernel_counts_launches_and_raises_instead_of_falling_back(card):
         ak.flash_decode(q, k.transpose(2, 3).contiguous().transpose(2, 3), v, mask)
     with pytest.raises(ValueError):
         ak.flash_decode(q[..., :96].contiguous(), k[..., :96].contiguous(), v[..., :96].contiguous(), mask)
+    with pytest.raises(ValueError):  # G = 65: more query heads per KV head than the kernel takes
+        ak.flash_decode(torch.zeros((2, 1, 65, 128), device=card), k[:, :1].contiguous(), v[:, :1].contiguous(), mask)
     assert ak.launch_counts["flash_decode"] == 1
 
 
@@ -317,29 +356,64 @@ def test_decode_attention_routes_to_the_flash_kernel(card):
     assert float((got - want).norm() / want.norm()) <= 2e-3
 
 
-def test_model_the_kernel_cannot_take_is_refused_on_the_card(card):
-    """Every T=1 decode on the card runs the kernel, so a model with a head
-    dim it does not take fails when it is built there, not at decode; the
-    same model builds on the CPU (einsum path)."""
+def _tiny_model(cfg, device, seed):
+    """A 2-layer model of ``cfg`` with f32 weights from a seeded generator."""
     from shardmerge_tpu_torch.models import llama
 
-    cfg = llama.ModelConfig(
-        vocab_size=64, hidden_size=192, intermediate_size=64, num_hidden_layers=1,
-        num_attention_heads=2, num_key_value_heads=1,
-    )  # head_dim 96
+    gen = torch.Generator().manual_seed(seed)
+    h, kv, i = cfg.hidden_size, cfg.num_key_value_heads * cfg.head_dim, cfg.intermediate_size
+    q_out = cfg.num_attention_heads * cfg.head_dim
 
-    def params(device):
-        def w(*shape):
-            return torch.zeros(shape, dtype=torch.bfloat16, device=device)
+    def w(*shape):
+        return (torch.randn(shape, generator=gen) * 0.05).to(device)
 
-        layer = {"q_proj": w(192, 192), "k_proj": w(96, 192), "v_proj": w(96, 192), "o_proj": w(192, 192),
-                 "gate_proj": w(64, 192), "up_proj": w(64, 192), "down_proj": w(192, 64),
-                 "input_layernorm": w(192), "post_attention_layernorm": w(192)}
-        return {"embed_tokens": w(64, 192), "norm": w(192), "lm_head": w(64, 192), "layers": [layer]}
+    layers = [
+        {"q_proj": w(q_out, h), "k_proj": w(kv, h), "v_proj": w(kv, h), "o_proj": w(h, q_out),
+         "gate_proj": w(i, h), "up_proj": w(i, h), "down_proj": w(h, i),
+         "input_layernorm": torch.ones(h, device=device), "post_attention_layernorm": torch.ones(h, device=device)}
+        for _ in range(cfg.num_hidden_layers)
+    ]
+    return llama.LlamaModel(cfg, {"embed_tokens": w(cfg.vocab_size, h), "norm": torch.ones(h, device=device),
+                                  "lm_head": w(cfg.vocab_size, h), "layers": layers})
 
-    llama.LlamaModel(cfg, params("cpu"))
-    with pytest.raises(NotImplementedError, match="head_dim"):
-        llama.LlamaModel(cfg, params(card))
+
+@pytest.mark.parametrize(
+    "heads,kv_heads,hidden,route",
+    [
+        (16, 1, 2048, "flash_decode"),  # G = 16, D = 128 (Llama-3.1-405B's group size)
+        (2, 1, 192, "decode_einsum"),  # D = 96: the kernel does not take it
+    ],
+)
+def test_every_llama_geometry_decodes_on_the_card(card, heads, kv_heads, hidden, route):
+    """A model of any Llama geometry builds and decodes on the card: G = 16
+    runs the flash kernel, head_dim 96 the einsum path (counted under
+    ``decode_einsum``). Its decode logits agree with the same step on the
+    plain attention (f32 weights, so the logits measure the attention)."""
+    from unittest import mock
+
+    from shardmerge_tpu_torch.models import llama
+
+    cfg = llama.ModelConfig(vocab_size=256, hidden_size=hidden, intermediate_size=256, num_hidden_layers=2,
+                            num_attention_heads=heads, num_key_value_heads=kv_heads)
+    model = _tiny_model(cfg, card, seed=heads)
+    rope = llama.rope_tables(cfg, 256, card)
+    kv = llama.init_kv_cache(cfg, 2, 256, torch.bfloat16, card)
+    ids = torch.randint(0, 256, (2, 9), generator=torch.Generator().manual_seed(1)).to(card)
+    pos = torch.arange(9, device=card)[None].expand(2, 9)
+    with torch.inference_mode():
+        logits, kv = model(ids, pos, kv, 0, rope, 9)
+        tok = logits[:, -1].argmax(-1)[:, None]
+        step = torch.full((2, 1), 9, device=card)
+        kv_plain = {n: t.clone() for n, t in kv.items()}
+        ak.reset_launch_counts()
+        got, _ = model(tok, step, kv, 9, rope, 10)
+        counts = dict(ak.launch_counts)
+        with mock.patch.object(ak, "use_flash_decode", lambda *a: False):
+            want, _ = model(tok, step, kv_plain, 9, rope, 10)
+    assert counts.get(route) == cfg.num_hidden_layers, counts
+    assert counts.get("flash_decode", 0) == (cfg.num_hidden_layers if route == "flash_decode" else 0)
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).norm() / want.norm()) <= 2e-3
 
 
 @pytest.fixture

@@ -47,13 +47,33 @@ Phases (each prints one line or a few; any failure exits non-zero):
    bf16, 2 shards each, random weights from seeded generators;
 7. merge: ``python -m shardmerge_tpu_torch merge cfg.json`` (alphas 0.8 and
    0.4); the output must mirror the base index, be finite, take the slerp
-   regime, and agree with the port's host path on one q_proj;
-8. generate: load the merge with int4 weights, ``generate_batch`` on 4
+   regime, and agree with the port's host path on one q_proj; then the same
+   merge in process sequentially (this code with read-ahead, device staging
+   and the background flush off), pipelined (the defaults), and pipelined
+   again on a warm page-locked host pool, each under torch.profiler: the
+   device's busy share and each (14336, 4096) tensor's wall and spans; the
+   merge thread's Python stack is sampled every 5 ms: where its time went,
+   by site, and which threads moved across the longest gap in the samples;
+8. stack: three more finetunes of the same base (delta scales 0.02, 0.05,
+   0.13 beside ft1's 0.01: first-round norms 1 : 2 : 5 : 13), a 4-finetune
+   and a 3-finetune merge through the CLI: index mirrored, finite bf16,
+   3 (2) pair merges and 2 host syncs a merged tensor. On one q_proj and
+   one down_proj the card's in-process reduction must give the CLI's bits,
+   every round-1 pair merge must agree with the host on the same inputs
+   (97% within 2e-2), and every later pair's blend must agree with the
+   host's on identical spectra (cutoff threshold bit for bit, relL2 1e-5);
+   batch_rounds' batched pair merges must hold to the per-pair path on the
+   same inputs (relL2 1e-6), and the two reductions are timed in turn. On
+   a 3-tensor subset: hbm_budget_gb 0 (with spills) and prefetch_depth 0
+   must give the default run's bits, and the default the CLI's bits
+   (batch_rounds' whole outputs are printed beside them); the 4-finetune
+   merge's spans, sequential and pipelined, as in 7;
+9. generate: load the merge with int4 weights, ``generate_batch`` on 4
    prompts and one ``stream_generation``; both kernels' launch counts must
    show the decode went through them, and one decode step's logits must
    agree with the same step on the plain int4 product; an A/B of the decode
    step against the einsum attention path;
-9. serve: the HTTP server on that engine with a continuous pool of 8 slots
+10. serve: the HTTP server on that engine with a continuous pool of 8 slots
    and a 4096-slot cache; staggered greedy requests (prompts of 30-3000
    tokens, one with a stop string), one SSE stream and one 4-prompt
    lockstep request; every pool completion must equal the solo stream, both
@@ -66,7 +86,7 @@ Phases (each prints one line or a few; any failure exits non-zero):
    (flash launches = layers x compactions); an A/B of that pool step
    against the einsum path, and, over profiled pool steps, the device's
    busy share, its launches per step and the flash kernels' share;
-10. the kernel summary line (all five kernels), the card line, and the result line.
+11. the kernel summary line (all five kernels), the card line, and the result line.
 
 It imports nothing of JAX. With no CUDA device it exits 1 and prints no
 result.
@@ -165,6 +185,14 @@ DFT_SHAPES = [(4096, 8192), (4096, 4096), (1024, 4096), (14336, 4096), (4096, 14
 # (4096, 8192), (4096, 4096) and (1024, 4096), then radices 7, 3 and 5
 STOCKHAM_SHAPES = [(4096, 4096), (4128, 4096), (4096, 2048), (2080, 4096), (1024, 2048), (2080, 1024),
                    (256, 448), (256, 960), (256, 3584)]
+# [stack]: three more finetunes of the [merge] base; with ft1 (delta scale
+# 0.01) the first-round delta norms stand 1 : 2 : 5 : 13 (no two products tie)
+STACK_SCALES = {"ft3": 0.02, "ft4": 0.05, "ft5": 0.13}
+STACK_FOUR = ("ft1", "ft3", "ft4", "ft5")
+STACK_ALPHAS = {"ft1": 0.8, "ft3": 0.6, "ft4": 0.5, "ft5": 0.3}
+# the tensors held to the host, and the subset the variants merge
+STACK_CHECKED = ("model.layers.0.self_attn.q_proj.weight", "model.layers.0.mlp.down_proj.weight")
+STACK_SUBSET = STACK_CHECKED + ("model.layers.0.mlp.gate_proj.weight",)
 # NVIDIA H100 SXM5 80 GB data sheet: HBM3 bandwidth; dense bf16 (tensor
 # cores) and f32 (CUDA cores) rates
 HBM_BYTES_PER_S = 3.35e12
@@ -717,25 +745,23 @@ def write_checkpoints(torch, root: Path):
     return dirs, shapes
 
 
-def phase_merge(torch, root: Path, dirs):
-    from shardmerge_tpu_torch.io.safetensors_io import load_file
-    from shardmerge_tpu_torch.merge import fourier
-    from shardmerge_tpu_torch.ops import blend
-
-    base, ft1, ft2 = dirs
-    out = root / "merged"
+def merge_config(root: Path, name: str, base: Path, finetunes, **extra) -> Path:
+    """A merge config file: ``finetunes`` are (model dir, alpha) pairs."""
     cfg = {
         "output_base_model": str(base),
-        "finetune_merge": [
-            {"model": str(ft1), "base": str(base), "alpha": 0.8},
-            {"model": str(ft2), "base": str(base), "alpha": 0.4},
-        ],
-        "output_dir": str(out),
+        "finetune_merge": [{"model": str(m), "base": str(base), "alpha": a} for m, a in finetunes],
+        "output_dir": str(root / name),
         "cache_dir": str(root / "cache"),
         "storage_dir": str(root / "storage"),
+        **extra,
     }
-    cfg_file = root / "merge.json"
-    cfg_file.write_text(json.dumps(cfg))
+    path = root / f"{name}.json"
+    path.write_text(json.dumps(cfg))
+    return path
+
+
+def cli_merge(cfg_file: Path):
+    """``python -m shardmerge_tpu_torch merge``: (its JSON stats, process wall s)."""
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "shardmerge_tpu_torch", "merge", str(cfg_file)],
@@ -744,36 +770,53 @@ def phase_merge(torch, root: Path, dirs):
     wall = time.perf_counter() - t0
     if proc.returncode != 0:
         say(proc.stderr[-4000:])
-        raise SystemExit(f"merge exited {proc.returncode}")
-    stats = json.loads(proc.stdout.strip().splitlines()[-1])
-    per_tensor = stats["tensor_seconds"]
+        raise SystemExit(f"merge of {cfg_file.name} exited {proc.returncode}")
+    return json.loads(proc.stdout.strip().splitlines()[-1]), wall
+
+
+def check_output(torch, out: Path, base: Path, tag: str):
+    """The output index mirrors the base's and every tensor is finite bf16."""
+    from shardmerge_tpu_torch.io.safetensors_io import load_file
+
+    index_name = "model.safetensors.index.json"
+    if json.loads((out / index_name).read_text()) != json.loads((base / index_name).read_text()):
+        raise SystemExit(f"{tag}: merged index does not mirror the base index")
+    weight_map = json.loads((out / index_name).read_text())["weight_map"]
+    for shard in sorted(set(weight_map.values())):
+        for name, t in load_file(out / shard).items():
+            if t.dtype != torch.bfloat16 or not bool(torch.isfinite(t.cuda()).all()):
+                raise SystemExit(f"{tag}: {name} is not finite bf16")
+    return weight_map
+
+
+def phase_merge(torch, root: Path, dirs):
+    from shardmerge_tpu_torch.io.safetensors_io import load_file
+    from shardmerge_tpu_torch.merge import fourier
+    from shardmerge_tpu_torch.ops import blend
+
+    base, ft1, ft2 = dirs
+    out = root / "merged"
+    cfg_file = merge_config(root, "merged", base, [(ft1, 0.8), (ft2, 0.4)])
+    stats, wall = cli_merge(cfg_file)
+    per_tensor = {k: v["wall_s"] for k, v in stats["tensor_spans"].items()}
     merged = {k: v for k, v in per_tensor.items() if k.startswith("model.layers.")}
     say(
         f"[merge] wall {wall:.1f} s (process, incl. startup) on {stats['device']}; "
         f"{stats['tensors_merged']} tensors ({stats['tensors_passthrough']} passthrough); "
         f"regimes {stats['pair_merges']}; NaNs scrubbed {stats['nans_scrubbed']}; "
         f"per merged tensor mean {sum(merged.values()) / len(merged) * 1e3:.1f} ms, "
-        f"max {max(merged.values()) * 1e3:.1f} ms; spans merge {stats['span_merge_s']:.2f} s "
-        f"write {stats['span_flush_s']:.2f} s"
+        f"max {max(merged.values()) * 1e3:.1f} ms; host syncs {stats['host_syncs']}"
     )
     say(
         f"[merge] spans: read {stats['span_fetch_s']:.2f} s, host->device {stats['span_h2d_s']:.2f} s, "
-        f"merge {stats['span_merge_s']:.2f} s (incl. the two above), device->host + shard "
-        f"writes {stats['span_flush_s']:.2f} s"
+        f"merge {stats['span_merge_s']:.2f} s (incl. the two above), device->host wait + shard "
+        f"staging {stats['span_flush_s']:.2f} s; {stats['prefetch_device_hits']} inputs staged ahead on the card"
     )
     for name, sec in per_tensor.items():
         say(f"[merge]   {sec * 1e3:8.1f} ms  {name}")
     if stats["pair_merges"].get("slerp") != 9 * LAYERS:
         raise SystemExit(f"expected {9 * LAYERS} slerp pair merges, got {stats['pair_merges']}")
-
-    index_name = "model.safetensors.index.json"
-    if json.loads((out / index_name).read_text()) != json.loads((base / index_name).read_text()):
-        raise SystemExit("merged index does not mirror the base index")
-    weight_map = json.loads((out / index_name).read_text())["weight_map"]
-    for shard in sorted(set(weight_map.values())):
-        for name, t in load_file(out / shard).items():
-            if t.dtype != torch.bfloat16 or not bool(torch.isfinite(t.cuda()).all()):
-                raise SystemExit(f"{name}: not finite bf16")
+    weight_map = check_output(torch, out, base, "[merge]")
     say(f"[merge] index mirrors the base ({len(weight_map)} tensors, 2 shards); all finite bf16")
 
     # spot check: the port's host path on the same inputs
@@ -797,6 +840,349 @@ def phase_merge(torch, root: Path, dirs):
         raise SystemExit("card merge disagrees with the host path")
     shutil.copy(base / "config.json", out / "config.json")
     return out, sum(merged.values()) / len(merged)
+
+
+def write_finetunes(torch, root: Path, base: Path, scales, seed: int = 3):
+    """More finetunes of ``base``: its bf16 tensors + scale * N(0, 1) from a
+    seeded generator on the card, bf16, in the base's shards and index."""
+    from shardmerge_tpu_torch.io.safetensors_io import load_file, save_file
+
+    dev = torch.device("cuda:0")
+    index = (base / "model.safetensors.index.json").read_text()
+    shards = sorted(set(json.loads(index)["weight_map"].values()))
+    dirs = []
+    for i, (name, scale) in enumerate(scales.items()):
+        gen = torch.Generator(device=dev).manual_seed(seed + i)
+        d = root / name
+        d.mkdir()
+        for shard in shards:
+            staged = {}
+            for key, t in load_file(base / shard).items():
+                x = t.to(dev).float()
+                staged[key] = (x + scale * torch.randn(x.shape, device=dev, generator=gen)).to(torch.bfloat16).cpu()
+            save_file(staged, d / shard, metadata={"format": "pt"})
+        (d / "model.safetensors.index.json").write_text(index)
+        shutil.copy(base / "config.json", d / "config.json")
+        dirs.append(d)
+    return dirs
+
+
+def device_busy(torch, prof):
+    """Union of the profiled device intervals (kernels, copies), in s."""
+    spans = sorted(
+        (e.time_range.start, e.time_range.end) for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.time_range.end > e.time_range.start
+    )
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return busy / 1e6
+
+
+class StackSampler:
+    """Samples the Python stacks of a process's threads every ``period`` s
+    from a daemon thread: one thread's time by site (its innermost frame,
+    and the nearest frame of the port around it), and the longest gap
+    between two samples (a stretch in which the sampler could not take the
+    GIL) with the sites of the other threads that moved across it."""
+
+    def __init__(self, thread_id: int, period: float = 0.005):
+        self.thread_id, self.period = thread_id, period
+        self.counts: dict = {}
+        self.max_gap = 0.0
+        self.across_gap: dict = {}
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    @staticmethod
+    def _site(frame) -> str:
+        inner = f"{Path(frame.f_code.co_filename).name}:{frame.f_lineno} {frame.f_code.co_name}"
+        own = frame
+        while own is not None and "shardmerge_tpu_torch" not in own.f_code.co_filename:
+            own = own.f_back
+        if own is None or own is frame:
+            return inner
+        return f"{Path(own.f_code.co_filename).name}:{own.f_lineno} {own.f_code.co_name} -> {inner}"
+
+    def _run(self):
+        last, before = time.perf_counter(), {}
+        while not self._stop.wait(self.period):
+            now = time.perf_counter()
+            frames = sys._current_frames()
+            frames.pop(threading.get_ident(), None)
+            sites = {tid: self._site(f) for tid, f in frames.items()}
+            if now - last > self.max_gap:
+                self.max_gap = now - last
+                names = {t.ident: t.name for t in threading.enumerate()}
+                self.across_gap = {names.get(tid, tid): (before.get(tid), site) for tid, site in sites.items()
+                                   if before.get(tid) != site}
+            last, before = now, sites
+            if self.thread_id in sites:
+                site = sites[self.thread_id]
+                self.counts[site] = self.counts.get(site, 0) + 1
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+    def top(self, n: int):
+        """The n sites that took the most samples, as (ms, site)."""
+        ranked = sorted(self.counts.items(), key=lambda kv: -kv[1])[:n]
+        return [(count * self.period * 1e3, site) for site, count in ranked]
+
+
+def pipeline_profile(torch, label: str, cfg_file: Path, card: str):
+    """The merge of ``cfg_file`` in process, sequential (this code with
+    read-ahead, device staging and the background flush off), pipelined
+    (the defaults) and pipelined again (PyTorch's page-locked host pool now
+    holds the blocks the first pipelined run allocated), each under
+    torch.profiler with its merge thread stack-sampled (``StackSampler``):
+    the device's busy share over the merge and, for each merged (14336,
+    4096) tensor, its wall and spans."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from shardmerge_tpu_torch.cli import run_merge
+    from shardmerge_tpu_torch.config import MergeConfig
+
+    wide = (LLAMA_31_8B["intermediate_size"], LLAMA_31_8B["hidden_size"])
+    names = [f"model.layers.{l}.mlp.{p}.weight" for l in range(LAYERS) for p in ("gate_proj", "up_proj")]
+    runs = {}
+    sides = (("sequential", dict(prefetch_depth=0, device_prefetch_depth=0, background_flush=False)),
+             ("pipelined", {}), ("pipelined again", {}))
+    for side, options in sides:
+        cfg = MergeConfig.from_file(cfg_file)
+        cfg.output_dir = str(Path(cfg.output_dir).with_name(f"{Path(cfg.output_dir).name}_{side.replace(' ', '_')}"))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof, \
+                StackSampler(threading.get_ident()) as sampler:
+            t0 = time.perf_counter()
+            merger = run_merge(cfg, "cuda:0", **options)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        shutil.rmtree(cfg.output_dir)
+        busy = device_busy(torch, prof)
+        runs[side] = merger.tensor_spans
+        s = merger.stats
+        top = sorted(merger.tensor_spans.items(), key=lambda kv: -kv[1]["wall_s"])[:3]
+        say(f"[{label}] pipeline {side} ({card}): whole merge in process {wall:.2f} s, device busy "
+            f"{busy:.2f} s = {busy / wall:.1%} (torch.profiler, union of kernels and copies); spans read "
+            f"{s.span_fetch_s:.2f} s, h2d {s.span_h2d_s:.2f} s, merge {s.span_merge_s:.2f} s, flush "
+            f"{s.span_flush_s:.2f} s; {s.prefetch_device_hits} inputs staged ahead; largest walls "
+            + ", ".join(f"{n} {v['wall_s'] * 1e3:.1f} ms (merge {v['merge_s'] * 1e3:.1f}, flush "
+                        f"{v['flush_s'] * 1e3:.1f})" for n, v in top))
+        say(f"[{label}] {side} merge thread by site (stack samples every {sampler.period * 1e3:.0f} ms; "
+            f"longest gap between samples {sampler.max_gap * 1e3:.1f} ms): "
+            + "; ".join(f"{ms:.0f} ms {site}" for ms, site in sampler.top(6)))
+        say(f"[{label}] {side} threads whose stack moved across that gap: "
+            + "; ".join(f"{name}: {a} => {b}" for name, (a, b) in sampler.across_gap.items()))
+    for name in names:
+        if name not in runs["pipelined"]:
+            continue
+        cells = [f"{key[:-2]} " + " / ".join(f"{runs[side][name][key] * 1e3:.1f}" for side, _ in sides)
+                 for key in ("wall_s", "read_s", "h2d_s", "merge_s", "flush_s")]
+        say(f"[{label}]   {wide} {name} {' / '.join(side for side, _ in sides)}, ms ({card}): "
+            + ", ".join(cells))
+
+
+def hold_to_host(torch, dirs, names, alphas, weight_map, out: Path, card: str):
+    """One tensor's 4-finetune reduction on the card, held to the host.
+
+    The card's in-process reduction must give the CLI's bits. Every pair
+    merge of the card's plan is then run on the host on the card's own
+    inputs: round 1 (raw deltas) must agree to 97% within 2e-2; a later
+    round's operands carry round 1's culled spectral zeros, whose FFT
+    round-trip noise picks sign agreement, so there the blend is held on
+    identical spectra (cutoff threshold bit for bit, blended half spectrum
+    within relL2 1e-5). batch_rounds' pair merges are held to the per-pair
+    path on the same inputs, and both reductions are timed in turn."""
+    from shardmerge_tpu_torch.config import MergeConfig, MergeModel
+    from shardmerge_tpu_torch.io.safetensors_io import load_file
+    from shardmerge_tpu_torch.merge import fourier
+    from shardmerge_tpu_torch.ops import blend, select
+
+    base_dir = dirs["base"]
+    cfg = MergeConfig(
+        finetune_merge=[MergeModel(model=str(dirs[m]), base=str(base_dir), alpha=alphas[m]) for m in names],
+        output_base_model=str(base_dir),
+        output_dir=str(out),
+    )
+    card_eng = fourier.FourierMerge(cfg, device="cuda:0")
+    batch_eng = fourier.FourierMerge(cfg, device="cuda:0", batch_rounds=True)
+    host_eng = fourier.FourierMerge(cfg, device="cpu")
+    for name in STACK_CHECKED:
+        shard = weight_map[name]
+        base = load_file(base_dir / shard)[name]
+        fts = [load_file(dirs[m] / shard)[name] for m in names]
+
+        def entries(dev):
+            return [(str(dirs[m]), ft.to(dev).float() - base.to(dev).float(), alphas[m])
+                    for m, ft in zip(names, fts)]
+
+        trace = []
+        card_delta, _ = card_eng.reduce_deltas(entries("cuda:0"), trace=trace)
+        card_out = fourier._finalize(base.cuda().float(), card_delta)[0].cpu()
+        cli_out = load_file(out / shard)[name]
+        if not torch.equal(card_out.view(torch.int16), cli_out.view(torch.int16)):
+            raise SystemExit(f"[stack] {name}: the in-process reduction does not give the CLI's bits")
+        for job, target, cull, a, b, merged in trace:
+            regime, a_name, b_name, _, params = job
+            ha, hb = a.cpu(), b.cpu()
+            tag = f"[stack] {name} ({card}) {regime} {Path(a_name).name[:24]} + {Path(b_name).name[:24]}, cull {cull}"
+            if cull == card_eng.cull_start_pct:
+                host, _ = host_eng.merge_pair(job, ha, hb, target, cull)
+                close = torch.isclose(merged.cpu(), host, rtol=2e-2, atol=1e-6).double().mean().item()
+                say(f"{tag}: card vs host on the same inputs {close * 100:.3f}% within 2e-2 (gate 97%), "
+                    f"relL2 {rel_l2(merged.cpu(), host):.2e}")
+                if close < 0.97:
+                    raise SystemExit(f"[stack] {name}: a round-1 pair merge disagrees with the host")
+                continue
+            if regime != "slerp" or not fourier._use_fast_imag(False, ha):
+                raise SystemExit(f"[stack] {name}: expected fast-path slerp pairs after round 1, got {regime}")
+            norm_a, norm_b, a_prop = params
+            n = ha.numel()
+            h0 = fourier._rfft2(ha) * (1.0 / torch.tensor(norm_a))
+            h1 = fourier._rfft2(hb) * (1.0 / torch.tensor(norm_b))
+            ranks = (blend.cutoff_rank(n, 0.08), blend.cull_rank(n, cull), blend.cull_limit(n, cull))
+            spectra = {}
+            for dev in ("cpu", "cuda:0"):
+                x0, x1 = h0.to(dev), h1.to(dev)
+                w = blend.hermitian_col_weights(ha.shape[-1], device=dev)
+                thr = select.kth_smallest_weighted(x0.real.abs(), ranks[0], w, y=x1.real.abs())
+                res = blend.interpolate_half_spectrum(x0, x1, torch.tensor(a_prop, device=dev), 1.0, *ranks, w,
+                                                      use_cutoff=True, use_cull=True)
+                spectra[dev] = (thr.cpu(), res.cpu())
+            same_thr = torch.equal(spectra["cpu"][0].view(torch.int32), spectra["cuda:0"][0].view(torch.int32))
+            res_rel = rel_l2(torch.view_as_real(spectra["cuda:0"][1]), torch.view_as_real(spectra["cpu"][1]))
+            host, _ = host_eng.merge_pair(job, ha, hb, target, cull)
+            close = torch.isclose(merged.cpu(), host, rtol=2e-2, atol=1e-6).double().mean().item()
+            say(f"{tag}: on identical spectra the cutoff threshold is {'bit-equal' if same_thr else 'DIFFERENT'} "
+                f"and the blended half spectrum within relL2 {res_rel:.2e} (gate 1e-5); the pair merge on the same "
+                f"inputs {close * 100:.3f}% within 2e-2, relL2 {rel_l2(merged.cpu(), host):.2e} (no gate: "
+                f"FFT round-trip noise of the culled zeros picks sign agreement)")
+            if not same_thr or res_rel > 1e-5:
+                raise SystemExit(f"[stack] {name}: the card's blend disagrees with the host's on identical spectra")
+        # batch_rounds: each batched pair merge against the per-pair path
+        # on the same inputs (round 1's two slerp pairs form one batch)
+        batched = []
+        batch_eng.reduce_deltas(entries("cuda:0"), trace=batched)
+        errs = [rel_l2(merged, card_eng.merge_pair(job, a, b, target, cull)[0])
+                for job, target, cull, a, b, merged in batched if cull == card_eng.cull_start_pct]
+        say(f"[stack] {name} ({card}) batch_rounds: round 1's {len(errs)} pairs in one batch against the "
+            f"per-pair path on the same inputs: relL2 {', '.join(f'{e:.2e}' for e in errs)} (gate 1e-6; "
+            f"{'bit-equal' if max(errs) == 0 else 'the batched cuFFT plans change bits'})")
+        if len(errs) < 2 or max(errs) > 1e-6:
+            raise SystemExit(f"[stack] {name}: batched pair merges disagree with the per-pair path")
+        times = {"per pair": [], "batched": []}
+        for _ in range(3):
+            for tag, eng in (("per pair", card_eng), ("batched", batch_eng)):
+                stack = entries("cuda:0")
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                eng.reduce_deltas(stack)
+                torch.cuda.synchronize()
+                times[tag].append((time.perf_counter() - t0) * 1e3)
+        say(f"[stack] {name} ({card}) reduction of the 4 deltas, ms (3 runs in turn, medians): per pair "
+            f"{sorted(times['per pair'])[1]:.2f}, batch_rounds {sorted(times['batched'])[1]:.2f} (all: "
+            + "; ".join(f"{k} {', '.join(f'{v:.2f}' for v in vs)}" for k, vs in times.items()) + ")")
+
+
+def subset_model(torch, dirs, root: Path, names) -> dict:
+    """Copies of the models holding only STACK_SUBSET, one shard each."""
+    from shardmerge_tpu_torch.io.safetensors_io import SafeTensorsReader, save_file
+
+    weight_map = json.loads((dirs["base"] / "model.safetensors.index.json").read_text())["weight_map"]
+    out = {}
+    for m in ["base", *names]:
+        d = root / "subset" / m
+        d.mkdir(parents=True)
+        tensors = {}
+        for name in STACK_SUBSET:
+            with SafeTensorsReader(dirs[m] / weight_map[name]) as r:
+                tensors[name] = r.get_tensor(name, copy=True)
+        save_file(tensors, d / "model.safetensors", metadata={"format": "pt"})
+        (d / "model.safetensors.index.json").write_text(json.dumps(
+            {"metadata": {}, "weight_map": {n: "model.safetensors" for n in STACK_SUBSET}}))
+        out[m] = d
+    return out
+
+
+def phase_stack(torch, root: Path, dirs, card: str):
+    """Base + 3 and + 4 finetunes through the CLI, held to the host and to
+    the engine's own variants, with the pipeline's spans."""
+    from shardmerge_tpu_torch.cli import run_merge
+    from shardmerge_tpu_torch.config import MergeConfig
+    from shardmerge_tpu_torch.io.safetensors_io import load_file
+
+    t0 = time.perf_counter()
+    dirs = {"base": dirs[0], "ft1": dirs[1], **dict(zip(STACK_SCALES, write_finetunes(torch, root, dirs[0], STACK_SCALES)))}
+    say(f"[stack] finetunes {', '.join(STACK_SCALES)} of the [merge] base (delta scales "
+        f"{', '.join(str(v) for v in STACK_SCALES.values())} against ft1's 0.01) written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    merged_per_layer = 9
+    for names in (STACK_FOUR, STACK_FOUR[:3]):
+        n = len(names)
+        label = f"{n}-ft"
+        cfg_file = merge_config(root, f"stack{n}", dirs["base"], [(dirs[m], STACK_ALPHAS[m]) for m in names])
+        stats, wall = cli_merge(cfg_file)
+        pairs = sum(stats["pair_merges"].values())
+        merged = [v["wall_s"] for k, v in stats["tensor_spans"].items() if k.startswith("model.layers.")]
+        say(f"[stack] {label} CLI merge ({card}): wall {wall:.1f} s (process, incl. startup); regimes "
+            f"{stats['pair_merges']}; host syncs {stats['host_syncs']}; NaNs scrubbed {stats['nans_scrubbed']}; "
+            f"per merged tensor mean {sum(merged) / len(merged) * 1e3:.1f} ms, max {max(merged) * 1e3:.1f} ms; "
+            f"spans read {stats['span_fetch_s']:.2f} s, h2d {stats['span_h2d_s']:.2f} s, merge "
+            f"{stats['span_merge_s']:.2f} s, flush {stats['span_flush_s']:.2f} s")
+        if pairs != (n - 1) * merged_per_layer * LAYERS:
+            raise SystemExit(f"[stack] {label}: {pairs} pair merges, expected {(n - 1) * merged_per_layer * LAYERS}")
+        if stats["host_syncs"] != 2 * merged_per_layer * LAYERS:
+            raise SystemExit(f"[stack] {label}: {stats['host_syncs']} host syncs, expected one per round")
+        out = root / f"stack{n}"
+        weight_map = check_output(torch, out, dirs["base"], f"[stack] {label}")
+        say(f"[stack] {label}: index mirrors the base; all finite bf16; {pairs} pair merges = "
+            f"{n - 1} a merged tensor")
+        if n == 4:
+            hold_to_host(torch, dirs, names, STACK_ALPHAS, weight_map, out, card)
+            cli_subset = {k: load_file(out / weight_map[k])[k] for k in STACK_SUBSET}
+            pipeline_profile(torch, "stack 4-ft", cfg_file, card)
+        shutil.rmtree(out)
+
+    # the variants, in process on a subset of the tensors
+    sub = subset_model(torch, dirs, root, STACK_FOUR)
+    outs = {}
+    for tag, extra, options in (("default", {}, {}), ("hbm_budget_gb 0", {"hbm_budget_gb": 0}, {}),
+                                ("prefetch_depth 0", {}, {"prefetch_depth": 0}),
+                                ("batch_rounds", {}, {"batch_rounds": True})):
+        cfg = MergeConfig.from_file(merge_config(
+            root, f"variant{len(outs)}", sub["base"], [(sub[m], STACK_ALPHAS[m]) for m in STACK_FOUR], **extra))
+        merger = run_merge(cfg, "cuda:0", **options)
+        outs[tag] = load_file(Path(cfg.output_dir) / "model.safetensors")
+        shutil.rmtree(cfg.output_dir)
+        if tag == "default":
+            for k in STACK_SUBSET:
+                if not torch.equal(outs[tag][k].view(torch.int16), cli_subset[k].view(torch.int16)):
+                    raise SystemExit(f"[stack] the subset merge of {k} does not give the full CLI run's bits")
+            continue
+        diffs = {k: rel_l2(outs[tag][k].float(), outs["default"][k].float()) for k in STACK_SUBSET}
+        same = all(torch.equal(outs[tag][k].view(torch.int16), outs["default"][k].view(torch.int16))
+                   for k in STACK_SUBSET)
+        say(f"[stack] variant {tag} ({card}): {'bit-equal to' if same else 'differs from'} the default run"
+            f"{'' if same else ' (relL2 ' + ', '.join(f'{v:.2e}' for v in diffs.values()) + ')'}; "
+            f"hbm spills {merger.stats.hbm_spills}, host syncs {merger.stats.host_syncs}")
+        if tag == "hbm_budget_gb 0" and merger.stats.hbm_spills == 0:
+            raise SystemExit("[stack] hbm_budget_gb 0 spilled nothing")
+        # batch_rounds is held per pair above: its batched forward FFTs may
+        # change round 1's bits, which round 2 amplifies (see hold_to_host)
+        if not same and tag != "batch_rounds":
+            raise SystemExit(f"[stack] variant {tag} disagrees with the default run")
+    shutil.rmtree(root / "subset")
 
 
 class StubTokenizer:
@@ -1232,6 +1618,8 @@ def main() -> int:
         say(f"[checkpoints] base + 2 finetunes, {len(shapes)} tensors each, Llama-3.1-8B widths, "
             f"{LAYERS} layers, bf16, written in {time.perf_counter() - t0:.1f} s")
         merged, _ = phase_merge(torch, root, dirs)
+        pipeline_profile(torch, "merge 2-ft", root / "merged.json", card)
+        phase_stack(torch, root, dirs, card)
         engine, _ = phase_generate(torch, merged)
         launches = phase_serve(torch, engine)
     finally:

@@ -34,7 +34,8 @@ def setup_logging(verbose: bool):
 
 
 def _check_ported(config: MergeConfig) -> None:
-    """Raise for configuration features this port does not carry yet."""
+    """Raise, by name, for configuration features this port does not carry
+    yet (the mesh-sharded merge and the other merge methods)."""
     if config.merge_method != "fourier":
         raise NotImplementedError(
             f"merge_method {config.merge_method!r} is not ported yet (fourier only)"
@@ -47,9 +48,7 @@ def _check_ported(config: MergeConfig) -> None:
     unported = [
         name
         for name, on in (
-            ("write_through", config.write_through),
             ("shard_tensors", config.shard_tensors),
-            ("hbm_budget_gb", config.hbm_budget_gb is not None),
             ("distributed", config.distributed),
         )
         if on
@@ -58,8 +57,10 @@ def _check_ported(config: MergeConfig) -> None:
         raise NotImplementedError(f"config fields not ported yet: {unported}")
 
 
-def run_merge(config: MergeConfig, device: Optional[str] = None):
-    """Build the index and the engine and run the merge; returns the engine."""
+def run_merge(config: MergeConfig, device: Optional[str] = None, **engine_options):
+    """Build the index and the engine and run the merge; returns the engine.
+    ``engine_options`` go to FourierMerge (prefetch_depth,
+    device_prefetch_depth, background_flush, batch_rounds)."""
     from .io.index import OfflineMultiModelIndex, require_local
     from .merge import FourierMerge
 
@@ -72,7 +73,16 @@ def run_merge(config: MergeConfig, device: Optional[str] = None):
     logger.info("merge device: %s", dev)
     index = OfflineMultiModelIndex()
     merger = FourierMerge(
-        config, index_manager=index, device=dev, exact_imag=config.exact_imag
+        config,
+        index_manager=index,
+        device=dev,
+        exact_imag=config.exact_imag,
+        hbm_budget_bytes=(
+            int(config.hbm_budget_gb * 2**30)
+            if config.hbm_budget_gb is not None
+            else None
+        ),
+        **engine_options,
     )
     try:
         merger.merge()
@@ -94,11 +104,16 @@ def _merge(args) -> int:
                 "pair_merges": {k: v for k, v in s.pair_merges.items() if v},
                 "nans_scrubbed": s.nans_scrubbed,
                 "bytes_written": s.bytes_written,
+                "host_syncs": s.host_syncs,
+                "hbm_spills": s.hbm_spills,
+                "h2d_bytes": s.h2d_bytes,
+                "prefetch_device_hits": s.prefetch_device_hits,
+                "prefetch_failures": s.prefetch_failures,
                 "span_fetch_s": s.span_fetch_s,
                 "span_h2d_s": s.span_h2d_s,
                 "span_merge_s": s.span_merge_s,
                 "span_flush_s": s.span_flush_s,
-                "tensor_seconds": merger.tensor_seconds,
+                "tensor_spans": merger.tensor_spans,
             }
         )
     )

@@ -2,15 +2,19 @@
 shardmerge_tpu/io/index.py, offline half).
 
 Tensors resolve to zero-copy CPU views of the shard files (see
-safetensors_io); the merge engine moves each one to its device once. Only
-local directories are supported in this port: a Hub reference, a PEFT
-adapter or a GPTQ/AWQ checkpoint raises ``NotImplementedError``.
+safetensors_io); the merge engine moves each one to its device once.
+``preload_tensor`` reads a tensor ahead into an owned (optionally pinned)
+host copy from a worker thread; ``get_tensor`` then returns that copy (the
+caller tracks reads in flight and waits for them). Only local
+directories are supported in this port: a Hub reference, a PEFT adapter or
+a GPTQ/AWQ checkpoint raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import threading
 from pathlib import Path
 from typing import Dict, Iterable, List, Set, Tuple
 
@@ -83,6 +87,9 @@ class OfflineMultiModelIndex:
         self._aliases: Dict[str, str] = {}
         self._readers: Dict[Path, SafeTensorsReader] = {}
         self._tensor_cache: Dict[Tuple[str, str], torch.Tensor] = {}
+        # guards the two dicts above (worker threads preload while the merge
+        # thread reads and releases)
+        self._lock = threading.Lock()
 
     def _resolve(self, model_id) -> str:
         return self._aliases.get(str(model_id), str(model_id))
@@ -152,35 +159,69 @@ class OfflineMultiModelIndex:
     def get_index(self, model_id) -> dict:
         return self.model_indexes[self._known(model_id)]
 
-    def get_tensor(self, model_id, tensor_name: str) -> torch.Tensor:
-        """The tensor as a CPU view of its shard file (cached until
-        :meth:`release_tensor`)."""
-        model_id = self._known(model_id)
-        key = (model_id, tensor_name)
-        cached = self._tensor_cache.get(key)
-        if cached is not None:
-            return cached
+    def _reader(self, model_id: str, tensor_name: str) -> SafeTensorsReader:
         weight_map = self.model_indexes[model_id]["weight_map"]
         if tensor_name not in weight_map:
             raise KeyError(f"Tensor {tensor_name!r} not found in model {model_id!r}")
         shard_path = self.model_paths[model_id] / weight_map[tensor_name]
-        reader = self._readers.get(shard_path)
-        if reader is None:
-            if not shard_path.exists():
-                raise FileNotFoundError(f"Shard file not found: {shard_path}")
-            reader = self._readers[shard_path] = SafeTensorsReader(shard_path)
-        tensor = reader.get_tensor(tensor_name)
-        self._tensor_cache[key] = tensor
-        return tensor
+        with self._lock:
+            reader = self._readers.get(shard_path)
+            if reader is None:
+                if not shard_path.exists():
+                    raise FileNotFoundError(f"Shard file not found: {shard_path}")
+                reader = self._readers[shard_path] = SafeTensorsReader(shard_path)
+        return reader
+
+    def _view(self, model_id: str, tensor_name: str) -> torch.Tensor:
+        return self._reader(model_id, tensor_name).get_tensor(tensor_name)
+
+    def advise_tensor(self, model_id, tensor_name: str) -> None:
+        """Start the kernel's read of the tensor's bytes without copying them
+        (read-ahead for a tensor that is only passed through to the writer,
+        which reads its shard-file view)."""
+        model_id = self._known(model_id)
+        self._reader(model_id, tensor_name).advise(tensor_name)
+
+    def get_tensor(self, model_id, tensor_name: str) -> torch.Tensor:
+        """The tensor on the host (cached until :meth:`release_tensor`): the
+        copy a read-ahead made, else a CPU view of its shard file."""
+        model_id = self._known(model_id)
+        key = (model_id, tensor_name)
+        with self._lock:
+            cached = self._tensor_cache.get(key)
+        if cached is not None:
+            return cached
+        tensor = self._view(model_id, tensor_name)
+        with self._lock:
+            return self._tensor_cache.setdefault(key, tensor)
+
+    def preload_tensor(self, model_id, tensor_name: str, *, pin_memory: bool = False) -> torch.Tensor:
+        """Read the tensor into an owned host copy (page-locked with
+        ``pin_memory``, for asynchronous copies to a card) and cache it; safe
+        to call from worker threads. A cached tensor is returned as it is;
+        of two reads of one tensor at once, the first cached wins."""
+        model_id = self._known(model_id)
+        key = (model_id, tensor_name)
+        with self._lock:
+            cached = self._tensor_cache.get(key)
+        if cached is not None:
+            return cached
+        view = self._view(model_id, tensor_name)
+        host = torch.empty(view.shape, dtype=view.dtype, pin_memory=pin_memory)
+        host.copy_(view)
+        with self._lock:
+            return self._tensor_cache.setdefault(key, host)
 
     def release_tensor(self, model_id, tensor_name: str) -> None:
-        self._tensor_cache.pop((self._resolve(model_id), tensor_name), None)
+        with self._lock:
+            self._tensor_cache.pop((self._resolve(model_id), tensor_name), None)
 
     def close(self) -> None:
-        self._tensor_cache.clear()
-        for reader in self._readers.values():
-            reader.close()
-        self._readers.clear()
+        with self._lock:
+            self._tensor_cache.clear()
+            for reader in self._readers.values():
+                reader.close()
+            self._readers.clear()
 
     def __contains__(self, model_id) -> bool:
         return self._resolve(model_id) in self.model_indexes

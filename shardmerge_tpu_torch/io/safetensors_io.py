@@ -129,6 +129,16 @@ class SafeTensorsReader:
         begin, end = self._entries[name]["data_offsets"]
         return end - begin
 
+    def advise(self, name: str) -> None:
+        """Ask the kernel to read the tensor's bytes into the page cache (a
+        hint: no copy). ``posix_fadvise`` lets go of the GIL while the kernel
+        queues the reads, which can take most of a second for a 1 GB tensor;
+        ``mmap.madvise`` would hold it, and stall every other thread."""
+        begin, end = self._entries[name]["data_offsets"]
+        if end > begin:
+            os.posix_fadvise(self._file.fileno(), self._data_start + begin, end - begin,
+                             os.POSIX_FADV_WILLNEED)
+
     def get_tensor(self, name: str, copy: bool = False) -> torch.Tensor:
         if name not in self._entries:
             raise KeyError(f"Tensor {name!r} not found in {self.path}")

@@ -6,12 +6,22 @@ The output directory gets a copy of the base's ``model.safetensors.index.json``
 shard file is written ONCE, when its last tensor arrives. Existing shards are
 validated and their tensors marked written, which is what makes a merge
 resumable.
+
+``write_through=True`` rewrites a tensor's shard as soon as the tensor
+arrives, merged with what is already on disk (a cut merge then loses at most
+the tensors in flight, at the cost of rewriting the shard per tensor).
+``background_flush=True`` writes shards on one worker thread, so file IO
+overlaps the merge; ``drain``/``finalize`` wait for it. A save that fails
+drops the file and unmarks its staged tensors, and ``finalize`` reports them
+missing.
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import threading
+from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Dict, Generator, List, Set
@@ -54,12 +64,25 @@ class ModelWriter:
     output_path: Path
     layer_order: List[str]
     output_astype: torch.dtype = torch.bfloat16
+    write_through: bool = False
+    background_flush: bool = False
     written_shard_layers: Set[tuple] = field(default_factory=set)
     shard_to_tensors: Dict[str, Set[str]] = field(default_factory=dict)
 
     def __post_init__(self):
         self.output_path = Path(self.output_path)
         self.output_path.mkdir(parents=True, exist_ok=True)
+        # guards written_shard_layers and _pending: the flush thread unmarks
+        # tensors of a failed save while add_tensor stages on the merge
+        # thread; never held across file IO
+        self._state_lock = threading.Lock()
+        # one worker: a shard may be rewritten repeatedly (write_through)
+        self._executor = (
+            ThreadPoolExecutor(max_workers=1, thread_name_prefix="shard-flush")
+            if self.background_flush
+            else None
+        )
+        self._flush_futures: List[Future] = []
         self.index_path = self.output_path / "model.safetensors.index.json"
         if self.index_path.exists():
             logger.info("Index already exists: %s", self.index_path)
@@ -87,28 +110,41 @@ class ModelWriter:
                     self.written_shard_layers.add((shard_name, layer))
 
     def add_tensor(self, layer_name: str, tensor: torch.Tensor):
-        """Stage a merged CPU tensor; the shard is written once complete."""
+        """Stage a merged CPU tensor; its shard is written once complete
+        (or at once with ``write_through``)."""
         shard_name = self.base_index["weight_map"][layer_name]
-        if (shard_name, layer_name) in self.written_shard_layers:
+        with self._state_lock:
+            already = (shard_name, layer_name) in self.written_shard_layers
+        if already:
             logger.info("Skipping %s: already in written shard %s", layer_name, shard_name)
             return
         t = tensor.detach().to("cpu")
         if t.dtype != self.output_astype:
             t = t.to(self.output_astype)
-        self._pending.setdefault(shard_name, {})[layer_name] = t
-        self.written_shard_layers.add((shard_name, layer_name))
-        done = all(
-            (shard_name, name) in self.written_shard_layers
-            for name in self.shard_to_tensors[shard_name]
-        )
-        if done:
+        with self._state_lock:
+            self._pending.setdefault(shard_name, {})[layer_name] = t
+            self.written_shard_layers.add((shard_name, layer_name))
+            done = all(
+                (shard_name, name) in self.written_shard_layers
+                for name in self.shard_to_tensors[shard_name]
+            )
+        if self.write_through or done:
             self._flush_shard(shard_name)
 
     def _flush_shard(self, shard_name: str):
-        staged = self._pending.pop(shard_name, {})
+        with self._state_lock:
+            staged = self._pending.pop(shard_name, {})
+        if self._executor is None:
+            self._save(shard_name, staged)
+        else:
+            self._flush_futures.append(
+                self._executor.submit(self._save, shard_name, staged)
+            )
+
+    def _save(self, shard_name: str, staged: Dict[str, torch.Tensor]):
         shard_path = self.output_path / shard_name
         tensors: Dict[str, torch.Tensor] = {}
-        if shard_path.exists():  # resume: keep what is on disk
+        if shard_path.exists():  # resume / write_through: keep what is on disk
             with SafeTensorsReader(shard_path) as reader:
                 for name in reader.keys():
                     tensors[name] = reader.get_tensor(name, copy=True)
@@ -123,17 +159,32 @@ class ModelWriter:
             logger.error("Error saving shard %s: %s", shard_name, e)
             if shard_path.exists():
                 shard_path.unlink()
-            for name in staged:
-                self.written_shard_layers.discard((shard_name, name))
+            with self._state_lock:
+                for name in staged:
+                    self.written_shard_layers.discard((shard_name, name))
+
+    def drain(self):
+        """Wait for the shard writes in flight (raising a worker's error)."""
+        futures, self._flush_futures = self._flush_futures, []
+        for future in futures:
+            future.result()
+
+    def close(self):
+        """Wait for the shard writes in flight and stop the flush thread."""
+        if self._executor is not None:
+            self._executor.shutdown(wait=True)
+            self._executor = None
 
     def finalize(self):
         """Raise unless every tensor of the index was written."""
-        missing = [
-            (shard, name)
-            for shard, names in self.shard_to_tensors.items()
-            for name in names
-            if (shard, name) not in self.written_shard_layers
-        ]
+        self.drain()
+        with self._state_lock:
+            missing = [
+                (shard, name)
+                for shard, names in self.shard_to_tensors.items()
+                for name in names
+                if (shard, name) not in self.written_shard_layers
+            ]
         if missing:
             logger.error("Failed to write all layers. Missing: %s", missing)
             raise RuntimeError(

@@ -1,28 +1,69 @@
 """Merge orchestration base (counterpart of shardmerge_tpu/merge/base.py).
 
-Per tensor: a CPU view of the shard file -> one copy to the merge device ->
-f32 deltas -> the engine's reduction -> ``base + delta`` -> bf16 -> host ->
-writer. Every tensor merges on the one device the engine was given; the JAX
-package's size-based routing to the host (``small_tensor_numel``,
-``huge_tensor_numel``) exists for TPU compile cost and a 16 GB chip and has
-no counterpart here.
+Per tensor: host tensor -> the merge device -> f32 deltas -> the engine's
+reduction -> ``base + delta`` -> bf16 -> host -> writer, run as a software
+pipeline so that host work overlaps the device's:
+
+- the host reads of the next ``prefetch_depth`` layers run in a worker pool,
+  each into an owned host copy (page-locked when the engine runs on a card;
+  ``OfflineMultiModelIndex.preload_tensor``);
+- the next ``device_prefetch_depth`` of those layers are copied to the card
+  as their reads land, from the page-locked copies on a separate copy
+  stream; the merge stream waits on the copy's event before it reads the
+  tensor, and ``record_stream`` ties the buffer's reuse to the merge stream;
+- a merged tensor is copied to page-locked host memory without blocking
+  and written one layer later, after the next layer's merge is issued;
+- shards are written on the writer's own thread (``background_flush``).
+
+A read-ahead that fails falls back to the demand read on the same device,
+counted in ``MergeStats.prefetch_failures``. Late read-aheads of a layer
+already merged are dropped (``_released_layers``). ``prefetch_depth=0``
+turns read-ahead off: every tensor is read on demand, as a zero-copy view
+of its shard file copied to the device where it is needed.
+
+Every tensor merges on the one device the engine was given: the JAX
+package's size routing to the host (``small_tensor_numel``,
+``huge_tensor_numel``) answers a TPU's compile cost and a 16 GB chip and has
+no counterpart on an 80 GB card. The arithmetic, for the largest merged
+tensor (embed and lm_head are passthrough, never merged) and N finetunes:
+the f32 delta stack holds N copies, one pair merge about 8 more (inputs,
+two complex half spectra, masks, order-statistic keys, the inverse), and
+the bf16 inputs of this layer and the staged next one 2 (N + 1) halves.
+
+- Llama-3.1-70B, 28672 x 8192 = 2.35e8 elements, 0.94 GB in f32: N = 4
+  needs 3.8 + 7.5 + 4.7 = 16 GB, N = 16 needs 15 + 7.5 + 16 = 39 GB. Fits.
+- Llama-3.1-405B, 53248 x 16384 = 8.72e8 elements, 3.49 GB in f32: N = 4
+  needs 14 + 28 + 17 = 59 GB and fits; N = 6 needs 21 + 28 + 24 = 73 GB;
+  from N = 7 on (80 GB) the stack must spill. ``hbm_budget_gb`` does that:
+  above the budget, stack entries wait in page-locked host memory between
+  pair merges, so the working set stays near the pair's 28 GB plus the
+  inputs.
+
+So there is no size routing: a merge that does not fit sets
+``hbm_budget_gb`` (or ``device_prefetch_depth=0``).
 """
 
 from __future__ import annotations
 
 import logging
+import threading
 import time
 from abc import ABC, abstractmethod
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Dict, List, Optional
 
 import torch
 
 from ..config import MergeConfig, MergeModel
+from ..constants import INPUT_LAYER, OUTPUT_LAYER
 from ..io.index import OfflineMultiModelIndex
 from ..io.writer import ModelWriter, ShardLayer
 from ..ops.profiling import MergeStats, phase_profiler
 
 logger = logging.getLogger(__name__)
+
+# worker threads for host read-ahead (each copies one tensor at a time)
+_READ_WORKERS = 4
 
 
 class MergeTensorsBase(ABC):
@@ -34,6 +75,9 @@ class MergeTensorsBase(ABC):
         index_manager: Optional[OfflineMultiModelIndex] = None,
         *,
         device,
+        prefetch_depth: int = 2,
+        device_prefetch_depth: int = 1,
+        background_flush: bool = True,
     ):
         self.config = config
         self.index_manager = (
@@ -41,11 +85,29 @@ class MergeTensorsBase(ABC):
         )
         self.device = torch.device(device)
         self.stats = MergeStats()
-        # wall seconds per merged tensor, merge through write staging
-        self.tensor_seconds: Dict[str, float] = {}
+        # layers read ahead on the host, and how many of those are also
+        # staged on the device (<= prefetch_depth)
+        self.prefetch_depth = prefetch_depth
+        self.device_prefetch_depth = device_prefetch_depth
+        self.background_flush = background_flush
+        # per written tensor, seconds on the merge thread: read / h2d
+        # (demand waits during its merge), merge (_merge_layer), flush
+        # (device->host wait + staging), and wall (its own stages: merge,
+        # the device->host issue and flush; over a run they sum to the
+        # loop's wall but for the read-ahead issue)
+        self.tensor_spans: Dict[str, Dict[str, float]] = {}
         # (model_uri, tensor_name) -> tensor already on the device for the
         # layer being merged: a shared base is copied once, not per delta
         self._placed: dict = {}
+        # read-ahead state, on the merge thread: host reads and device
+        # stagings in flight by (model_uri, tensor_name)
+        self._reads: Dict[tuple, Future] = {}
+        self._staged: Dict[tuple, Future] = {}
+        # layers whose merge returned: a late read-ahead drops its result
+        self._released_layers: set = set()
+        self._pool: Optional[ThreadPoolExecutor] = None
+        self._copy_stream = None
+        self._stats_lock = threading.Lock()
 
     @abstractmethod
     def get_readme(self) -> str:
@@ -55,47 +117,194 @@ class MergeTensorsBase(ABC):
     def _merge_layer(self, shard_layer: ShardLayer) -> torch.Tensor:
         """The merged tensor for one layer (on the device or the host)."""
 
+    # -- tensors onto the device ---------------------------------------------
+
     def _fetch(self, model_uri: str, tensor_name: str) -> torch.Tensor:
-        """The tensor on the merge device, copied once per layer."""
+        """The tensor on the merge device, copied once per layer: from a
+        device-staged read-ahead when one was issued, else from the host
+        copy of its read-ahead (waited for), else from the index's shard
+        view."""
         key = (model_uri, tensor_name)
         cached = self._placed.get(key)
         if cached is not None:
             self.stats.h2d_dedup_hits += 1
             return cached
         t0 = time.perf_counter()
-        host = self.index_manager.get_tensor(model_uri, tensor_name)
-        t1 = time.perf_counter()
-        placed = host.to(self.device)
-        self.stats.span_fetch_s += t1 - t0
-        self.stats.span_h2d_s += time.perf_counter() - t1
-        self.stats.h2d_bytes += host.numel() * host.element_size()
+        placed = self._take_staged(key)
+        if placed is None:
+            read = self._reads.get(key)
+            # a read-ahead in flight is waited for; one that failed or was
+            # dropped gave None, and the demand read retries it
+            host = read.result() if read is not None else None
+            if host is None:
+                host = self.index_manager.get_tensor(model_uri, tensor_name)
+            t1 = time.perf_counter()
+            self.stats.span_fetch_s += t1 - t0
+            placed = host.to(self.device, non_blocking=True)
+            self.stats.span_h2d_s += time.perf_counter() - t1
+            self.stats.h2d_bytes += host.nbytes
+        else:
+            self.stats.span_fetch_s += time.perf_counter() - t0
         self._placed[key] = placed
         return placed
+
+    def _take_staged(self, key) -> Optional[torch.Tensor]:
+        """A device-staged read-ahead of ``key``, made safe for the merge
+        stream, or None (none issued, dropped, or failed)."""
+        staged = self._staged.pop(key, None)
+        if staged is None:
+            return None
+        try:
+            got = staged.result()
+        except Exception:
+            logger.warning("staging %s of %s on the device failed; reading it on demand",
+                           key[1], key[0], exc_info=True)
+            with self._stats_lock:
+                self.stats.prefetch_failures += 1
+            return None
+        if got is None:
+            return None
+        tensor, copied = got
+        stream = torch.cuda.current_stream(self.device)
+        stream.wait_event(copied)
+        tensor.record_stream(stream)
+        self.stats.prefetch_device_hits += 1
+        self.stats.h2d_bytes += tensor.nbytes
+        return tensor
 
     def get_base_output_tensor(self, shard_layer: ShardLayer) -> torch.Tensor:
         """Output-base tensor in f32."""
         t = self._fetch(self.config.output_base_model, shard_layer.layer_name)
         return t.to(torch.float32)
 
+    def get_delta_for_models(
+        self,
+        models: List[MergeModel],
+        shard_layer: ShardLayer,
+        apply_alpha: bool = True,
+    ) -> List[torch.Tensor]:
+        """Per-model f32 deltas ``(ft - base) [* alpha]``, each against the
+        model's own base."""
+        name = shard_layer.layer_name
+        results = []
+        for model in models:
+            base = self._fetch(model.base, name)
+            finetune = self._fetch(model.model, name)
+            delta = finetune.to(torch.float32) - base.to(torch.float32)
+            if apply_alpha:
+                delta = delta * model.alpha
+            results.append(delta)
+        # the inputs are consumed: dropping them lets the device reclaim
+        # them during a multi-round reduction (the output base stays)
+        for model in models:
+            self._placed.pop((model.model, name), None)
+            if model.base != self.config.output_base_model:
+                self._placed.pop((model.base, name), None)
+        return results
+
     def _passthrough(self, shard_layer: ShardLayer, which: str) -> torch.Tensor:
         """Input/output layer passthrough: the first model flagged
         is_input/is_output, else the base (host copy, never merged)."""
-        flag = "is_input" if which == "input" else "is_output"
-        chosen = next(
-            (m for m in self.config.finetune_merge if getattr(m, flag)), None
-        )
-        if chosen is None:
-            chosen = MergeModel(
-                model=self.config.output_base_model,
-                base=self.config.output_base_model,
-            )
+        chosen = self._passthrough_source(which)
         logger.info(
             "Passthrough - %s is an %s layer, using %s",
             shard_layer.layer_name,
             which,
-            chosen.model,
+            chosen,
         )
-        return self.index_manager.get_tensor(chosen.model, shard_layer.layer_name)
+        return self.index_manager.get_tensor(chosen, shard_layer.layer_name)
+
+    def _passthrough_source(self, which: str) -> str:
+        flag = "is_input" if which == "input" else "is_output"
+        chosen = next(
+            (m for m in self.config.finetune_merge if getattr(m, flag)), None
+        )
+        return chosen.model if chosen is not None else self.config.output_base_model
+
+    # -- read-ahead ------------------------------------------------------------
+
+    def _prefetch_layer(self, shard_layer: ShardLayer, to_device: bool):
+        """Start host reads of every tensor this layer will fetch (page-locked
+        copies when the engine runs on a card), and with ``to_device`` their
+        copies to the card as the reads land. Idempotent: a layer is asked
+        for on several iterations, first host-only."""
+        name = shard_layer.layer_name
+        number = shard_layer.layer_number
+        pin = self.device.type == "cuda"
+        if number in (INPUT_LAYER, OUTPUT_LAYER):
+            # passthrough layers hand their one source's shard-file view to
+            # the writer: read it into the page cache, copy nothing
+            uri = self._passthrough_source("input" if number == INPUT_LAYER else "output")
+            if (uri, name) not in self._reads:
+                self._reads[(uri, name)] = self._pool.submit(self._read_ahead, uri, name, None)
+            return
+        uris = [self.config.output_base_model]
+        for m in self.config.finetune_merge:
+            if m.use_layer_index(number):
+                uris += [m.model, m.base]
+        to_device = to_device and pin
+        for uri in dict.fromkeys(uris):
+            key = (uri, name)
+            read = self._reads.get(key)
+            if read is None:
+                read = self._reads[key] = self._pool.submit(self._read_ahead, uri, name, pin)
+            if to_device and key not in self._staged and key not in self._placed:
+                self._staged[key] = self._stage(key, read)
+
+    def _read_ahead(self, uri: str, name: str, pin: Optional[bool]) -> Optional[torch.Tensor]:
+        """Worker thread: the host copy of one tensor (page-locked with
+        ``pin``; with ``pin=None`` only a page-cache read, no copy), or None
+        when the layer is already merged or the read failed (the demand read
+        then retries it and raises)."""
+        if name in self._released_layers:
+            return None
+        try:
+            if pin is None:
+                self.index_manager.advise_tensor(uri, name)
+                return None
+            host = self.index_manager.preload_tensor(uri, name, pin_memory=pin)
+        except Exception:
+            logger.warning("read-ahead of %s from %s failed; reading it on demand",
+                           name, uri, exc_info=True)
+            with self._stats_lock:
+                self.stats.prefetch_failures += 1
+            return None
+        if name in self._released_layers:
+            # the merge thread released the layer while this read ran: do
+            # not leave the copy cached (it marks the layer released before
+            # evicting, so one of the two evictions sees the copy)
+            self.index_manager.release_tensor(uri, name)
+            return None
+        return host
+
+    def _stage(self, key, read: Future) -> Future:
+        """A future of (device tensor, copy event), issued on the copy
+        stream once the host read lands (in the reading thread, or here if it
+        already has)."""
+        staged: Future = Future()
+
+        def on_read(done: Future):
+            if done.cancelled():  # the pool shut down (the merge ended)
+                staged.cancel()
+                return
+            host = done.result()  # _read_ahead never raises
+            if host is None or key[1] in self._released_layers:
+                staged.set_result(None)
+                return
+            try:
+                with torch.cuda.stream(self._copy_stream):
+                    tensor = host.to(self.device, non_blocking=True)
+                    copied = torch.cuda.Event()
+                    copied.record(self._copy_stream)
+            except Exception as e:  # e.g. out of device memory: demand read
+                staged.set_exception(e)
+                return
+            staged.set_result((tensor, copied))
+
+        read.add_done_callback(on_read)
+        return staged
+
+    # -- the merge loop ----------------------------------------------------------
 
     def initialize(self):
         """Register every model and require identical key sets."""
@@ -125,44 +334,113 @@ class MergeTensorsBase(ABC):
             output_path=self.config.output_path,
             layer_order=layer_order,
             output_astype=self.config.output_astype,
+            write_through=self.config.write_through,
+            background_flush=self.background_flush,
         )
-        for shard_layers in writer.shard_layers():
-            self._process_layers(writer, [sl for sl in shard_layers if not sl.written])
-        writer.finalize()
+        # one pipeline over every shard's pending tensors: read-ahead
+        # crosses shard boundaries (the writer still completes shards in
+        # order, as each one's last tensor arrives)
+        layers = [sl for shard in writer.shard_layers() for sl in shard if not sl.written]
+        if self.prefetch_depth > 0:
+            self._pool = ThreadPoolExecutor(max_workers=_READ_WORKERS, thread_name_prefix="read-ahead")
+        if self.device.type == "cuda":
+            self._copy_stream = torch.cuda.Stream(self.device)
+        try:
+            self._process_layers(writer, layers)
+            writer.finalize()
+        finally:
+            writer.close()
+            if self._pool is not None:
+                self._pool.shutdown(wait=True, cancel_futures=True)
+                self._pool = None
+            self._reads.clear()
+            self._staged.clear()
         (self.config.output_path / "README.md").write_text(self.get_readme())
         logger.info("Merge complete. Output saved to %s", self.config.output_path)
         logger.info("Merge stats: %s", self.stats.summary())
         return self.stats
 
     def _process_layers(self, writer: ModelWriter, shard_layers: List[ShardLayer]):
-        for shard_layer in shard_layers:
+        """Merge layer i while layers i+1..i+prefetch_depth are read (the
+        first device_prefetch_depth of them staged on the card), and write
+        layer i-1 back once layer i's merge is issued."""
+        pending = None
+        for i, shard_layer in enumerate(shard_layers):
+            for j, ahead in enumerate(shard_layers[i + 1:i + 1 + self.prefetch_depth]):
+                self._prefetch_layer(ahead, to_device=j < self.device_prefetch_depth)
             name = shard_layer.layer_name
+            read0, h2d0 = self.stats.span_fetch_s, self.stats.span_h2d_s
             t0 = time.perf_counter()
             try:
                 with phase_profiler(f"merge {name}", device=self.device):
                     out = self._merge_layer(shard_layer)
-                t1 = time.perf_counter()
-                self._check_deferred(name)
-                host = out.to("cpu")
-                writer.add_tensor(name, host)
             except Exception as e:
                 logger.error("Error processing %s: %s", name, e)
                 raise
-            t2 = time.perf_counter()
-            self.stats.span_merge_s += t1 - t0
-            self.stats.span_flush_s += t2 - t1
-            self.stats.tensors_merged += 1
-            self.stats.bytes_written += host.numel() * host.element_size()
-            self.tensor_seconds[name] = t2 - t0
-            self._evict_layer(name)
+            merge_s = time.perf_counter() - t0
+            self.stats.span_merge_s += merge_s
+            self._release_placed(name)
+            host, copied = self._to_host(out)
+            spans = {
+                "wall_s": time.perf_counter() - t0,
+                "read_s": self.stats.span_fetch_s - read0,
+                "h2d_s": self.stats.span_h2d_s - h2d0,
+                "merge_s": merge_s,
+            }
+            if pending is not None:
+                self._flush(writer, pending)
+            pending = (name, host, copied, spans)
+        if pending is not None:
+            self._flush(writer, pending)
+
+    def _to_host(self, out: torch.Tensor):
+        """(host tensor, copy event): a device result is copied to
+        page-locked memory without blocking; a host one is passed on."""
+        if out.device.type != "cuda":
+            return out, None
+        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        host.copy_(out, non_blocking=True)
+        copied = torch.cuda.Event()
+        copied.record()
+        return host, copied
+
+    def _flush(self, writer: ModelWriter, pending):
+        """Check the layer's deferred flags, wait for its device->host copy
+        and stage it with the writer."""
+        name, host, copied, spans = pending
+        try:
+            self._check_deferred(name)
+            t0 = time.perf_counter()
+            if copied is not None:
+                copied.synchronize()
+            writer.add_tensor(name, host)
+        except Exception as e:
+            logger.error("Error processing %s: %s", name, e)
+            raise
+        flush_s = time.perf_counter() - t0
+        self.stats.span_flush_s += flush_s
+        self.stats.tensors_merged += 1
+        self.stats.bytes_written += host.nbytes
+        spans["wall_s"] += flush_s
+        self.tensor_spans[name] = {**spans, "flush_s": flush_s}
+        self._evict_layer(name)
 
     def _check_deferred(self, layer_name: str):
         """Hook for engines that check device-side flags at write time."""
 
+    def _release_placed(self, tensor_name: str):
+        """The layer's merge returned: drop its device copies and any
+        staging that was never taken (pending work keeps its buffers alive
+        on its own)."""
+        self._released_layers.add(tensor_name)
+        for table in (self._placed, self._staged):
+            for key in [k for k in table if k[1] == tensor_name]:
+                del table[key]
+
     def _evict_layer(self, tensor_name: str):
-        """Drop the layer's device copies and host views."""
-        for key in [k for k in self._placed if k[1] == tensor_name]:
-            del self._placed[key]
+        """Drop the layer's host copies and views."""
+        for key in [k for k in self._reads if k[1] == tensor_name]:
+            del self._reads[key]
         models = {self.config.output_base_model}
         for m in self.config.finetune_merge:
             models.update((m.model, m.base))

@@ -88,14 +88,28 @@ class MergeStats:
     )
     bytes_written: int = 0
     nans_scrubbed: int = 0
-    # summed wall seconds: host tensor reads, host->device copies, merge
-    # compute (through the regime sync), device->host + staging for write
+    # blocking device->host reads the reduction makes: the stack's first
+    # norms, each later round's merged-entry norms, the fused path's regime
+    # (one per reduction round of a tensor)
+    host_syncs: int = 0
+    # delta-stack entries moved to pinned host memory under hbm_budget_bytes
+    hbm_spills: int = 0
+    # summed wall seconds on the merge thread: waits for host tensor reads
+    # (demand reads and unfinished read-aheads), host->device copies issued
+    # on demand, _merge_layer (through its last host sync), and the
+    # write-back (device->host wait + shard staging or write)
     span_fetch_s: float = 0.0
     span_h2d_s: float = 0.0
     span_merge_s: float = 0.0
     span_flush_s: float = 0.0
+    # host->device bytes (demand copies and device-staged read-aheads) and
+    # copies saved by the per-layer placement dedupe
     h2d_bytes: int = 0
     h2d_dedup_hits: int = 0
+    # read-ahead pipeline: input tensors taken already staged on the device,
+    # and read-aheads that failed (the merge then read on demand)
+    prefetch_device_hits: int = 0
+    prefetch_failures: int = 0
     started_at: float = field(default_factory=time.time)
 
     def record_pair(self, regime: str):
@@ -120,6 +134,13 @@ class MergeStats:
         if self.h2d_bytes:
             text += (
                 f"; h2d {self.h2d_bytes / 2**30:.2f} GiB "
-                f"({self.h2d_dedup_hits} deduped puts)"
+                f"({self.h2d_dedup_hits} deduped puts, "
+                f"{self.prefetch_device_hits} staged ahead)"
             )
+        if self.host_syncs:
+            text += f"; {self.host_syncs} host syncs"
+        if self.hbm_spills:
+            text += f"; {self.hbm_spills} stack entries spilled to host"
+        if self.prefetch_failures:
+            text += f"; {self.prefetch_failures} read-aheads failed"
         return text

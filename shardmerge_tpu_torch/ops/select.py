@@ -36,8 +36,8 @@ def _bisect(count_below, k, device) -> torch.Tensor:
     """Largest unsigned pattern p with count_below(p) <= k, as f32.
 
     ``count_below(c)`` counts elements whose pattern is strictly below the
-    int32 key ``c``; ``k`` may be a Python int or a 0-d tensor."""
-    k = torch.as_tensor(k, dtype=torch.int64, device=device)
+    int32 key ``c``; ``k`` may be a Python int (compared as a scalar: no
+    copy to the device, which would wait for its stream) or a 0-d tensor."""
     prefix = torch.zeros((), dtype=torch.int64, device=device)  # unsigned
     for i in range(_ROUNDS):
         shift = 32 - _BITS_PER_ROUND * (i + 1)

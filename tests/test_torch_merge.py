@@ -194,19 +194,29 @@ def test_cli_merge_matches_jax_cli_and_resumes(tmp_path, capsys):
 
 
 def test_cli_rejects_unported_configs(tmp_path, capsys):
+    """The mesh-sharded merge and the other methods are refused by name,
+    before anything is written; a model listed twice in a stack of 3 or
+    more is refused with a clear error (the JAX engine loses a stack entry
+    there and raises KeyError on some tensors)."""
     base = tmp_path / "base"
     make_tiny_model(base, seed=1)
     cfg = json.loads(_write_config(tmp_path, base, base, base, tmp_path / "o").read_text())
-    for field, value in [("merge_method", "ties"), ("hbm_budget_gb", 1.0)]:
+    for field, value, name in [
+        ("merge_method", "ties", "'ties'"),
+        ("shard_tensors", True, "shard_tensors"),
+        ("distributed", True, "distributed"),
+    ]:
         f = tmp_path / f"{field}.json"
         f.write_text(json.dumps({**cfg, field: value}))
         assert torch_cli(["merge", str(f), "--device", "cpu"]) == 2
-        assert "not ported yet" in capsys.readouterr().err
+        err = capsys.readouterr().err
+        assert "not ported yet" in err and name in err
+    assert not (tmp_path / "o").exists()
     three = dict(cfg, finetune_merge=cfg["finetune_merge"] * 2)
     f = tmp_path / "three.json"
     f.write_text(json.dumps(three))
     assert torch_cli(["merge", str(f), "--device", "cpu"]) == 2
-    assert "3 or more finetunes is not ported yet" in capsys.readouterr().err
+    assert "more than once" in capsys.readouterr().err
 
 
 def test_safetensors_files_interchange_with_jax_io(tmp_path):

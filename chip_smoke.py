@@ -68,12 +68,26 @@ Phases (each prints one line or a few; any failure exits non-zero):
    must give the default run's bits, and the default the CLI's bits
    (batch_rounds' whole outputs are printed beside them); the 4-finetune
    merge's spans, sequential and pipelined, as in 7;
-9. generate: load the merge with int4 weights, ``generate_batch`` on 4
+9. engines: the ten other merge methods, each merged in process on a
+   3-tensor subset of [stack]'s models (4 finetunes, slerp 2; dare, della
+   and breadcrumbs with both combine values), timed per tensor, then
+   through the CLI (four at a time): index mirrored, finite bf16, the
+   in-process bits. Meanwhile each is held to the host on q_proj: its f32
+   merge within relL2 1e-6, thresholds, keep probabilities and masks bit
+   for bit (dare and della on q_proj's first 1024 rows, the card's whole
+   q_proj giving the cut's bits there; fourier-legacy per pair: each
+   traced result the engine's own pair merge bit for bit, its weight the
+   alphas by stack position, round 1 at 97% within 2e-2, later rounds on
+   identical spectra with the traced weight). addition and ties
+   also merge the whole model (the 128256 x 4096 input/output layers).
+   Then the masks alone at (14336, 4096): DARE's Bernoulli draw, DELLA's
+   keep probabilities and drop-and-rescale, device ms;
+10. generate: load the merge with int4 weights, ``generate_batch`` on 4
    prompts and one ``stream_generation``; both kernels' launch counts must
    show the decode went through them, and one decode step's logits must
    agree with the same step on the plain int4 product; an A/B of the decode
    step against the einsum attention path;
-10. serve: the HTTP server on that engine with a continuous pool of 8 slots
+11. serve: the HTTP server on that engine with a continuous pool of 8 slots
    and a 4096-slot cache; staggered greedy requests (prompts of 30-3000
    tokens, one with a stop string), one SSE stream and one 4-prompt
    lockstep request; every pool completion must equal the solo stream, both
@@ -86,7 +100,7 @@ Phases (each prints one line or a few; any failure exits non-zero):
    (flash launches = layers x compactions); an A/B of that pool step
    against the einsum path, and, over profiled pool steps, the device's
    busy share, its launches per step and the flash kernels' share;
-11. the kernel summary line (all five kernels), the card line, and the result line.
+12. the kernel summary line (all five kernels), the card line, and the result line.
 
 It imports nothing of JAX. With no CUDA device it exits 1 and prints no
 result.
@@ -193,6 +207,19 @@ STACK_ALPHAS = {"ft1": 0.8, "ft3": 0.6, "ft4": 0.5, "ft5": 0.3}
 # the tensors held to the host, and the subset the variants merge
 STACK_CHECKED = ("model.layers.0.self_attn.q_proj.weight", "model.layers.0.mlp.down_proj.weight")
 STACK_SUBSET = STACK_CHECKED + ("model.layers.0.mlp.gate_proj.weight",)
+# [engines]: the ten other merge methods, each through the CLI on the
+# [stack] subset with its four finetunes (slerp: ft1 and ft3), dare, della
+# and breadcrumbs with both combine values; addition and ties also over the
+# whole model (the 128256 x 4096 input/output layers)
+ENGINE_RUNS = (("addition", {}), ("task-addition", {}), ("linear", {}), ("ties", {}),
+               ("breadcrumbs", {}), ("breadcrumbs", {"combine": "ties"}), ("dare", {}),
+               ("dare", {"combine": "ties"}), ("della", {}), ("della", {"combine": "sum"}),
+               ("slerp", {}), ("model-stock", {}), ("fourier-legacy", {}))
+ENGINE_WHOLE = ("addition", "ties")
+# dare and della are held to the host on the first rows of q_proj: the
+# host's threefry is slow, and a mask depends only on the flat index, so the
+# cut's rows are the whole tensor's first rows
+ENGINE_CUT_ROWS = 1024
 # NVIDIA H100 SXM5 80 GB data sheet: HBM3 bandwidth; dense bf16 (tensor
 # cores) and f32 (CUDA cores) rates
 HBM_BYTES_PER_S = 3.35e12
@@ -1095,8 +1122,9 @@ def hold_to_host(torch, dirs, names, alphas, weight_map, out: Path, card: str):
             + "; ".join(f"{k} {', '.join(f'{v:.2f}' for v in vs)}" for k, vs in times.items()) + ")")
 
 
-def subset_model(torch, dirs, root: Path, names) -> dict:
-    """Copies of the models holding only STACK_SUBSET, one shard each."""
+def subset_model(torch, dirs, root: Path, names, tensors=STACK_SUBSET, rows=None) -> dict:
+    """Copies of the models holding only ``tensors`` (their first ``rows``
+    rows with ``rows``), one shard each, under ``root``/subset."""
     from shardmerge_tpu_torch.io.safetensors_io import SafeTensorsReader, save_file
 
     weight_map = json.loads((dirs["base"] / "model.safetensors.index.json").read_text())["weight_map"]
@@ -1104,13 +1132,14 @@ def subset_model(torch, dirs, root: Path, names) -> dict:
     for m in ["base", *names]:
         d = root / "subset" / m
         d.mkdir(parents=True)
-        tensors = {}
-        for name in STACK_SUBSET:
+        staged = {}
+        for name in tensors:
             with SafeTensorsReader(dirs[m] / weight_map[name]) as r:
-                tensors[name] = r.get_tensor(name, copy=True)
-        save_file(tensors, d / "model.safetensors", metadata={"format": "pt"})
+                t = r.get_tensor(name, copy=True)
+            staged[name] = t if rows is None else t[:rows].clone()
+        save_file(staged, d / "model.safetensors", metadata={"format": "pt"})
         (d / "model.safetensors.index.json").write_text(json.dumps(
-            {"metadata": {}, "weight_map": {n: "model.safetensors" for n in STACK_SUBSET}}))
+            {"metadata": {}, "weight_map": {n: "model.safetensors" for n in tensors}}))
         out[m] = d
     return out
 
@@ -1183,6 +1212,311 @@ def phase_stack(torch, root: Path, dirs, card: str):
         if not same and tag != "batch_rounds":
             raise SystemExit(f"[stack] variant {tag} disagrees with the default run")
     shutil.rmtree(root / "subset")
+    return dirs
+
+
+def engine_tag(method: str, options: dict) -> str:
+    return method + "".join(f" {k}={v}" for k, v in options.items())
+
+
+def engine_models(method: str):
+    return STACK_FOUR[:2] if method == "slerp" else STACK_FOUR
+
+
+def engine_config(src: dict, method: str, out: Path):
+    from shardmerge_tpu_torch.config import MergeConfig, MergeModel
+
+    return MergeConfig(
+        finetune_merge=[MergeModel(model=str(src[m]), base=str(src["base"]), alpha=STACK_ALPHAS[m])
+                        for m in engine_models(method)],
+        output_base_model=str(src["base"]),
+        output_dir=str(out),
+        merge_method=method,
+    )
+
+
+def f32_merge(method: str, options: dict, cfg, dev: str, name: str):
+    """One tensor's merge by the engine in process (its ``_merge_layer``,
+    deferred checks included) on ``dev``, as f32 on the host."""
+    from shardmerge_tpu_torch.io.writer import ShardLayer
+    from shardmerge_tpu_torch.merge import MERGE_METHODS
+
+    eng = MERGE_METHODS[method](cfg, device=dev, **options)
+    try:
+        eng.initialize()
+        out = eng._merge_layer(ShardLayer(0, "model.safetensors", name, False))
+        eng._check_deferred(name)
+        return out.float().cpu()
+    finally:
+        eng.index_manager.close()
+
+
+def engine_deltas(torch, src: dict, method: str, name: str, dev: str):
+    """The engine's f32 deltas of ``name`` on ``dev`` (alpha applied, each
+    against the shared base)."""
+    from shardmerge_tpu_torch.io.safetensors_io import load_file
+
+    base = load_file(src["base"] / "model.safetensors")[name].to(dev).float()
+    return [(load_file(src[m] / "model.safetensors")[name].to(dev).float() - base) * STACK_ALPHAS[m]
+            for m in engine_models(method)]
+
+
+def same_bits(torch, a, b) -> bool:
+    return a.shape == b.shape and torch.equal(a.cpu().contiguous().view(torch.int32),
+                                              b.cpu().contiguous().view(torch.int32))
+
+
+def hold_masks(torch, method: str, options: dict, src: dict, name: str, dev: str) -> str:
+    """The engine's thresholds (ties, breadcrumbs), keep probabilities and
+    masks (della, dare) of every model on ``name``, card against host, bit
+    for bit; returns what was compared."""
+    from shardmerge_tpu_torch.merge import breadcrumbs, dare, della, ties
+    from shardmerge_tpu_torch.ops import prng, select
+
+    if method not in ("ties", "breadcrumbs", "dare", "della"):
+        return "no masks or thresholds"
+    sides = {d: engine_deltas(torch, src, method, name, d) for d in (dev, "cpu")}
+    n = sides["cpu"][0].numel()
+    named = dare.tensor_key(options.get("seed", 0), name)
+    for m in range(len(sides["cpu"])):
+        got = {}
+        for d, deltas in sides.items():
+            delta = deltas[m]
+            if method == "ties":
+                k = n - ties.keep_count(n, options.get("density", 0.2))
+                got[d] = [select.kth_smallest_nonneg(delta.abs(), k).reshape(1)]
+            elif method == "breadcrumbs":
+                k_low, k_top = breadcrumbs.tail_counts(n, options.get("beta", 0.85), options.get("gamma", 0.01))
+                got[d] = [select.kth_smallest_nonneg(delta.abs(), k).reshape(1) for k in (k_low, n - k_top)]
+            elif method == "dare":
+                keep = 1.0 - options.get("drop_rate", 0.9)
+                got[d] = [prng.bernoulli(prng.fold_in(named, m), keep, delta.shape, device=d).to(torch.int32)]
+            else:
+                probs = della.keep_probs(delta.reshape(-1, delta.shape[-1]), options.get("density", 0.2),
+                                         options.get("epsilon", 0.1))
+                mask = prng.bernoulli(prng.fold_in(named, m), probs, probs.shape)
+                got[d] = [probs, mask.to(torch.int32)]
+        if not all(same_bits(torch, a, b) for a, b in zip(got[dev], got["cpu"])):
+            raise SystemExit(f"[engines] {method}: model {m}'s masks or thresholds differ between card and host")
+    what = {"ties": "trim thresholds", "breadcrumbs": "both tail thresholds", "dare": "masks",
+            "della": "keep probabilities and masks"}[method]
+    return f"{what} of all {len(sides['cpu'])} models bit-equal"
+
+
+def hold_legacy(torch, src: dict, name: str, dev: str, card: str):
+    """fourier-legacy on ``name``, per pair: the card's reduction traced;
+    each traced result equal, bit for bit, to the engine's own pair merge
+    on the traced operands, and its blend weight to the alphas looked up by
+    stack position (REF-QUIRK); each round-1 pair merge against the host's
+    on the same inputs (97% within 2e-2); a later round's operands carry
+    round 1's culled spectral zeros, whose FFT round-trip noise picks sign
+    agreement, so there the blend is held on identical spectra with the
+    traced weight (cutoff threshold bit for bit, real plane within relL2
+    1e-5)."""
+    from shardmerge_tpu_torch.io.safetensors_io import load_file
+    from shardmerge_tpu_torch.merge import fourier_legacy
+    from shardmerge_tpu_torch.ops import blend, select
+
+    cfg = engine_config(src, "fourier-legacy", src["base"].parent / "unused")
+    card_eng = fourier_legacy.LegacyFourierMerge(cfg, device=dev)
+    host_eng = fourier_legacy.LegacyFourierMerge(cfg, device="cpu")
+    base = load_file(src["base"] / "model.safetensors")[name].to(dev).float()
+    names = engine_models("fourier-legacy")
+    stack = [(str(src[m]), load_file(src[m] / "model.safetensors")[name].to(dev).float() - base) for m in names]
+    trace = []
+    card_eng.reduce(stack, trace=trace)
+    for regime, x, y, norm_a, norm_b, target, cull, a_prop, a, b, merged in trace:
+        tag = f"[engines] fourier-legacy {name} ({card}) round pair ({x}, {y}) {regime}, cull {cull}"
+        want_prop = STACK_ALPHAS[names[x]] / (STACK_ALPHAS[names[x]] + STACK_ALPHAS[names[y]])
+        again = card_eng._merge_pair(a, b, x, y, norm_a, norm_b, target, cull)[1]
+        same = same_bits(torch, merged, again)
+        say(f"{tag}: weight {a_prop!r} (alphas by stack position {want_prop!r}), the traced result "
+            f"{'bit-equal' if same else 'DIFFERENT'} to the engine's pair merge on the traced operands")
+        if a_prop != want_prop or not same:
+            raise SystemExit("[engines] fourier-legacy: the traced pair merge is not the engine's")
+        ha, hb = a.cpu(), b.cpu()
+        if cull == card_eng.cull_start_pct:
+            _, host, _ = host_eng._merge_pair(ha, hb, x, y, norm_a, norm_b, target, cull)
+            close = torch.isclose(merged.cpu(), host, rtol=2e-2, atol=1e-6).double().mean().item()
+            say(f"{tag}: card vs host on the same inputs {close * 100:.3f}% within 2e-2 (gate 97%), "
+                f"relL2 {rel_l2(merged.cpu(), host):.2e}")
+            if close < 0.97:
+                raise SystemExit("[engines] a fourier-legacy round-1 pair merge disagrees with the host")
+            continue
+        if regime != "slerp":
+            raise SystemExit(f"[engines] fourier-legacy: expected slerp pairs after round 1, got {regime}")
+        n = ha.numel()
+        f0 = blend.fft2(ha / torch.tensor(norm_a, dtype=torch.float32))
+        f1 = blend.fft2(hb / torch.tensor(norm_b, dtype=torch.float32))
+        ranks = (blend.cutoff_rank(n, 0.08), blend.cull_rank(n, cull), blend.cull_limit(n, cull))
+        got = {}
+        for d in ("cpu", dev):
+            x0, x1 = f0.to(d), f1.to(d)
+            thr = select.kth_smallest_nonneg2(x0.real.abs(), x1.real.abs(), ranks[0])
+            res = blend.interpolate_fft_components(x0, x1, a_prop, 1.0, *ranks, use_cutoff=True, use_cull=True,
+                                                   interp_imag=False)
+            got[d] = (thr.cpu(), res.real.cpu())
+        same_thr = same_bits(torch, got["cpu"][0].reshape(1), got[dev][0].reshape(1))
+        res_rel = rel_l2(got[dev][1], got["cpu"][1])
+        say(f"{tag}: on identical spectra the cutoff threshold is {'bit-equal' if same_thr else 'DIFFERENT'} "
+            f"and the blended real plane within relL2 {res_rel:.2e} (gate 1e-5)")
+        if not same_thr or res_rel > 1e-5:
+            raise SystemExit("[engines] fourier-legacy: the card's blend disagrees with the host's on identical spectra")
+
+
+def mask_times(torch, card: str):
+    """Device ms of the masks alone at (14336, 4096): DARE's Bernoulli draw
+    (threefry2x32 in int64 torch ops), DELLA's keep probabilities, and its
+    whole drop and rescale of one delta (probabilities, draw, divide); and
+    of TIES's two steps there: one model's trim (an exact select) and the
+    sign election with ``finish`` over 4 models."""
+    from shardmerge_tpu_torch.merge import dare, della, ties
+    from shardmerge_tpu_torch.ops import prng
+
+    shape = (LLAMA_31_8B["intermediate_size"], LLAMA_31_8B["hidden_size"])
+    dev = torch.device("cuda:0")
+    key = prng.fold_in(dare.tensor_key(0, "model.layers.0.mlp.gate_proj.weight"), 0)
+    delta = torch.randn(shape, device=dev, generator=torch.Generator(device=dev).manual_seed(5)) * 0.01
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    work = torch.empty_like(delta)
+    times = {
+        "dare mask": time_ms(torch, lambda: prng.bernoulli(key, 0.1, shape, device=dev), flush, reps=5),
+        "dare drop and rescale": time_ms(torch, lambda: dare.drop_and_rescale_(work.copy_(delta), key, 0.1),
+                                         flush, reps=5),
+        "della keep probabilities": time_ms(torch, lambda: della.keep_probs(delta, 0.2, 0.1), flush, reps=5),
+        "della drop and rescale": time_ms(torch, lambda: della.sample_(work.copy_(delta), key, 0.2, 0.1),
+                                          flush, reps=5),
+    }
+    four = [torch.randn(shape, device=dev, generator=torch.Generator(device=dev).manual_seed(6 + i)) * 0.01
+            for i in range(4)]
+    keep = ties.keep_count(delta.numel(), 0.2)
+    times["ties trim"] = time_ms(torch, lambda: ties.trim_(work.copy_(delta), keep), flush, reps=5)
+    times["ties election and finish"] = time_ms(
+        torch, lambda: ties.finish(ties.elect_disjoint_mean(four), delta, 1.0, True), flush, reps=5)
+    del four
+    n = shape[0] * shape[1]
+    # a fused threefry + Bernoulli + rescale kernel would read the delta and
+    # write the kept delta once: 8 bytes an element
+    floor, by = bound(8 * n, 0, F32_FLOPS)
+    say(f"[engines] masks at {shape} ({card}), device ms (median of 5, L2 flushed): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
+        + f"; a fused drop-and-rescale kernel's byte bound {floor:.4f} ms ({by}: delta read, kept written)")
+    return times
+
+
+def hold_engine(torch, method: str, options: dict, srcs: dict, dev: str, card: str, masks: bool):
+    """One run's card-vs-host gate on q_proj: the engine's f32 merge in
+    process on the card against the host's on the same inputs (relL2
+    1e-6), with its masks or thresholds bit for bit (``masks``); dare and
+    della on q_proj's first rows (and the card's whole-q_proj merge must
+    give the cut's bits there), fourier-legacy per pair."""
+    q_proj = STACK_CHECKED[0]
+    sub, cut, scratch = srcs["sub"], srcs["cut"], srcs["sub"]["base"].parent / "unused"
+    tag = engine_tag(method, options)
+    if method == "fourier-legacy":
+        hold_legacy(torch, sub, q_proj, dev, card)
+        return
+    src = cut if method in ("dare", "della") else sub
+    what = hold_masks(torch, method, options, src, q_proj, dev) if masks else "masks held above"
+    cfg_q = engine_config(src, method, scratch)
+    card_q = f32_merge(method, options, cfg_q, dev, q_proj)
+    rel = rel_l2(card_q, f32_merge(method, options, cfg_q, "cpu", q_proj))
+    note = ""
+    if src is cut:
+        whole = f32_merge(method, options, engine_config(sub, method, scratch), dev, q_proj)
+        if not same_bits(torch, whole[:ENGINE_CUT_ROWS], card_q):
+            raise SystemExit(f"[engines] {tag}: the whole q_proj's first rows differ from the cut's merge")
+        note = f" (its first {ENGINE_CUT_ROWS} rows; the card's whole-q_proj merge gives the cut's bits there)"
+    say(f"[engines] {tag} q_proj{note} ({card}): card vs host in f32 relL2 {rel:.2e} (gate 1e-6); {what}")
+    if rel > 1e-6:
+        raise SystemExit(f"[engines] {tag}: the card's merge disagrees with the host's")
+
+
+def phase_engines(torch, root: Path, dirs: dict, card: str, dev: str = "cuda:0"):
+    """The ten other merge methods through the CLI on the [stack] subset
+    (and addition and ties over the whole model): index mirrored, finite
+    bf16, the CLI's bits equal to the same merge in process; each method's
+    wall per tensor in process; then each held to the host on q_proj
+    (``hold_engine``) while the CLI runs, four at a time."""
+    from shardmerge_tpu_torch.cli import run_merge
+    from shardmerge_tpu_torch.io.safetensors_io import load_file
+
+    eroot = root / "engines"
+    srcs = {"sub": subset_model(torch, dirs, eroot, STACK_FOUR),
+            "cut": subset_model(torch, dirs, eroot / "cut", STACK_FOUR, tensors=STACK_CHECKED[:1],
+                                rows=ENGINE_CUT_ROWS)}
+    sub = srcs["sub"]
+    inproc, configs = {}, {}
+    for i, (method, options) in enumerate(ENGINE_RUNS):
+        tag = engine_tag(method, options)
+        finetunes = [(sub[m], STACK_ALPHAS[m]) for m in engine_models(method)]
+        configs[tag] = merge_config(eroot, f"cli{i}", sub["base"], finetunes, merge_method=method,
+                                    method_options=options, device=dev)
+        cfg = engine_config(sub, method, eroot / f"inproc{i}")
+        cfg.method_options, cfg.device = dict(options), dev
+        t0 = time.perf_counter()
+        merger = run_merge(cfg, dev)
+        wall = time.perf_counter() - t0
+        inproc[tag] = load_file(Path(cfg.output_dir) / "model.safetensors")
+        shutil.rmtree(cfg.output_dir)
+        spans = merger.tensor_spans
+        first = next(iter(spans))
+        say(f"[engines] {tag} ({len(engine_models(method))} finetunes, {card}): in process {wall:.2f} s for "
+            f"{len(spans)} tensors; " + "; ".join(
+                f"{n.split('.')[-2]} {tuple(inproc[tag][n].shape)} wall {spans[n]['wall_s'] * 1e3:.1f} ms "
+                f"(merge {spans[n]['merge_s'] * 1e3:.1f}{', read on demand: the first' if n == first else ''})"
+                for n in spans))
+        for n, t in inproc[tag].items():
+            if t.dtype != torch.bfloat16 or not bool(torch.isfinite(t.float()).all()):
+                raise SystemExit(f"[engines] {tag}: {n} is not finite bf16")
+
+    # the CLI runs, four at a time, while the card is held to the host
+    ex = ThreadPoolExecutor(4)
+    try:
+        futures = {tag: ex.submit(cli_merge, cfg_file) for tag, cfg_file in configs.items()}
+        held = set()
+        for method, options in ENGINE_RUNS:
+            # each method once; dare and della (on the cut) with both combines
+            if method not in held or method in ("dare", "della"):
+                hold_engine(torch, method, options, srcs, dev, card, masks=method not in held)
+                held.add(method)
+        cli = {tag: f.result() for tag, f in futures.items()}
+    finally:
+        ex.shutdown(wait=True)
+    for tag, (stats, wall) in cli.items():
+        out = Path(json.loads(configs[tag].read_text())["output_dir"])
+        check_output(torch, out, sub["base"], f"[engines] {tag}")
+        got = load_file(out / "model.safetensors")
+        if not all(torch.equal(got[n].view(torch.int16), inproc[tag][n].view(torch.int16)) for n in STACK_SUBSET):
+            raise SystemExit(f"[engines] {tag}: the CLI's output differs from the in-process merge")
+        shutil.rmtree(out)
+    say(f"[engines] CLI ({card}): {len(cli)} runs (four at a time beside the host checks, "
+        f"{max(w for _, w in cli.values()):.1f} s the longest) each mirror the base index, finite bf16, the "
+        f"in-process merge's bits")
+
+    for method in ENGINE_WHOLE:
+        cfg_file = merge_config(root, f"whole_{method}", dirs["base"],
+                                [(dirs[f], STACK_ALPHAS[f]) for f in STACK_FOUR], merge_method=method, device=dev)
+        stats, wall = cli_merge(cfg_file)
+        out = root / f"whole_{method}"
+        weight_map = check_output(torch, out, dirs["base"], f"[engines] whole {method}")
+        tag = engine_tag(method, {})
+        for n in STACK_SUBSET:
+            got = load_file(out / weight_map[n])[n]
+            if not torch.equal(got.view(torch.int16), inproc[tag][n].view(torch.int16)):
+                raise SystemExit(f"[engines] whole {method}: {n} differs from the subset merge")
+        passthrough = 0 if method == "addition" else 3
+        if stats["tensors_passthrough"] != passthrough:
+            raise SystemExit(f"[engines] whole {method}: {stats['tensors_passthrough']} passthroughs, "
+                             f"expected {passthrough}")
+        spans = stats["tensor_spans"]
+        say(f"[engines] whole-model {method} CLI ({card}): wall {wall:.1f} s (process); {stats['tensors_merged']} "
+            f"tensors, {passthrough} passthrough; index mirrors the base, finite bf16, layer 0's subset has the "
+            f"subset merge's bits; walls, ms: " + ", ".join(
+                f"{n} {spans[n]['wall_s'] * 1e3:.1f}" for n in spans
+                if n.startswith(("model.embed_tokens", "lm_head")) or ".gate_proj" in n or ".up_proj" in n))
+        shutil.rmtree(out)
+    shutil.rmtree(eroot)
 
 
 class StubTokenizer:
@@ -1619,7 +1953,9 @@ def main() -> int:
             f"{LAYERS} layers, bf16, written in {time.perf_counter() - t0:.1f} s")
         merged, _ = phase_merge(torch, root, dirs)
         pipeline_profile(torch, "merge 2-ft", root / "merged.json", card)
-        phase_stack(torch, root, dirs, card)
+        stack_dirs = phase_stack(torch, root, dirs, card)
+        phase_engines(torch, root, stack_dirs, card)
+        mask_times(torch, card)
         engine, _ = phase_generate(torch, merged)
         launches = phase_serve(torch, engine)
     finally:

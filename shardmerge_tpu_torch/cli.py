@@ -1,6 +1,6 @@
 """Command-line interface (counterpart of shardmerge_tpu/cli.py), on argparse.
 
-    python -m shardmerge_tpu_torch merge CONFIG [--device cpu]
+    python -m shardmerge_tpu_torch merge CONFIG [--method M] [--device cpu]
     python -m shardmerge_tpu_torch generate MODEL_DIR PROMPT [-4] [--greedy]
     python -m shardmerge_tpu_torch serve MODEL_DIR [-4] [--continuous N] [--port P]
 
@@ -35,16 +35,7 @@ def setup_logging(verbose: bool):
 
 def _check_ported(config: MergeConfig) -> None:
     """Raise, by name, for configuration features this port does not carry
-    yet (the mesh-sharded merge and the other merge methods)."""
-    if config.merge_method != "fourier":
-        raise NotImplementedError(
-            f"merge_method {config.merge_method!r} is not ported yet (fourier only)"
-        )
-    if config.method_options:
-        raise ConfigError(
-            f"method_options {sorted(config.method_options)} are not accepted "
-            "by merge_method 'fourier'"
-        )
+    yet (the mesh-sharded merge)."""
     unported = [
         name
         for name, on in (
@@ -57,34 +48,61 @@ def _check_ported(config: MergeConfig) -> None:
         raise NotImplementedError(f"config fields not ported yet: {unported}")
 
 
+def merge_class(config: MergeConfig):
+    """The engine class of ``config.merge_method``, its ``method_options``
+    checked against the engine's OPTIONS (ConfigError otherwise)."""
+    from .merge import MERGE_METHODS
+
+    merge_cls = MERGE_METHODS.get(config.merge_method)
+    if merge_cls is None:
+        raise ConfigError(
+            f"Unknown merge_method {config.merge_method!r}; "
+            f"choose from {sorted(MERGE_METHODS)}"
+        )
+    unknown_opts = set(config.method_options) - set(merge_cls.OPTIONS)
+    if unknown_opts:
+        raise ConfigError(
+            f"method_options keys {sorted(unknown_opts)} are not accepted by "
+            f"merge_method {config.merge_method!r} "
+            f"(accepted: {sorted(merge_cls.OPTIONS) or 'none'})"
+        )
+    return merge_cls
+
+
 def run_merge(config: MergeConfig, device: Optional[str] = None, **engine_options):
-    """Build the index and the engine and run the merge; returns the engine.
-    ``engine_options`` go to FourierMerge (prefetch_depth,
-    device_prefetch_depth, background_flush, batch_rounds)."""
+    """Build the index and the engine of ``config.merge_method`` (with its
+    ``method_options``) and run the merge; returns the engine. An engine's
+    refusal of its options or of the config is raised as ConfigError before
+    anything is written. ``engine_options`` go to the engine (the pipeline's
+    prefetch_depth, device_prefetch_depth, background_flush; fourier's
+    batch_rounds)."""
     from .io.index import OfflineMultiModelIndex, require_local
     from .merge import FourierMerge
 
     _check_ported(config)
+    merge_cls = merge_class(config)
     refs = [config.output_base_model]
     for m in config.finetune_merge:
         refs += [m.model, m.base]
     require_local(refs)
     dev = resolve_device(device or config.device)
     logger.info("merge device: %s", dev)
+    if merge_cls is FourierMerge:
+        engine_options.update(
+            exact_imag=config.exact_imag,
+            hbm_budget_bytes=(
+                int(config.hbm_budget_gb * 2**30) if config.hbm_budget_gb is not None else None
+            ),
+        )
+    elif config.exact_imag or config.hbm_budget_gb is not None:
+        logger.warning("exact_imag and hbm_budget_gb apply to merge_method 'fourier' only")
     index = OfflineMultiModelIndex()
-    merger = FourierMerge(
-        config,
-        index_manager=index,
-        device=dev,
-        exact_imag=config.exact_imag,
-        hbm_budget_bytes=(
-            int(config.hbm_budget_gb * 2**30)
-            if config.hbm_budget_gb is not None
-            else None
-        ),
-        **engine_options,
-    )
     try:
+        try:
+            merger = merge_cls(config, index_manager=index, device=dev,
+                               **config.method_options, **engine_options)
+        except ValueError as e:  # ConfigError included
+            raise ConfigError(str(e)) from e
         merger.merge()
     finally:
         index.close()
@@ -93,6 +111,8 @@ def run_merge(config: MergeConfig, device: Optional[str] = None, **engine_option
 
 def _merge(args) -> int:
     config = MergeConfig.from_file(args.config_file)
+    if args.method:
+        config.merge_method = args.method
     merger = run_merge(config, args.device)
     s = merger.stats
     print(
@@ -193,6 +213,11 @@ def build_parser() -> argparse.ArgumentParser:
     m = sub.add_parser("merge", help="merge finetunes into the base model")
     m.add_argument("config_file", help="YAML or JSON merge configuration")
     m.add_argument("--device", default=None, help="'cpu' merges on the host")
+    m.add_argument(
+        "--method", default=None,
+        help="merge method (overrides the config's merge_method): fourier | fourier-legacy | "
+        "addition | task-addition | ties | dare | della | breadcrumbs | linear | slerp | model-stock",
+    )
     m.add_argument("--verbose", action="store_true")
     m.set_defaults(func=_merge)
 

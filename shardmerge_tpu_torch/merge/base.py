@@ -41,6 +41,34 @@ the bf16 inputs of this layer and the staged next one 2 (N + 1) halves.
 
 So there is no size routing: a merge that does not fit sets
 ``hbm_budget_gb`` (or ``device_prefetch_depth=0``).
+
+The other engines keep their N f32 deltas (or N inputs) as the JAX engines
+stack them, but take thresholds, ranks and masks one model at a time, so
+that the temporaries of a select, an argsort or a mask exist for one model,
+not for N. For the 405B tensor above with N = 4 finetunes (stack 14 GB,
+bf16 inputs and the staged next layer 17 GB):
+
+- ties, breadcrumbs: one model's |delta|, its int32 select keys and a bool
+  mask, 3.5 + 3.5 + 0.9 = 7.9 GB; then the sign election
+  (``ties.elect_disjoint_mean``): its running total and one f32 scratch,
+  the elected sign (int8), the count (int16) and one bool mask, 3.5 + 3.5 +
+  0.9 + 1.7 + 0.9 = 10.5 GB, with the division and ``lam * x + base`` in
+  place (``ties.finish``): peak 14 + 17 + 10.5 = 42 GB;
+- dare, della: each mask is drawn in chunks of 2^22 elements (int64
+  threefry words, under 0.2 GB); della takes its ranks and probabilities by
+  row chunks of at most 2^22 elements, so its argsort never holds a whole
+  tensor's int64 indices (7 GB): peak as ties;
+- model-stock: the stack copy of the N deltas, 14 GB, while the deltas
+  live (the Gram then takes one product, 3.5 GB): 45 GB;
+- linear, addition, task-addition: the sum and one delta, 7 GB: 38 GB;
+- slerp: two f32 endpoints and their unit vectors, 14 GB: 31 GB;
+- fourier-legacy: its exact pair merge keeps both full complex spectra
+  (4 planes) while the imaginary recursion holds two more spectra and its
+  blend's temporaries, about 15 planes, 52 GB; with the stack, the f32
+  base and the staged next layer (its own bf16 inputs are dropped once
+  its deltas exist), 14 + 3.5 + 8.7 + 52 = 78 GB. That is at the card's
+  limit (a count, not a measurement): ``device_prefetch_depth=0`` frees
+  the staged 8.7 GB.
 """
 
 from __future__ import annotations
@@ -50,7 +78,7 @@ import threading
 import time
 from abc import ABC, abstractmethod
 from concurrent.futures import Future, ThreadPoolExecutor
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -66,8 +94,22 @@ logger = logging.getLogger(__name__)
 _READ_WORKERS = 4
 
 
+def _f32(value, device):
+    """A host float (or list of floats) as f32 on ``device``; on a card the
+    copy is issued from page-locked memory without blocking (a pageable
+    copy would wait for the stream). A division by a Python float on a card
+    multiplies by its reciprocal; by such a tensor it divides."""
+    t = torch.tensor(value, dtype=torch.float32)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
 class MergeTensorsBase(ABC):
     """Merges finetuned models by computing and combining their deltas."""
+
+    # ``method_options`` keys this engine accepts (the CLI refuses others)
+    OPTIONS: frozenset = frozenset()
 
     def __init__(
         self,
@@ -202,17 +244,55 @@ class MergeTensorsBase(ABC):
                 self._placed.pop((model.base, name), None)
         return results
 
-    def _passthrough(self, shard_layer: ShardLayer, which: str) -> torch.Tensor:
-        """Input/output layer passthrough: the first model flagged
-        is_input/is_output, else the base (host copy, never merged)."""
-        chosen = self._passthrough_source(which)
-        logger.info(
-            "Passthrough - %s is an %s layer, using %s",
-            shard_layer.layer_name,
-            which,
-            chosen,
-        )
-        return self.index_manager.get_tensor(chosen, shard_layer.layer_name)
+    def _covering(self, shard_layer: ShardLayer) -> List[MergeModel]:
+        """The finetunes whose layer range takes this layer, in config order."""
+        return [m for m in self.config.finetune_merge if m.use_layer_index(shard_layer.layer_number)]
+
+    def _layer_sources(self, shard_layer: ShardLayer) -> Tuple[List[str], Optional[str]]:
+        """(the models whose tensor of this layer the merge copies to the
+        device, the model whose tensor it passes through or None). Both the
+        read-ahead and the engine's fetches follow it.
+
+        Default, the delta engines': an input/output layer passes through
+        the first model flagged is_input/is_output (else the base); any
+        other fetches the output base and each covering model with its own
+        base (only the base when none covers the layer)."""
+        number = shard_layer.layer_number
+        if number in (INPUT_LAYER, OUTPUT_LAYER):
+            return [], self._passthrough_source("input" if number == INPUT_LAYER else "output")
+        uris = [self.config.output_base_model]
+        for m in self._covering(shard_layer):
+            uris += [m.model, m.base]
+        return list(dict.fromkeys(uris)), None
+
+    def _delta_engine_inputs(self, shard_layer: ShardLayer):
+        """The shared prologue of the delta engines: the input/output
+        passthrough, the layer gates (``use_layer_index``) and the output
+        base in f32.
+
+        Returns ``(models, base)`` for a real merge, or ``(None, tensor)``
+        when the layer resolves without one (a passthrough view, or the base
+        when no model covers the layer)."""
+        _, passthrough = self._layer_sources(shard_layer)
+        if passthrough is not None:
+            which = "input" if shard_layer.layer_number == INPUT_LAYER else "output"
+            return None, self._passthrough(shard_layer, which, passthrough)
+        models = self._covering(shard_layer)
+        base = self.get_base_output_tensor(shard_layer)
+        if not models:
+            logger.warning("No models cover layer %s; passing base through", shard_layer.layer_name)
+            return None, base
+        return models, base
+
+    def _passthrough(self, shard_layer: ShardLayer, which: str, uri: Optional[str] = None) -> torch.Tensor:
+        """Input/output layer passthrough, counted: the host view of
+        ``uri``'s tensor (default: the first model flagged
+        is_input/is_output, else the base), never merged."""
+        if uri is None:
+            uri = self._passthrough_source(which)
+        self.stats.tensors_passthrough += 1
+        logger.info("Passthrough - %s is an %s layer, using %s", shard_layer.layer_name, which, uri)
+        return self.index_manager.get_tensor(uri, shard_layer.layer_name)
 
     def _passthrough_source(self, which: str) -> str:
         flag = "is_input" if which == "input" else "is_output"
@@ -229,21 +309,15 @@ class MergeTensorsBase(ABC):
         copies to the card as the reads land. Idempotent: a layer is asked
         for on several iterations, first host-only."""
         name = shard_layer.layer_name
-        number = shard_layer.layer_number
         pin = self.device.type == "cuda"
-        if number in (INPUT_LAYER, OUTPUT_LAYER):
-            # passthrough layers hand their one source's shard-file view to
+        uris, passthrough = self._layer_sources(shard_layer)
+        if passthrough is not None:
+            # a passthrough layer hands its one source's shard-file view to
             # the writer: read it into the page cache, copy nothing
-            uri = self._passthrough_source("input" if number == INPUT_LAYER else "output")
-            if (uri, name) not in self._reads:
-                self._reads[(uri, name)] = self._pool.submit(self._read_ahead, uri, name, None)
-            return
-        uris = [self.config.output_base_model]
-        for m in self.config.finetune_merge:
-            if m.use_layer_index(number):
-                uris += [m.model, m.base]
+            if (passthrough, name) not in self._reads:
+                self._reads[(passthrough, name)] = self._pool.submit(self._read_ahead, passthrough, name, None)
         to_device = to_device and pin
-        for uri in dict.fromkeys(uris):
+        for uri in uris:
             key = (uri, name)
             read = self._reads.get(key)
             if read is None:
@@ -394,10 +468,13 @@ class MergeTensorsBase(ABC):
             self._flush(writer, pending)
 
     def _to_host(self, out: torch.Tensor):
-        """(host tensor, copy event): a device result is copied to
-        page-locked memory without blocking; a host one is passed on."""
+        """(host tensor, copy event): a device result is cast to the output
+        dtype on the device (the writer's rounding, done before the copy) and
+        copied to page-locked memory without blocking; a host one is passed
+        on."""
         if out.device.type != "cuda":
             return out, None
+        out = out.to(self.config.output_astype)
         host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
         host.copy_(out, non_blocking=True)
         copied = torch.cuda.Event()
@@ -420,7 +497,8 @@ class MergeTensorsBase(ABC):
         flush_s = time.perf_counter() - t0
         self.stats.span_flush_s += flush_s
         self.stats.tensors_merged += 1
-        self.stats.bytes_written += host.nbytes
+        # the bytes the writer stores, on either device
+        self.stats.bytes_written += host.numel() * self.config.output_astype.itemsize
         spans["wall_s"] += flush_s
         self.tensor_spans[name] = {**spans, "flush_s": flush_s}
         self._evict_layer(name)

@@ -48,7 +48,7 @@ from ..constants import INPUT_LAYER, OUTPUT_LAYER
 from ..io.writer import ShardLayer
 from ..ops import blend
 from ..ops.pairing import correlated_pairs, norm_product_matrix
-from .base import MergeTensorsBase
+from .base import MergeTensorsBase, _f32
 
 logger = logging.getLogger(__name__)
 
@@ -203,16 +203,6 @@ def _fused_single(out_base, ft_base, ft):
     """One finetune: out_base + (ft - ft_base), alpha not applied."""
     delta = ft.to(torch.float32) - ft_base.to(torch.float32)
     return _finalize(out_base.to(torch.float32), delta)
-
-
-def _f32(value, device):
-    """A host float (or list of floats) as f32 on ``device``; on a card the
-    copy is issued from page-locked memory without blocking (a pageable
-    copy would wait for the stream)."""
-    t = torch.tensor(value, dtype=torch.float32)
-    if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t
 
 
 def _fused_pair(
@@ -424,10 +414,8 @@ class FourierMerge(MergeTensorsBase):
 
     def _merge_layer(self, shard_layer: ShardLayer) -> torch.Tensor:
         if shard_layer.layer_number == INPUT_LAYER:
-            self.stats.tensors_passthrough += 1
             return self._passthrough(shard_layer, "input")
         if shard_layer.layer_number == OUTPUT_LAYER:
-            self.stats.tensors_passthrough += 1
             return self._passthrough(shard_layer, "output")
 
         models = [
@@ -680,19 +668,23 @@ class FourierMerge(MergeTensorsBase):
             cache_put(job[3], merged)
 
     def _check_deferred(self, layer_name: str):
-        """Read the layer's NaN counts and Inf flags in one sync; raise
-        before the tensor is written."""
-        entry = self._deferred.pop(layer_name, None)
-        if entry is None:
-            return
-        checks, final_inf = entry
-        flags = [v.to(torch.int64) for pair in checks for v in pair]
-        values = torch.stack(flags + [final_inf.to(torch.int64)]).tolist()
-        scrubbed = sum(values[0:-1:2])
-        if scrubbed:
-            logger.info("Warning: NaN in ifft output: %d", scrubbed)
-            self.stats.nans_scrubbed += scrubbed
-        if any(values[1:-1:2]):
-            raise ValueError("Inf in ifft output")
-        if values[-1]:
-            raise ValueError(f"Inf in merged tensor for {layer_name}")
+        raise_deferred(self.stats, layer_name, self._deferred.pop(layer_name, None))
+
+
+def raise_deferred(stats, layer_name: str, entry) -> None:
+    """Read a layer's deferred (checks, final_inf) device flags in one sync:
+    count the scrubbed NaNs, and raise before the tensor is written on an
+    Inf in a pair merge or in the result."""
+    if entry is None:
+        return
+    checks, final_inf = entry
+    flags = [v.to(torch.int64) for pair in checks for v in pair]
+    values = torch.stack(flags + [final_inf.to(torch.int64)]).tolist()
+    scrubbed = sum(values[0:-1:2])
+    if scrubbed:
+        logger.info("Warning: NaN in ifft output: %d", scrubbed)
+        stats.nans_scrubbed += scrubbed
+    if any(values[1:-1:2]):
+        raise ValueError("Inf in ifft output")
+    if values[-1]:
+        raise ValueError(f"Inf in merged tensor for {layer_name}")

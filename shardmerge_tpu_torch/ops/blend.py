@@ -17,6 +17,7 @@ from __future__ import annotations
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from .select import kth_smallest_nonneg, kth_smallest_nonneg2, kth_smallest_weighted
@@ -29,6 +30,8 @@ __all__ = [
     "interpolate_fft_components",
     "interpolate_half_spectrum",
     "arithmetic_fft_components",
+    "task_arithmetic_fft2",
+    "merge_tensors_fft2_slerp",
     "hermitian_col_weights",
     "cutoff_rank",
     "cull_rank",
@@ -252,3 +255,83 @@ def arithmetic_fft_components(
     else:
         res_imag = v0_fft.imag
     return torch.complex(res_real, res_imag)
+
+
+def task_arithmetic_fft2(v0: torch.Tensor, v1: torch.Tensor, t, *, agreement: bool = True) -> torch.Tensor:
+    """FFT both, :func:`arithmetic_fft_components` (with the imaginary
+    recursion), inverse FFT, real part."""
+    return ifft2_real(arithmetic_fft_components(fft2(v0), fft2(v1), t, agreement=agreement))
+
+
+# --- the full pair merge: spectral bodies and the host wrapper ---------------
+# The reference's public pair-merge API, kept for parity with the JAX
+# module's (its own callers are tests and a benchmark). No engine calls it:
+# the fourier engines merge pairs through merge/fourier.py's ``_pair_*``.
+
+
+def _norms2(v0: torch.Tensor, v1: torch.Tensor):
+    return torch.linalg.vector_norm(v0.reshape(-1)), torch.linalg.vector_norm(v1.reshape(-1))
+
+
+def _scrub_nans(merged: torch.Tensor):
+    """(merged with NaN -> 0, NaN count, Inf flag)."""
+    nan = torch.isnan(merged)
+    merged = merged.masked_fill(nan, 0.0)
+    return merged, nan.sum(), torch.isinf(merged).any()
+
+
+def _slerp_merge_body(v0n, v1n, t, t_sum, cutoff_k, cull_k, cull_count_limit, *, use_cutoff, use_cull):
+    """The masked SLERP-FFT blend of two normalized tensors, inverted:
+    (merged, NaN count, Inf flag)."""
+    result = interpolate_fft_components(
+        fft2(v0n), fft2(v1n), t, t_sum, cutoff_k, cull_k, cull_count_limit,
+        use_cutoff=use_cutoff, use_cull=use_cull,
+    )
+    return _scrub_nans(ifft2_real(result))
+
+
+def _lowrank_add_body(v0n, v1n, t):
+    """The additive path of a low norm ratio: ifft(fft(v0n) + t fft(v1n))."""
+    return _scrub_nans(ifft2_real(fft2(v0n) + t * fft2(v1n)))
+
+
+def merge_tensors_fft2_slerp(
+    v0: torch.Tensor,
+    v1: torch.Tensor,
+    t: float,
+    b: float = 0.1,
+    t_sum: float = 1.0,
+    cutoff_pct: float = 0.0,
+    cull_pct: float = 0.0,
+    norms: Optional[Tuple[float, float]] = None,
+):
+    """The full pair merge: (merged, norm_v0, norm_v1), unscaled (the
+    caller rescales). The norm-dependent branches run on the host: tiny
+    norms return the normalized v0, a norm ratio below ``b`` takes the
+    additive path, anything else the masked SLERP-FFT blend; an Inf in the
+    inverse raises. Pass ``norms`` to skip reading them back."""
+    if norms is None:
+        norm_v0, norm_v1 = (float(n) for n in torch.stack(_norms2(v0, v1)).tolist())
+    else:
+        norm_v0, norm_v1 = float(norms[0]), float(norms[1])
+    # divide by f32 device scalars: a division by a Python float on a card
+    # multiplies by its reciprocal
+    n0, n1 = (torch.tensor(n, dtype=torch.float32, device=v0.device) for n in (norm_v0, norm_v1))
+    v0n = v0 / n0 if norm_v0 != 0 else v0
+    v1n = v1 / n1 if norm_v1 != 0 else v1
+    if norm_v1 < 1e-4 or norm_v0 < 1e-4:
+        return v0n, norm_v0, norm_v1
+    ratio = norm_v1 / (norm_v0 + 1e-10)
+    t32 = float(np.float32(t))
+    if ratio < b:
+        merged, _, has_inf = _lowrank_add_body(v0n, v1n, t32)
+    else:
+        numel = v0.numel()
+        merged, _, has_inf = _slerp_merge_body(
+            v0n, v1n, t32, float(np.float32(t_sum)),
+            cutoff_rank(numel, cutoff_pct), cull_rank(numel, cull_pct), cull_limit(numel, cull_pct),
+            use_cutoff=cutoff_pct > 0, use_cull=cull_pct > 0,
+        )
+    if bool(has_inf):
+        raise ValueError("Inf in ifft output")
+    return merged, norm_v0, norm_v1

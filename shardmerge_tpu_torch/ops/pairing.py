@@ -12,6 +12,9 @@ reads the stack, as one batched torch computation on the stack's device.
   upper triangle; leftovers are yielded as ``(i, -1, diag)``.
 - ``cosine_correlation``: mean cosine similarity along dim 0 (eps 1e-8,
   NaN -> 0, diagonal 0), for the legacy engine.
+- ``dim0_gram``: the pairwise dot products along dim 0 of a stack's
+  members, from elementwise products and sums (no matrix product, so
+  TF32 settings do not reach it), for that correlation and model-stock.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ from typing import Generator, List, Literal, Tuple
 import numpy as np
 import torch
 
-__all__ = ["correlated_pairs", "cosine_correlation", "norm_product_matrix"]
+__all__ = ["correlated_pairs", "cosine_correlation", "dim0_gram", "norm_product_matrix"]
 
 
 def norm_product_matrix(norms: List[float]) -> np.ndarray:
@@ -36,6 +39,20 @@ def norm_product_matrix(norms: List[float]) -> np.ndarray:
     return matrix
 
 
+def dim0_gram(stack: torch.Tensor) -> torch.Tensor:
+    """(n, n, *rest) f32: entry [i, j] is the sum along dim 0 of
+    ``stack[i] * stack[j]`` for an (n, d, *rest) stack. One pair at a time,
+    so one member's product is the only temporary; the result does not
+    depend on ``torch.backends.cuda.matmul.allow_tf32``."""
+    n = stack.shape[0]
+    out = stack.new_empty((n, n) + tuple(stack.shape[2:]))
+    for i in range(n):
+        for j in range(i, n):
+            out[i, j] = (stack[i] * stack[j]).sum(dim=0)
+            out[j, i] = out[i, j]
+    return out
+
+
 def cosine_correlation(stack) -> np.ndarray:
     """n x n matrix of mean cosine similarity along dim 0 between the
     stacked tensors (norms clamped at eps 1e-8, NaN -> 0, diagonal 0),
@@ -46,7 +63,7 @@ def cosine_correlation(stack) -> np.ndarray:
         stack = stack[:, :, None]
     flat = stack.reshape(stack.shape[0], stack.shape[1], -1)  # (n, d0, rest)
     norms = torch.clamp(torch.linalg.vector_norm(flat, dim=1), min=1e-8)  # (n, rest)
-    dots = torch.einsum("idr,jdr->ijr", flat, flat)  # (n, n, rest)
+    dots = dim0_gram(flat)  # (n, n, rest)
     cos = dots / (norms[:, None, :] * norms[None, :, :])
     cos = torch.where(torch.isnan(cos), torch.zeros_like(cos), cos)
     matrix = cos.mean(dim=-1).cpu().numpy().copy()

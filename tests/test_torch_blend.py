@@ -201,3 +201,41 @@ def test_exact_path_reproduces_nan_cascade_quirk():
     assert not tfourier._use_fast_imag(False, torch.zeros(512, 512))
     assert tfourier._use_fast_imag(False, torch.zeros(1024, 1024))
     assert not tfourier._use_fast_imag(True, torch.zeros(1024, 1024))  # exact_imag
+
+
+@pytest.mark.parametrize("shape", [(64, 48), (33,)], ids=str)
+@pytest.mark.parametrize("agreement", [True, False])
+def test_task_arithmetic_fft2_matches_jax_and_the_oracle(shape, agreement):
+    """FFT, sign-agreement arithmetic with the imaginary recursion, inverse:
+    within relL2 1e-6 of JAX (another FFT library) and of the torch oracle."""
+    rng = np.random.default_rng(61)
+    v0 = rng.standard_normal(shape).astype(np.float32)
+    v1 = rng.standard_normal(shape).astype(np.float32)
+    got = tblend.task_arithmetic_fft2(torch.from_numpy(v0), torch.from_numpy(v1), 1.0, agreement=agreement).numpy()
+    want = np.asarray(jblend.task_arithmetic_fft2(jnp.asarray(v0), jnp.asarray(v1), jnp.float32(1.0),
+                                                  agreement=agreement))
+    ref = oracle.task_arithmetic_fft2(torch.from_numpy(v0), torch.from_numpy(v1), 1.0, agreement).numpy()
+    assert _rel_l2(got, want) <= 1e-6
+    assert _rel_l2(got, ref) <= 1e-6
+
+
+@pytest.mark.parametrize("shape", [(64, 48), (128, 128), (33,)], ids=str)
+@pytest.mark.parametrize("regime,scale", [("slerp", 1.0), ("lowratio", 0.05), ("early", 1e-6)])
+def test_merge_tensors_fft2_slerp_matches_jax_and_the_oracle(shape, regime, scale):
+    """The full pair merge in each of its host branches (masked SLERP-FFT at
+    cutoff 8% and cull 20%, the additive low-ratio path, the normalized
+    early return): norms within 1e-6 of JAX's, the merged tensor within
+    relL2 1e-6 of JAX's and of the torch oracle's."""
+    rng = np.random.default_rng(62)
+    v0 = rng.standard_normal(shape).astype(np.float32)
+    v1 = (scale * rng.standard_normal(shape)).astype(np.float32)
+    kw = dict(cutoff_pct=0.08, cull_pct=0.2)
+    got, n0, n1 = tblend.merge_tensors_fft2_slerp(torch.from_numpy(v0), torch.from_numpy(v1), 0.6, **kw)
+    want, m0, m1 = jblend.merge_tensors_fft2_slerp(jnp.asarray(v0), jnp.asarray(v1), 0.6, **kw)
+    ref, _, _ = oracle.merge_tensors_fft2_slerp(torch.from_numpy(v0), torch.from_numpy(v1), 0.6, **kw)
+    assert n0 == pytest.approx(m0, rel=1e-6) and n1 == pytest.approx(m1, rel=1e-6)
+    assert _rel_l2(got.numpy(), np.asarray(want)) <= 1e-6
+    assert _rel_l2(got.numpy(), ref.numpy()) <= 1e-6
+    # known norms skip the read-back and give the same result
+    again, _, _ = tblend.merge_tensors_fft2_slerp(torch.from_numpy(v0), torch.from_numpy(v1), 0.6, norms=(n0, n1), **kw)
+    assert torch.equal(again, got)

@@ -194,23 +194,22 @@ def test_cli_merge_matches_jax_cli_and_resumes(tmp_path, capsys):
 
 
 def test_cli_rejects_unported_configs(tmp_path, capsys):
-    """The mesh-sharded merge and the other methods are refused by name,
-    before anything is written; a model listed twice in a stack of 3 or
-    more is refused with a clear error (the JAX engine loses a stack entry
-    there and raises KeyError on some tensors)."""
+    """The mesh-sharded merge is refused by name and an unknown method with
+    the JAX CLI's message, before anything is written; a model listed twice
+    in a stack of 3 or more is refused with a clear error (the JAX engine
+    loses a stack entry there and raises KeyError on some tensors)."""
     base = tmp_path / "base"
     make_tiny_model(base, seed=1)
     cfg = json.loads(_write_config(tmp_path, base, base, base, tmp_path / "o").read_text())
-    for field, value, name in [
-        ("merge_method", "ties", "'ties'"),
-        ("shard_tensors", True, "shard_tensors"),
-        ("distributed", True, "distributed"),
+    for field, value, message in [
+        ("merge_method", "nope", "Unknown merge_method 'nope'; choose from ["),
+        ("shard_tensors", True, "not ported yet: ['shard_tensors']"),
+        ("distributed", True, "not ported yet: ['distributed']"),
     ]:
         f = tmp_path / f"{field}.json"
         f.write_text(json.dumps({**cfg, field: value}))
         assert torch_cli(["merge", str(f), "--device", "cpu"]) == 2
-        err = capsys.readouterr().err
-        assert "not ported yet" in err and name in err
+        assert message in capsys.readouterr().err
     assert not (tmp_path / "o").exists()
     three = dict(cfg, finetune_merge=cfg["finetune_merge"] * 2)
     f = tmp_path / "three.json"

@@ -78,16 +78,35 @@ Phases (each prints one line or a few; any failure exits non-zero):
    q_proj giving the cut's bits there; fourier-legacy per pair: each
    traced result the engine's own pair merge bit for bit, its weight the
    alphas by stack position, round 1 at 97% within 2e-2, later rounds on
-   identical spectra with the traced weight). addition and ties
-   also merge the whole model (the 128256 x 4096 input/output layers).
+   identical spectra with the traced weight). addition also merges the
+   whole model (the 128256 x 4096 input/output layers).
    Then the masks alone at (14336, 4096): DARE's Bernoulli draw, DELLA's
    keep probabilities and drop-and-rescale, device ms;
-10. generate: load the merge with int4 weights, ``generate_batch`` on 4
+10. inputs: every checkpoint input through the port's CLI on the card. A
+   localhost "Hub" (a standard-library HTTP server) serves [stack]'s ft3;
+   ``extract-lora`` makes a rank-16 adapter of ft1 on the attention
+   projections (the card's B@A on layer 0's k_proj held to the host's
+   within relL2 1e-5) and ``quantize --bits 4`` a GPTQ-v2 artifact of ft2.
+   ``merge --dry-run`` of base + adapter + GPTQ + Hub creates nothing; the
+   merge with ``--cache-dir``, ``--clean_cache`` and ``--output-quant
+   int4`` must mirror the base index in finite bf16, download each shard
+   once (the server's counts) and leave the storage empty, and give the
+   bits of the merge of the materialized inputs (``fuse-lora --device
+   cpu``, the GPTQ decoded to f32, ft3 local; the port's ``compare``). The
+   card's ``fuse-lora`` against the host's, in differing bf16 elements.
+   ``generate -4 --greedy`` (the engine the command builds) from the -int4
+   artifact and from the adapter directory launches both decode kernels,
+   one decode step's logits within 2e-2 of the plain route, and the
+   adapter's greedy tokens equal its fuse-lora'd directory's. Times: the
+   loopback download rate, host ms a tensor of the adapter fuse and the
+   GPTQ decode, each (14336, 4096) tensor's wall beside [stack]'s
+   3-finetune merge, and io/native.py's copy and cast against torch's;
+11. generate: load the merge with int4 weights, ``generate_batch`` on 4
    prompts and one ``stream_generation``; both kernels' launch counts must
    show the decode went through them, and one decode step's logits must
    agree with the same step on the plain int4 product; an A/B of the decode
    step against the einsum attention path;
-11. serve: the HTTP server on that engine with a continuous pool of 8 slots
+12. serve: the HTTP server on that engine with a continuous pool of 8 slots
    and a 4096-slot cache; staggered greedy requests (prompts of 30-3000
    tokens, one with a stop string), one SSE stream and one 4-prompt
    lockstep request; every pool completion must equal the solo stream, both
@@ -100,7 +119,7 @@ Phases (each prints one line or a few; any failure exits non-zero):
    (flash launches = layers x compactions); an A/B of that pool step
    against the einsum path, and, over profiled pool steps, the device's
    busy share, its launches per step and the flash kernels' share;
-12. the kernel summary line (all five kernels), the card line, and the result line.
+13. the kernel summary line (all five kernels), the card line, and the result line.
 
 It imports nothing of JAX. With no CUDA device it exits 1 and prints no
 result.
@@ -110,6 +129,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import random
 import shutil
 import subprocess
@@ -209,13 +229,13 @@ STACK_CHECKED = ("model.layers.0.self_attn.q_proj.weight", "model.layers.0.mlp.d
 STACK_SUBSET = STACK_CHECKED + ("model.layers.0.mlp.gate_proj.weight",)
 # [engines]: the ten other merge methods, each through the CLI on the
 # [stack] subset with its four finetunes (slerp: ft1 and ft3), dare, della
-# and breadcrumbs with both combine values; addition and ties also over the
-# whole model (the 128256 x 4096 input/output layers)
+# and breadcrumbs with both combine values; addition also over the whole
+# model (the 128256 x 4096 input/output layers)
 ENGINE_RUNS = (("addition", {}), ("task-addition", {}), ("linear", {}), ("ties", {}),
                ("breadcrumbs", {}), ("breadcrumbs", {"combine": "ties"}), ("dare", {}),
                ("dare", {"combine": "ties"}), ("della", {}), ("della", {"combine": "sum"}),
                ("slerp", {}), ("model-stock", {}), ("fourier-legacy", {}))
-ENGINE_WHOLE = ("addition", "ties")
+ENGINE_WHOLE = ("addition",)
 # dare and della are held to the host on the first rows of q_proj: the
 # host's threefry is slow, and a mask depends only on the flat index, so the
 # cut's rows are the whole tensor's first rows
@@ -1177,6 +1197,9 @@ def phase_stack(torch, root: Path, dirs, card: str):
         weight_map = check_output(torch, out, dirs["base"], f"[stack] {label}")
         say(f"[stack] {label}: index mirrors the base; all finite bf16; {pairs} pair merges = "
             f"{n - 1} a merged tensor")
+        if n == 3:
+            stack3 = {k: v for k, v in stats["tensor_spans"].items()
+                      if k.endswith(("gate_proj.weight", "up_proj.weight"))}
         if n == 4:
             hold_to_host(torch, dirs, names, STACK_ALPHAS, weight_map, out, card)
             cli_subset = {k: load_file(out / weight_map[k])[k] for k in STACK_SUBSET}
@@ -1212,7 +1235,7 @@ def phase_stack(torch, root: Path, dirs, card: str):
         if not same and tag != "batch_rounds":
             raise SystemExit(f"[stack] variant {tag} disagrees with the default run")
     shutil.rmtree(root / "subset")
-    return dirs
+    return dirs, stack3
 
 
 def engine_tag(method: str, options: dict) -> str:
@@ -1434,7 +1457,7 @@ def hold_engine(torch, method: str, options: dict, srcs: dict, dev: str, card: s
 
 def phase_engines(torch, root: Path, dirs: dict, card: str, dev: str = "cuda:0"):
     """The ten other merge methods through the CLI on the [stack] subset
-    (and addition and ties over the whole model): index mirrored, finite
+    (and addition over the whole model): index mirrored, finite
     bf16, the CLI's bits equal to the same merge in process; each method's
     wall per tensor in process; then each held to the host on q_proj
     (``hold_engine``) while the CLI runs, four at a time."""
@@ -1505,7 +1528,7 @@ def phase_engines(torch, root: Path, dirs: dict, card: str, dev: str = "cuda:0")
             got = load_file(out / weight_map[n])[n]
             if not torch.equal(got.view(torch.int16), inproc[tag][n].view(torch.int16)):
                 raise SystemExit(f"[engines] whole {method}: {n} differs from the subset merge")
-        passthrough = 0 if method == "addition" else 3
+        passthrough = 0  # addition merges the input/output layers too
         if stats["tensors_passthrough"] != passthrough:
             raise SystemExit(f"[engines] whole {method}: {stats['tensors_passthrough']} passthroughs, "
                              f"expected {passthrough}")
@@ -1517,6 +1540,290 @@ def phase_engines(torch, root: Path, dirs: dict, card: str, dev: str = "cuda:0")
                 if n.startswith(("model.embed_tokens", "lm_head")) or ".gate_proj" in n or ".up_proj" in n))
         shutil.rmtree(out)
     shutil.rmtree(eroot)
+
+
+class LocalHub:
+    """A standard-library HTTP server on 127.0.0.1 in the Hub's URL layout
+    (``/{repo}/resolve/main/{file}`` and ``/{repo}/raw/main/{file}``),
+    streaming files from disk and counting requests per path."""
+
+    def __init__(self):
+        self.files = {}
+        self.hits = {}
+        self._lock = threading.Lock()
+
+    def serve_dir(self, repo: str, directory: Path):
+        for f in directory.iterdir():
+            if f.is_file():
+                for kind in ("resolve", "raw"):
+                    self.files[f"/{repo}/{kind}/main/{f.name}"] = f
+
+    def __enter__(self):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+        from urllib.parse import urlparse
+
+        hub = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *args):
+                pass
+
+            def do_GET(self):
+                path = urlparse(self.path).path
+                with hub._lock:
+                    hub.hits[path] = hub.hits.get(path, 0) + 1
+                f = hub.files.get(path)
+                if f is None:
+                    self.send_error(404)
+                    return
+                self.send_response(200)
+                self.send_header("Content-Length", str(f.stat().st_size))
+                self.end_headers()
+                try:
+                    with open(f, "rb") as src:
+                        self.connection.sendfile(src)
+                except (BrokenPipeError, ConnectionResetError):
+                    pass  # a header read drops the connection early
+
+        self.server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.server.daemon_threads = True
+        self.base = f"http://127.0.0.1:{self.server.server_address[1]}"
+        threading.Thread(target=self.server.serve_forever, kwargs={"poll_interval": 0.05}, daemon=True).start()
+        return self
+
+    def __exit__(self, *exc):
+        self.server.shutdown()
+        self.server.server_close()
+
+
+def port_cli(args, env=None):
+    """``python -m shardmerge_tpu_torch ARGS``: (standard output, wall s)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "shardmerge_tpu_torch", *map(str, args)], cwd=REPO,
+                          capture_output=True, text=True, env=env)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        say(proc.stderr[-4000:])
+        raise SystemExit(f"{args[0]} exited {proc.returncode}")
+    return proc.stdout, wall
+
+
+def lora_product(torch, adapter: Path, module: str):
+    """B@A of one module of an adapter directory, in f64."""
+    from shardmerge_tpu_torch.io.safetensors_io import SafeTensorsReader
+
+    with SafeTensorsReader(adapter / "adapter_model.safetensors") as r:
+        a = r.get_tensor(f"base_model.model.{module}.lora_A.weight").double()
+        b = r.get_tensor(f"base_model.model.{module}.lora_B.weight").double()
+    return b @ a
+
+
+def write_decoded(src: Path, dst: Path):
+    """A GPTQ artifact's tensors as the index decodes them (f32 projections,
+    the rest raw), written as a plain local checkpoint in one file."""
+    from shardmerge_tpu_torch.io.index import OfflineMultiModelIndex
+    from shardmerge_tpu_torch.io.safetensors_io import save_file
+
+    index = OfflineMultiModelIndex()
+    index.add_model(src)
+    tensors = {k: index.preload_tensor(src, k) for k in index.get_layer_order(src)}
+    index.close()
+    dst.mkdir()
+    save_file(tensors, dst / "model.safetensors")
+    shutil.copy(src / "config.json", dst / "config.json")
+
+
+def host_rates(torch):
+    """GB/s of the port's owned read copy and f32 -> bf16 narrowing through
+    io/native.py against torch's ``copy_`` and ``.to``, at (14336, 4096)
+    f32 on the card machine's host: the four interleaved, 11 rounds,
+    medians."""
+    from shardmerge_tpu_torch.io import native
+
+    src = torch.randn(14336, 4096)
+    dst = torch.empty_like(src)
+    narrow = torch.empty(src.shape, dtype=torch.bfloat16)
+    runs = {
+        "copy torch": lambda: dst.copy_(src),
+        "copy native": lambda: native.parallel_copy(src, out=dst),
+        "bf16 torch": lambda: narrow.copy_(src),
+        "bf16 native": lambda: native.f32_to_bf16(src, out=narrow),
+    }
+    times = {k: [] for k in runs}
+    for _ in range(11):
+        for k, fn in runs.items():
+            t0 = time.perf_counter()
+            fn()
+            times[k].append(time.perf_counter() - t0)
+    moved = {"copy": src.numel() * 8, "bf16": src.numel() * 6}  # bytes read + written
+    same = torch.equal(native.f32_to_bf16(src).view(torch.int16), src.to(torch.bfloat16).view(torch.int16))
+    if not same:
+        raise SystemExit("[inputs] the native f32 -> bf16 cast disagrees with torch's")
+    return {k: moved[k.split()[0]] / sorted(v)[5] / 1e9 for k, v in times.items()}
+
+
+def phase_inputs(torch, root: Path, dirs: dict, ft2: Path, stack3_spans: dict, card: str):
+    """Every checkpoint input through the port's CLI on the card: ft1 as a
+    rank-16 adapter (extract-lora), ft2 as a GPTQ int4 artifact (quantize),
+    ft3 from a localhost Hub; their 3-finetune merge held bit for bit to the
+    merge of the materialized inputs, and generate on the -int4 artifact and
+    on the adapter directory through both decode kernels."""
+    from shardmerge_tpu_torch.inference import InferenceEngine
+    from shardmerge_tpu_torch.io.safetensors_io import load_file
+    from shardmerge_tpu_torch.models import attn_kernels as ak
+    from shardmerge_tpu_torch.models import quant_kernels as qk
+    from shardmerge_tpu_torch.tools.extract_lora import factor
+
+    base, ft1, ft3 = dirs["base"], dirs["ft1"], dirs["ft3"]
+    adapter, gptq = root / "adapter", root / "ft2-gptq"
+    t_phase = time.perf_counter()
+    fused = root / "fused_host"
+
+    def adapter_then_fused():
+        made = port_cli(["extract-lora", base, ft1, adapter, "--rank", 16,
+                         *[x for t in ("q_proj", "k_proj", "v_proj", "o_proj") for x in ("--target", t)]])
+        # the materialized adapter for the local merge below
+        return made, port_cli(["fuse-lora", base, adapter, fused, "--device", "cpu"])[1]
+
+    # the adapter (SVDs on the card, then its host fuse) beside the GPTQ
+    # artifact (the host)
+    with ThreadPoolExecutor(2) as ex:
+        extracted = ex.submit(adapter_then_fused)
+        quantized = ex.submit(port_cli, ["quantize", ft2, gptq, "--bits", 4])
+        ((out_s, wall), fuse_wall), (q_out, q_wall) = extracted.result(), quantized.result()
+    say(f"[inputs] extract-lora on the card in {wall:.1f} s (process, beside quantize): {out_s.strip()}; "
+        f"then fuse-lora --device cpu in {fuse_wall:.1f} s")
+    module = "model.layers.0.self_attn.k_proj"
+    name = module + ".weight"
+    shard = json.loads((base / "model.safetensors.index.json").read_text())["weight_map"][name]
+    delta = load_file(ft1 / shard)[name].float() - load_file(base / shard)[name].float()
+    t0 = time.perf_counter()
+    b, a, _ = factor(delta, 16)
+    host_s = time.perf_counter() - t0
+    rel = rel_l2(lora_product(torch, adapter, module), b.double() @ a.double())
+    say(f"[inputs] {name} (1024, 4096) rank-16 B@A, card vs host (f64 SVD, {host_s:.1f} s on the host): "
+        f"relL2 {rel:.2e} (tol 1e-5)")
+    if rel > 1e-5:
+        raise SystemExit("[inputs] the card's extract-lora disagrees with the host's")
+    report = json.loads(q_out.strip().splitlines()[-1])
+    say(f"[inputs] quantize --bits 4 of ft2 in {q_wall:.1f} s (process, beside extract-lora): "
+        f"{report['tensors_quantized']} tensors, "
+        f"{report['compression']}x smaller, worst round trip relL2 {report['worst_roundtrip_relL2_vs_serving_quant']:.2e}")
+
+    alphas = [0.8, 0.6, 0.5]
+    storage = root / "hub_storage"
+    with LocalHub() as hub:
+        hub.serve_dir("org/ft3", ft3)
+        env = {**os.environ, "HF_ENDPOINT": hub.base}
+        cfg_file = root / "inputs.json"
+        out = root / "inputs_out"
+        cfg_file.write_text(json.dumps({
+            "output_base_model": str(base), "output_dir": str(out), "storage_dir": str(storage),
+            "cache_dir": str(root / "hub_cache"),
+            "finetune_merge": [{"model": str(m), "base": str(base), "alpha": al}
+                               for m, al in zip([adapter, gptq, "org/ft3"], alphas)],
+        }))
+        plan, _ = port_cli(["merge", cfg_file, "--dry-run"], env=env)
+        if out.exists() or "plan OK" not in plan:
+            raise SystemExit("[inputs] the dry run created the output or printed no plan")
+        say(f"[inputs] --dry-run: {plan.strip().splitlines()[0]}; nothing created")
+        # the model's config beside the merged weights (copy-model's job for
+        # a Hub base), so that the -int4 artifact carries it too
+        out.mkdir()
+        shutil.copy(base / "config.json", out / "config.json")
+        out_s, wall = port_cli(["merge", cfg_file, "--cache-dir", root / "hub_cache2", "--clean_cache",
+                                "--output-quant", "int4"], env=env)
+        stats = json.loads(out_s.strip().splitlines()[-1])
+        hits = dict(hub.hits)
+    shards = [p for p in hits if "/resolve/" in p]
+    if not shards or any(hits[p] != 1 for p in shards):
+        raise SystemExit(f"[inputs] a shard was not downloaded exactly once: {hits}")
+    left = list(storage.rglob("*.safetensors"))
+    if left:
+        raise SystemExit(f"[inputs] clean_cache left {left}")
+    check_output(torch, out, base, "[inputs]")
+    dl = stats["downloads"]
+    fuse, dec = stats["host_work"]["fuse"], stats["host_work"]["decode"]
+    say(f"[inputs] merge of adapter + GPTQ + Hub ({card}): wall {wall:.1f} s (process, incl. --output-quant); "
+        f"regimes {stats['pair_merges']}; index mirrors the base; all finite bf16; each of {len(shards)} shards "
+        f"downloaded once; storage empty after --clean_cache")
+    say(f"[inputs] download over loopback: {dl['bytes'] / 1e9:.2f} GB in {dl['wall_s']:.2f} s = "
+        f"{dl['bytes'] / 1e9 / max(dl['wall_s'], 1e-9):.2f} GB/s; host adapter fuse {fuse['seconds'] / fuse['tensors'] * 1e3:.1f} "
+        f"ms/tensor ({fuse['tensors']} tensors), GPTQ decode {dec['seconds'] / dec['tensors'] * 1e3:.1f} ms/tensor "
+        f"({dec['tensors']} tensors), both on the read-ahead workers")
+    for key in sorted(stack3_spans):
+        ours = stats["tensor_spans"][key]
+        say(f"[inputs]   {key} (14336, 4096): wall {ours['wall_s'] * 1e3:.1f} ms (read wait "
+            f"{ours['read_s'] * 1e3:.1f}, h2d {ours['h2d_s'] * 1e3:.1f}) vs [stack] 3-ft "
+            f"{stack3_spans[key]['wall_s'] * 1e3:.1f} ms (read wait {stack3_spans[key]['read_s'] * 1e3:.1f})")
+
+    # the materialized inputs through the local path (the merge and compare
+    # commands' own functions, in process): bit for bit
+    from shardmerge_tpu_torch.cli import run_merge
+    from shardmerge_tpu_torch.config import MergeConfig
+    from shardmerge_tpu_torch.tools.fuse_lora import fuse_pair, load_adapter
+    from shardmerge_tpu_torch.tools.inspect_model import compare_models
+
+    t0 = time.perf_counter()
+    write_decoded(gptq, root / "decoded")
+    local_cfg = root / "local.json"
+    local_cfg.write_text(json.dumps({
+        "output_base_model": str(base), "output_dir": str(root / "local_out"),
+        "finetune_merge": [{"model": str(m), "base": str(base), "alpha": al}
+                           for m, al in zip([fused, root / "decoded", ft3], alphas)],
+    }))
+    run_merge(MergeConfig.from_file(local_cfg), "cuda:0")
+    stats_c, only_a, only_b = compare_models(out, root / "local_out", top=3)
+    identical = sum(1 for st in stats_c if st.get("identical"))
+    n_tensors = len(json.loads((base / "model.safetensors.index.json").read_text())["weight_map"])
+    if identical != n_tensors or only_a or only_b:
+        raise SystemExit(f"[inputs] the new inputs changed the merge: {identical} of {n_tensors} bit-identical")
+    say(f"[inputs] materialized inputs (the fuse-lora --device cpu above, GPTQ decoded to f32, ft3 local) merged in "
+        f"{time.perf_counter() - t0:.1f} s: compare reports {identical} of {n_tensors} tensors bit-identical")
+    # fuse-lora's fuse on the card against the host's file, tensor by tensor
+    pairs, scale = load_adapter(adapter)
+    weight_map = json.loads((base / "model.safetensors.index.json").read_text())["weight_map"]
+    differ, ulps, total = 0, 0, 0
+    for key, pair in pairs.items():
+        card_t = fuse_pair(load_file(base / weight_map[key])[key].cuda(), pair["A"], pair["B"], scale).cpu()
+        gap = (load_file(fused / weight_map[key])[key].view(torch.int16).int() - card_t.view(torch.int16).int()).abs()
+        differ += int((gap > 0).sum())
+        ulps = max(ulps, int(gap.max()))
+        total += gap.numel()
+    say(f"[inputs] fuse-lora card vs host ({card}): {differ} of {total} fused bf16 elements differ "
+        f"({differ / total * 100:.4f}%), largest gap {ulps} ulp")
+    shutil.rmtree(root / "decoded")
+    shutil.rmtree(root / "local_out")
+
+    # generate on the card from the -int4 artifact and from the adapter directory
+    art = Path(f"{out}-int4")
+    prompt = "The merged model answers a question."
+    texts = {}
+    for tag, path in (("-int4 artifact", art), ("adapter", adapter), ("fused adapter", fused)):
+        reset_counts(qk, ak)
+        engine = InferenceEngine.from_pretrained(path, load_in_4bit=True, tokenizer=IdTokenizer(), device="cuda:0")
+        texts[tag] = "".join(engine.stream_generation(prompt, max_new_tokens=12, greedy=True))
+        torch.cuda.synchronize()
+        gemv, flash = qk.launch_counts["int4_gemv"], ak.launch_counts["flash_decode"]
+        say(f"[inputs] generate -4 --greedy from the {tag}: {len(texts[tag].split('><'))} tokens; launches "
+            f"int4_gemv {gemv}, flash_decode {flash}")
+        if gemv == 0 or flash == 0:
+            raise SystemExit(f"[inputs] generate from the {tag} did not run both decode kernels")
+        if tag != "fused adapter":
+            decode_step_check(torch, qk, engine, prompt, f"[inputs] {tag}:")
+        del engine
+        torch.cuda.empty_cache()
+    if texts["adapter"] != texts["fused adapter"]:
+        raise SystemExit("[inputs] the adapter directory's greedy tokens differ from its fuse-lora'd directory's")
+    say("[inputs] the adapter directory's greedy tokens equal its fuse-lora'd directory's")
+    rates = host_rates(torch)
+    say(f"[inputs] host (14336, 4096) f32 ({card}, {torch.get_num_threads()} torch threads, interleaved, "
+        f"medians of 11): owned copy torch {rates['copy torch']:.2f} GB/s, "
+        f"native {rates['copy native']:.2f} GB/s; f32 -> bf16 torch {rates['bf16 torch']:.2f} GB/s, native "
+        f"{rates['bf16 native']:.2f} GB/s (bit-equal)")
+    for d in (adapter, gptq, out, art, fused):
+        shutil.rmtree(d)
+    say(f"[inputs] phase wall {time.perf_counter() - t_phase:.1f} s")
 
 
 class StubTokenizer:
@@ -1534,6 +1841,40 @@ class StubTokenizer:
 def reset_counts(*modules):
     for m in modules:
         m.reset_launch_counts()
+
+
+def decode_step_check(torch, qk, engine, prompt: str, tag: str) -> float:
+    """One decode step of ``engine`` (int4 projections) after ``prompt``'s
+    prefill, through the kernels and again on the plain int4 product: every
+    projection must launch the GEMV, and the logits agree within 2e-2."""
+    from shardmerge_tpu_torch.models import llama
+
+    model, cfg = engine.model, engine.cfg
+    ids = torch.tensor([StubTokenizer().encode(prompt)], device="cuda:0")
+    T = ids.shape[1]
+    rope = llama.rope_tables(cfg, 256, "cuda:0")
+    kv = llama.init_kv_cache(cfg, 1, 256, model.dtype, "cuda:0")
+    pos = torch.arange(T, device="cuda:0")[None]
+    with torch.inference_mode():
+        logits, kv = model(ids, pos, kv, 0, rope, T)
+        tok = logits[:, -1].argmax(-1)[:, None]
+        step_pos = torch.full((1, 1), T, device="cuda:0")
+        kv_plain = {k: v.clone() for k, v in kv.items()}
+        before = qk.launch_counts["int4_gemv"]
+        with_kernel, _ = model(tok, step_pos, kv, T, rope, T + 1)
+        if qk.launch_counts["int4_gemv"] - before != LAYERS * 7:
+            raise SystemExit(f"{tag} decode step did not run the kernel for every projection")
+
+        def plain(x, wq):
+            return qk.int4_matmul_plain(x, wq["q"], wq["scale"])
+
+        with mock.patch.object(llama, "dequant_matmul", plain):
+            with_plain, _ = model(tok, step_pos, kv_plain, T, rope, T + 1)
+    rel = rel_l2(with_kernel.float(), with_plain.float())
+    say(f"{tag} decode-step logits, kernel vs plain int4 product: relL2 {rel:.2e} (tol 2e-2)")
+    if rel > 2e-2 or not bool(torch.isfinite(with_kernel).all()):
+        raise SystemExit(f"{tag} decode logits disagree")
+    return rel
 
 
 def phase_generate(torch, merged: Path):
@@ -1602,32 +1943,7 @@ def phase_generate(torch, merged: Path):
     if not all(len(t) == new for t in texts) or len(streamed) != new:
         raise SystemExit(f"unexpected outputs: {texts!r} / {streamed!r}")
 
-    # one decode step, kernel vs the plain int4 product
-    model, cfg = engine.model, engine.cfg
-    ids = torch.tensor([StubTokenizer().encode(prompts[0])], device="cuda:0")
-    T = ids.shape[1]
-    rope = llama.rope_tables(cfg, 256, "cuda:0")
-    kv = llama.init_kv_cache(cfg, 1, 256, model.dtype, "cuda:0")
-    pos = torch.arange(T, device="cuda:0")[None]
-    with torch.inference_mode():
-        logits, kv = model(ids, pos, kv, 0, rope, T)
-        tok = logits[:, -1].argmax(-1)[:, None]
-        step_pos = torch.full((1, 1), T, device="cuda:0")
-        kv_plain = {k: v.clone() for k, v in kv.items()}
-        before = qk.launch_counts["int4_gemv"]
-        with_kernel, _ = model(tok, step_pos, kv, T, rope, T + 1)
-        if qk.launch_counts["int4_gemv"] - before != LAYERS * 7:
-            raise SystemExit("decode step did not run the kernel for every projection")
-
-        def plain(x, wq):
-            return qk.int4_matmul_plain(x, wq["q"], wq["scale"])
-
-        with mock.patch.object(llama, "dequant_matmul", plain):
-            with_plain, _ = model(tok, step_pos, kv_plain, T, rope, T + 1)
-    rel = rel_l2(with_kernel.float(), with_plain.float())
-    say(f"[generate] decode-step logits, kernel vs plain int4 product: relL2 {rel:.2e} (tol 2e-2)")
-    if rel > 2e-2 or not bool(torch.isfinite(with_kernel).all()):
-        raise SystemExit("decode logits disagree")
+    decode_step_check(torch, qk, engine, prompts[0], "[generate]")
     return engine, launches
 
 
@@ -1940,11 +2256,21 @@ def main() -> int:
     say(f"[card] {card}")
     say(f"[card] torch {torch.__version__} cuda {torch.version.cuda}: {torch.cuda.get_device_name(0)}")
 
+    clock = [time.perf_counter()]
+
+    def lap(label: str):
+        now = time.perf_counter()
+        say(f"[time] {label} {now - clock[0]:.1f} s")
+        clock[0] = now
+
     phase_build([qk, ak, pf, fv])
+    lap("build")
     int4 = phase_kernel(torch, qk)
     flash = phase_flash(torch, ak)
     phase_geometries(torch, ak)
+    lap("kernel, flash, geometry")
     fft, fft_launches = phase_fft(torch, pf, fv)
+    lap("fft")
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
         t0 = time.perf_counter()
@@ -1953,11 +2279,18 @@ def main() -> int:
             f"{LAYERS} layers, bf16, written in {time.perf_counter() - t0:.1f} s")
         merged, _ = phase_merge(torch, root, dirs)
         pipeline_profile(torch, "merge 2-ft", root / "merged.json", card)
-        stack_dirs = phase_stack(torch, root, dirs, card)
+        lap("checkpoints, merge")
+        stack_dirs, stack3_spans = phase_stack(torch, root, dirs, card)
+        lap("stack")
         phase_engines(torch, root, stack_dirs, card)
         mask_times(torch, card)
+        lap("engines")
+        phase_inputs(torch, root, stack_dirs, dirs[2], stack3_spans, card)
+        lap("inputs")
         engine, _ = phase_generate(torch, merged)
+        lap("generate")
         launches = phase_serve(torch, engine)
+        lap("serve")
     finally:
         shutil.rmtree(root, ignore_errors=True)
 

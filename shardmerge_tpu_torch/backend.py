@@ -31,3 +31,9 @@ def resolve_device(requested: Optional[str] = None) -> torch.device:
     if req.startswith("cuda:"):
         return torch.device(req)
     return torch.device("cuda:0")
+
+
+def get_device() -> str:
+    """The best device kind torch sees: ``"gpu"`` or ``"cpu"`` (the JAX
+    package's ``utils.get_device``)."""
+    return "gpu" if torch.cuda.is_available() else "cpu"

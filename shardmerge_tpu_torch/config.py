@@ -85,8 +85,20 @@ class MergeConfig:
     exact_imag: bool = False  # literal double-FFT imaginary recursion
 
     @property
+    def input_model(self) -> Optional[MergeModel]:
+        return next((m for m in self.finetune_merge if m.is_input), None)
+
+    @property
     def output_path(self) -> Path:
         return Path(self.output_dir)
+
+    @property
+    def cache_path(self) -> Path:
+        return Path(self.cache_dir)
+
+    @property
+    def storage_path(self) -> Path:
+        return Path(self.storage_dir)
 
     @property
     def output_astype(self) -> torch.dtype:

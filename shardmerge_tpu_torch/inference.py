@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from .models.llama import LlamaModel, ModelConfig, init_kv_cache, rope_tables
-from .models.loader import load_params
+from .models.loader import load_params, resolve_checkpoint_dir
 from .models.sampling import sample_token
 
 __all__ = ["ChatMessage", "InferenceEngine", "JsonTokenizer"]
@@ -127,10 +127,15 @@ class InferenceEngine:
         if load_in_4bit and load_in_8bit:
             raise ValueError("Cannot load model in both 4-bit and 8-bit precision")
         quant_bits = 4 if load_in_4bit else 8 if load_in_8bit else None
-        cfg = ModelConfig.from_pretrained(model_path)
-        params = load_params(model_path, cfg, quant_bits=quant_bits, device=device)
+        # an adapter directory loads its base with the pairs fused in; its
+        # own tokenizer files win over the base's
+        weights_dir, adapter = resolve_checkpoint_dir(model_path)
+        cfg = ModelConfig.from_pretrained(weights_dir)
+        params = load_params(weights_dir, cfg, quant_bits=quant_bits, device=device,
+                             resolved=(weights_dir, adapter))
         if tokenizer is None:
-            tokenizer = JsonTokenizer(model_path)
+            own = Path(model_path) / "tokenizer.json"
+            tokenizer = JsonTokenizer(Path(model_path) if own.is_file() else weights_dir)
         return cls(cfg, LlamaModel(cfg, params), tokenizer)
 
     # -- helpers -------------------------------------------------------------

@@ -10,7 +10,8 @@ resumable.
 ``write_through=True`` rewrites a tensor's shard as soon as the tensor
 arrives, merged with what is already on disk (a cut merge then loses at most
 the tensors in flight, at the cost of rewriting the shard per tensor).
-``background_flush=True`` writes shards on one worker thread, so file IO
+``read_only=True`` (a dry run's plan) creates nothing: no directory, no
+index. ``background_flush=True`` writes shards on one worker thread, so file IO
 overlaps the merge; ``drain``/``finalize`` wait for it. A save that fails
 drops the file and unmarks its staged tensors, and ``finalize`` reports them
 missing.
@@ -66,12 +67,14 @@ class ModelWriter:
     output_astype: torch.dtype = torch.bfloat16
     write_through: bool = False
     background_flush: bool = False
+    read_only: bool = False
     written_shard_layers: Set[tuple] = field(default_factory=set)
     shard_to_tensors: Dict[str, Set[str]] = field(default_factory=dict)
 
     def __post_init__(self):
         self.output_path = Path(self.output_path)
-        self.output_path.mkdir(parents=True, exist_ok=True)
+        if not self.read_only:
+            self.output_path.mkdir(parents=True, exist_ok=True)
         # guards written_shard_layers and _pending: the flush thread unmarks
         # tensors of a failed save while add_tensor stages on the merge
         # thread; never held across file IO
@@ -87,7 +90,7 @@ class ModelWriter:
         if self.index_path.exists():
             logger.info("Index already exists: %s", self.index_path)
             self.base_index = json.loads(self.index_path.read_text())
-        else:
+        elif not self.read_only:
             self.index_path.write_text(json.dumps(self.base_index, indent=2))
         self.shard_to_tensors = {}
         for tensor_name, shard_name in self.base_index["weight_map"].items():
@@ -205,3 +208,34 @@ class ModelWriter:
                 )
                 for name in sorted(tensors, key=position.__getitem__)
             ]
+
+    @classmethod
+    def from_huggingface(cls, model_id: str, output_path, layer_order: List[str], revision: str = "main",
+                         output_astype: torch.dtype = torch.bfloat16, write_through: bool = False,
+                         token=None) -> "ModelWriter":
+        """A writer over a Hub model's index, its config files (not its
+        weights) downloaded into ``output_path`` first; ``token``
+        authenticates gated or private repos."""
+        from huggingface_hub import snapshot_download
+
+        from .download import resolve_hf_token
+
+        output_path = Path(output_path)
+        output_path.mkdir(parents=True, exist_ok=True)
+        snapshot_download(
+            repo_id=model_id,
+            revision=revision,
+            ignore_patterns=["*.bin", "*.safetensors", "*.msgpack"],
+            local_dir=output_path,
+            token=resolve_hf_token(token),
+        )
+        index_path = output_path / "model.safetensors.index.json"
+        if not index_path.exists():
+            raise FileNotFoundError(f"Model index not found at {index_path}")
+        return cls(
+            base_index=json.loads(index_path.read_text()),
+            output_path=output_path,
+            layer_order=layer_order,
+            output_astype=output_astype,
+            write_through=write_through,
+        )

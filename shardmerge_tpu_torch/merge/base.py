@@ -42,6 +42,21 @@ the bf16 inputs of this layer and the staged next one 2 (N + 1) halves.
 So there is no size routing: a merge that does not fit sets
 ``hbm_budget_gb`` (or ``device_prefetch_depth=0``).
 
+A GPTQ or AWQ finetune reaches the merge decoded to f32 (``io/index.py``,
+on a read-ahead worker), twice a bf16 input's bytes, so its inputs term is
+1 unit, not a half: with P packed finetunes among N the inputs of this
+layer and the staged next one take 2 (N + 1 + P) halves, the page-locked
+host copies of the ``prefetch_depth`` (2) layers read ahead as many, and
+``h2d_bytes`` grows by P halves a layer. (A LoRA adapter's tensor is fused
+into the base's dtype: no change.) With every finetune packed:
+
+- Llama-3.1-70B: N = 4 needs 3.8 + 7.5 + 8.5 = 20 GB on the card, N = 16
+  15 + 7.5 + 31 = 54 GB. Fits.
+- Llama-3.1-405B: N = 4 needs 14 + 28 + 31 = 73 GB and fits; from N = 5
+  (84 GB) the merge sets ``hbm_budget_gb`` or ``device_prefetch_depth=0``
+  (which drops the staged layer's 19 GB), two finetunes sooner than with
+  bf16 inputs. The host holds 31 GB of page-locked read-ahead at N = 4.
+
 The other engines keep their N f32 deltas (or N inputs) as the JAX engines
 stack them, but take thresholds, ranks and masks one model at a time, so
 that the temporaries of a select, an argsort or a mask exist for one model,

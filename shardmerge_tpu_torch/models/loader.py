@@ -6,6 +6,14 @@ once. With ``quant_bits`` the seven per-layer projections are quantized ON
 THE HOST before the copy (a device-side quantize would first place the
 full-width weight, the very memory quantization is meant to save);
 embeddings, norms and lm_head stay in ``dtype``.
+
+A PEFT LoRA adapter directory loads as its base checkpoint with the pairs
+fused per tensor as they are read (``resolve_checkpoint_dir``; the fuse is
+``tools/fuse_lora.fuse_pair``, so loading an adapter equals loading its
+``fuse-lora`` output). A GPTQ or AWQ checkpoint (``config.json``
+``quantization_config``) has each module's packed parts staged and decoded
+on the host to the f32 weight, which then takes the same route (adapter
+fuse, then int8/int4 re-quantization on the host).
 """
 
 from __future__ import annotations
@@ -23,7 +31,53 @@ from .quant import quantize
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["load_params"]
+__all__ = ["load_params", "resolve_checkpoint_dir"]
+
+
+def resolve_checkpoint_dir(model_path):
+    """(weights_dir, adapter or None) for a checkpoint or a PEFT LoRA
+    adapter directory; an adapter resolves to its declared base checkpoint
+    with {"pairs", "scale"} to fuse at load."""
+    model_path = Path(model_path)
+    if (model_path / "adapter_config.json").is_file() and not (
+        (model_path / "model.safetensors.index.json").exists() or (model_path / "model.safetensors").exists()
+    ):
+        from ..tools.fuse_lora import load_adapter
+
+        pairs, scale = load_adapter(model_path)
+        base_ref = str(json.loads((model_path / "adapter_config.json").read_text())
+                       .get("base_model_name_or_path") or "")
+        if not base_ref or not Path(base_ref).is_dir():
+            raise FileNotFoundError(
+                f"adapter {model_path} declares base_model_name_or_path={base_ref!r}, which is not a "
+                "local checkpoint directory; set it to the adapter's base checkpoint"
+            )
+        logger.info("Loading LoRA adapter %s fused onto base %s (%d tensor pairs, scale %g)",
+                    model_path, base_ref, len(pairs), scale)
+        return Path(base_ref), {"pairs": pairs, "scale": float(scale)}
+    return model_path, None
+
+
+def _packed_format(model_path: Path) -> Optional[dict]:
+    """The GPTQ/AWQ format a checkpoint's config.json announces, or None."""
+    from ..io.index import packed_quant_info
+
+    cfg_path = model_path / "config.json"
+    if not cfg_path.is_file():
+        return None
+    qc = json.loads(cfg_path.read_text()).get("quantization_config") or {}
+    try:
+        info = packed_quant_info(qc)
+    except ValueError as e:
+        raise ValueError(f"{model_path}: {e} — dequantize to bf16 first") from e
+    if info is None and qc.get("quant_method") not in (None, "mxfp4"):
+        raise ValueError(
+            f"{model_path} uses quant_method {qc.get('quant_method')!r}; supported quantized "
+            "formats are GPTQ and AWQ (gemm) — dequantize to bf16 first"
+        )
+    if info is not None:
+        logger.info("%s checkpoint (bits=%d): decoding packed tensors at load", info["fmt"].upper(), info["bits"])
+    return info
 
 _LAYER_WEIGHTS = {
     "self_attn.q_proj.weight": "q_proj",
@@ -45,10 +99,20 @@ def load_params(
     dtype: torch.dtype = torch.bfloat16,
     quant_bits: Optional[int] = None,
     device="cpu",
+    resolved=None,
 ) -> dict:
     """Params dict ``{"embed_tokens", "norm", "lm_head"?, "layers"}`` on
-    ``device``, projections quantized to ``quant_bits`` (4 or 8) if given."""
-    model_path = Path(model_path)
+    ``device``, projections quantized to ``quant_bits`` (4 or 8) if given.
+    ``model_path`` may be an adapter directory; a caller that resolved it
+    already passes ``resolved=(weights_dir, adapter)``."""
+    from ..io.index import PACKED_PARTS
+    from ..tools.fuse_lora import fuse_pair
+    from .quant import dequant_awq, dequant_gptq
+
+    model_path, adapter = resolved if resolved is not None else resolve_checkpoint_dir(model_path)
+    packed = _packed_format(model_path)
+    packed_parts = PACKED_PARTS[packed["fmt"]] if packed else ()
+    pending: dict = {}  # module root -> its packed parts so far
     if cfg is None:
         cfg = ModelConfig.from_pretrained(model_path)
     index_path = model_path / "model.safetensors.index.json"
@@ -67,6 +131,27 @@ def load_params(
         with SafeTensorsReader(model_path / shard) as reader:
             for name in reader.keys():
                 arr = reader.get_tensor(name)
+                root, _, part = name.rpartition(".")
+                if part in packed_parts:
+                    # stage the module's parts (copied: they may span
+                    # shards) and decode once all are in
+                    pend = pending.setdefault(root, {})
+                    pend[part] = arr.clone()
+                    if len(pend) < len(packed_parts):
+                        continue
+                    del pending[root]
+                    if packed["fmt"] == "awq":
+                        arr = dequant_awq(pend["qweight"], pend["qzeros"], pend["scales"], bits=packed["bits"])
+                    else:
+                        arr = dequant_gptq(pend["qweight"], pend["qzeros"], pend["scales"], pend["g_idx"],
+                                           packed["bits"], v1_zero_offset=packed["v1"])
+                    name = root + ".weight"
+                if adapter is not None and name in adapter["pairs"]:
+                    # fuse before quantization: the same weight as a
+                    # fuse-lora'd checkpoint's (the JAX loader's
+                    # _apply_lora_pair)
+                    pair = adapter["pairs"][name]
+                    arr = fuse_pair(arr, pair["A"], pair["B"], adapter["scale"])
                 if name == "model.embed_tokens.weight":
                     params["embed_tokens"] = place(arr)
                 elif name == "model.norm.weight":
@@ -88,6 +173,8 @@ def load_params(
                 else:
                     logger.warning("Skipping unknown weight %s", name)
 
+    if pending:
+        raise ValueError(f"{model_path}: packed modules with missing parts: {sorted(pending)[:4]}")
     if cfg.tie_word_embeddings:
         params.pop("lm_head", None)
     missing = [i for i, layer in enumerate(params["layers"]) if set(layer) != set(_LAYER_WEIGHTS.values())]

@@ -1,11 +1,11 @@
 """Weight-only int8 / packed int4 quantization (counterpart of
 shardmerge_tpu/models/quant.py).
 
-Per-output-channel absmax scales, computed on the host with numpy at load
-time. int4 is stored in the SPLIT-HALF layout: for an (N, K) weight the
-packed (N, K/2) uint8 byte j holds column j in its low nibble and column
-j + K/2 in its high nibble, each as value + 8 in [1, 15]; the scale is an
-(N, 1) f32.
+Per-output-channel absmax scales, computed on the host at load time (the
+JAX package's numpy arithmetic in torch's f32 ops, bit for bit). int4 is
+stored in the SPLIT-HALF layout: for an (N, K) weight the packed (N, K/2)
+uint8 byte j holds column j in its low nibble and column j + K/2 in its
+high nibble, each as value + 8 in [1, 15]; the scale is an (N, 1) f32.
 
 ``dequant_matmul`` routes a packed-int4 product with at most 64 rows on a
 CUDA tensor to the hand-written GEMV (quant_kernels.int4_matmul). Every other
@@ -21,16 +21,19 @@ from typing import Dict
 import numpy as np
 import torch
 
-__all__ = ["quantize", "dequant", "dequant_matmul"]
+__all__ = ["quantize", "dequant", "dequant_matmul", "dequant_gptq", "dequant_awq"]
 
 
-def _pack4(q: np.ndarray) -> np.ndarray:
-    """Split-half nibble pack along axis 1 (int8 in [-7, 7])."""
+def _pack4(q):
+    """Split-half nibble pack along axis 1 (int8 in [-7, 7]; numpy or torch)."""
     if q.shape[1] % 2:
         raise ValueError("int4 requires an even reduction dim")
     h = q.shape[1] // 2
-    u = (q + 8).astype(np.uint8)
-    return (u[:, :h] | (u[:, h:] << 4)).astype(np.uint8)
+    if isinstance(q, np.ndarray):
+        u = (q + 8).astype(np.uint8)
+        return (u[:, :h] | (u[:, h:] << 4)).astype(np.uint8)
+    u = (q + 8).to(torch.uint8)
+    return u[:, :h] | (u[:, h:] << 4)
 
 
 def _unpack4(packed: torch.Tensor) -> torch.Tensor:
@@ -47,16 +50,14 @@ def quantize(w, bits: int = 4) -> Dict[str, torch.Tensor]:
     "scale": f32 (N, 1)}; the bit width is carried by the storage dtype."""
     if bits not in (4, 8):
         raise ValueError(f"bits must be 4 or 8, got {bits}")
-    if isinstance(w, torch.Tensor):
-        w = w.detach().to("cpu", torch.float32).numpy()
-    w32 = np.asarray(w, dtype=np.float32)
-    absmax = np.max(np.abs(w32), axis=1, keepdims=True)
+    w32 = torch.as_tensor(w).detach().to("cpu", torch.float32)
+    absmax = w32.abs().amax(dim=1, keepdim=True)
     qmax = 127.0 if bits == 8 else 7.0
-    scale = np.maximum(absmax / qmax, 1e-12).astype(np.float32)
-    q = np.clip(np.round(w32 / scale), -qmax, qmax).astype(np.int8)
+    scale = (absmax / qmax).clamp_min_(1e-12)
+    q = torch.round(w32 / scale).clamp_(-qmax, qmax).to(torch.int8)
     if bits == 4:
         q = _pack4(q)
-    return {"q": torch.from_numpy(q), "scale": torch.from_numpy(scale)}
+    return {"q": q, "scale": scale}
 
 
 def dequant(wq: Dict[str, torch.Tensor], dtype=torch.bfloat16) -> torch.Tensor:
@@ -79,3 +80,81 @@ def dequant_matmul(x: torch.Tensor, wq: Dict[str, torch.Tensor]) -> torch.Tensor
         wh = (((q >> 4).to(torch.int8) - 8) * s).to(x.dtype)
         return x[..., :h] @ wl.T + x[..., h:] @ wh.T
     return x @ dequant(wq, x.dtype).T
+
+
+def _fields(words: torch.Tensor, bits: int, order=None) -> torch.Tensor:
+    """(rows, cols) int32 words -> (rows, cols * 32/bits) f32 values: field
+    k of a word (low bits first) lands at position ``order[k]`` of its run
+    (k by default). One shift-and-mask pass per field (an arithmetic shift;
+    the mask keeps the field's bits), written straight into f32."""
+    per = 32 // bits
+    words = words.to(torch.int32)
+    out = torch.empty(words.shape + (per,), dtype=torch.float32, device=words.device)
+    for k in range(per):
+        out[:, :, k if order is None else order[k]] = (words >> (bits * k)) & ((1 << bits) - 1)
+    return out.view(words.shape[0], -1)
+
+
+# AWQ's GEMM kernels store logical column [0,2,4,6,1,3,5,7][k] of each
+# 8-value pack in nibble k
+_AWQ_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
+
+
+def _scaled(q: torch.Tensor, zeros: torch.Tensor, scales: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """``scales[:, g] * (q - zeros[:, g])`` for f32 q (out, in) and
+    per-group zeros and scales (out, groups), in place on q; groups that
+    are contiguous runs of ``in`` broadcast instead of gathering."""
+    out_dim, in_dim = q.shape
+    n_groups = zeros.shape[1]
+    w = q
+    size = in_dim // n_groups
+    if in_dim % n_groups == 0 and torch.equal(g, torch.arange(in_dim, device=g.device) // size):
+        v = w.view(out_dim, n_groups, size)
+        v.sub_(zeros[:, :, None]).mul_(scales[:, :, None])
+    else:
+        w.sub_(zeros[:, g]).mul_(scales[:, g])
+    return w
+
+
+def dequant_awq(qweight, qzeros, scales, bits: int = 4) -> torch.Tensor:
+    """AutoAWQ GEMM-format parts -> the (out, in) f32 weight, on the host.
+
+    ``qweight`` int32 (in, out/8) and ``qzeros`` int32 (in/group, out/8)
+    hold 8 nibbles a word along OUT in AWQ's interleaved order, true zeros;
+    ``scales`` fp16 (in/group, out); groups are contiguous runs of input
+    rows: ``W[i, o] = scales[i//gs, o] * (q[i, o] - zero[i//gs, o])``."""
+    if bits != 4:
+        raise ValueError(f"AWQ GEMM packs 4-bit only, got bits={bits}")
+
+    def unpack_t(packed):  # (rows, cols) words -> (8 cols, rows) in logical order
+        return _fields(torch.as_tensor(packed), bits, _AWQ_ORDER).T
+
+    q = unpack_t(qweight).contiguous()
+    zeros = unpack_t(qzeros)
+    in_dim, n_groups = q.shape[1], zeros.shape[1]
+    if in_dim % n_groups:
+        raise ValueError(f"AWQ group count {n_groups} does not divide in_dim {in_dim}")
+    g = torch.arange(in_dim) // (in_dim // n_groups)
+    return _scaled(q, zeros, torch.as_tensor(scales).to(torch.float32).T, g)
+
+
+def dequant_gptq(qweight, qzeros, scales, g_idx, bits: int, v1_zero_offset: bool = True) -> torch.Tensor:
+    """AutoGPTQ-format parts -> the (out, in) f32 weight, on the host.
+
+    ``qweight`` int32 (in/per, out) packs per = 32/bits values along IN,
+    low bits first; ``qzeros`` int32 (groups, out/per) packs along OUT
+    (v1 stores zero - 1, which ``v1_zero_offset`` adds back; gptq_v2 stores
+    the true zero); ``scales`` fp16 (groups, out); ``g_idx`` (in,) maps each
+    input row to its group (shuffled under act-order):
+    ``W[i, o] = scales[g_idx[i], o] * (q[i, o] - zero[g_idx[i], o])``.
+    Unpacked straight into the (out, in) layout."""
+    if bits not in (4, 8):
+        raise ValueError(f"GPTQ bits must be 4 or 8, got {bits}")
+    qw = torch.as_tensor(qweight)
+    q = _fields(qw.T.contiguous(), bits).reshape(qw.shape[1], -1)  # (out, in)
+    qz = torch.as_tensor(qzeros)
+    zeros = _fields(qz, bits).reshape(qz.shape[0], -1)  # (groups, out)
+    if v1_zero_offset:
+        zeros = zeros + 1
+    g = torch.as_tensor(g_idx).to(torch.int64)
+    return _scaled(q, zeros.T, torch.as_tensor(scales).to(torch.float32).T, g)

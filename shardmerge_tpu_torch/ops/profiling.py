@@ -4,7 +4,8 @@ shardmerge_tpu/ops/profiling.py).
 :class:`phase_profiler` logs wall clock, host RSS and, on a CUDA device, the
 allocator's live bytes from ``torch.cuda.memory_stats``. It is off unless
 ``display=True`` or ``SHARDMERGE_PROFILE=1``. :class:`MergeStats` holds the
-per-run counters the merge engine logs at the end.
+per-run counters the merge engine logs at the end. :func:`trace` records a
+``torch.profiler`` trace of a block (the CLI's ``--trace-dir``).
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import torch
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["phase_profiler", "MergeStats", "device_memory_stats"]
+__all__ = ["phase_profiler", "MergeStats", "device_memory_stats", "trace"]
 
 
 def _rss_bytes() -> int:
@@ -77,6 +78,26 @@ def phase_profiler(title: str = "phase", display: Optional[bool] = None, device=
         logger.info("[profile] %s", " | ".join(parts))
 
 
+@contextlib.contextmanager
+def trace(trace_dir: Optional[str]):
+    """Record a torch.profiler trace of the block (host, and the card's
+    kernels when CUDA is available) into ``trace_dir/trace.json``, which
+    Perfetto and chrome://tracing open; nothing when no directory is given."""
+    if not trace_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(trace_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(str(trace_dir), "trace.json"))
+    logger.info("wrote a torch.profiler trace to %s", os.path.join(str(trace_dir), "trace.json"))
+
+
 @dataclass
 class MergeStats:
     """Aggregate counters for one merge run."""
@@ -106,6 +127,10 @@ class MergeStats:
     # copies saved by the per-layer placement dedupe
     h2d_bytes: int = 0
     h2d_dedup_hits: int = 0
+    # Hub downloads: bytes, and the wall from the first transfer's start to
+    # the last one's end
+    download_bytes: int = 0
+    download_wall_s: float = 0.0
     # read-ahead pipeline: input tensors taken already staged on the device,
     # and read-aheads that failed (the merge then read on demand)
     prefetch_device_hits: int = 0

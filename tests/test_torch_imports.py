@@ -56,3 +56,16 @@ def test_the_guard_reads_imports_not_text():
 def test_port_file_imports_neither_jax_nor_the_jax_package(path):
     names = [n for n in _imported(ast.parse(path.read_text(), filename=str(path))) if _forbidden(n)]
     assert not names, f"{path.relative_to(REPO)} imports {names}"
+
+
+def test_the_guard_covers_every_module_of_the_checkpoint_slice():
+    """The host-layer modules, the checkpoint tools and the native build are
+    among the files read above."""
+    port = REPO / "shardmerge_tpu_torch"
+    new = [port / "io" / m for m in ("download.py", "index.py", "native.py", "writer.py")]
+    new += [port / "tools" / m for m in ("__init__.py", "fuse_lora.py", "extract_lora.py", "quantize_checkpoint.py",
+                                         "verify_safetensors.py", "inspect_model.py", "rewrite_reorder.py",
+                                         "convert_pytorch_to_hf.py")]
+    new += [port / "models" / "loader.py", port / "backend.py", port / "cli.py"]
+    assert all(p.is_file() for p in new)
+    assert set(new) <= set(FILES)

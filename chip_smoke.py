@@ -119,7 +119,49 @@ Phases (each prints one line or a few; any failure exits non-zero):
    (flash launches = layers x compactions); an A/B of that pool step
    against the einsum path, and, over profiled pool steps, the device's
    busy share, its launches per step and the flash kernels' share;
-13. the kernel summary line (all five kernels), the card line, and the result line.
+13. spec: speculative decoding and the prefix cache on the int4 merge of
+   11 (the target) with a Llama-3.2-1B-width draft (2 layers, bf16, random
+   weights built on the card), k = 4. Solo streams with the draft, with the
+   target as its own draft, with the target proposing its runner-up at a
+   seeded 20% of positions (the planted-miss draft) and without one: each
+   speculative stream equals the plain stream token for token or first
+   differs at a near-tie (each of the two tokens within 4x the measured
+   max-abs gap between the verify's T=4 logits and the T=1 decode's of the
+   plain route's best logit there, a gap held to the 2e-2 class); the
+   self-draft accepts all k tokens in every round, and the planted-miss
+   draft all but at its planted misses, save at such a near-tie; the planted-miss rounds accept all and some proposals; with
+   the 1B draft every GEMV launch is the verify's and the draft's decodes
+   run the flash kernel. A speculative pool of 8 slots with 10 staggered
+   greedy requests, with the 1B draft over a 2048-slot cache and with the
+   planted-miss draft over a 512-slot one (10 requests of 60-400 prompt and
+   64-100 new tokens): every completion equals its
+   solo speculative stream under the same rule; spec_rounds,
+   spec_accepted, row-rounds by accepted proposals and the verify's route
+   (GEMV at 32 rows); the planted-miss pool accepts all and some
+   proposals and compacts its draft cache while rows lag. The server with
+   the prefix cache on: two requests sharing a 2000-token system prompt,
+   the second hitting the bucket-aligned shared length; the cache's KV
+   and the hit's prompt logits within 2e-2 of the plain prefill's, the
+   hit's tokens a miss's (near-tie rule, its gap from the plain route
+   alone: the prefill split at the hit without the cache, or the verify's);
+   /v1/stats showing the slab's bytes. Reports: B=1 decode tokens/s plain
+   and with each draft, and TTFT of a hit against a miss;
+14. families: one model per dense family (Qwen2.5-7B, Qwen3-8B,
+   Mistral-7B-v0.1, Gemma-2-9B, Gemma-3-1B, Phi-3-mini-128k, OLMo-2-7B,
+   SmolLM3-3B, GLM-4-9B-0414) from its public config at its published
+   widths, 2 layers, random weights built on the card, int4: 8 greedy
+   tokens (Mistral after a 4200-token prompt, so its window masks slots),
+   the GEMV launched for every projection of every step, the decode
+   attention on the flash kernel (one slot list a step per mask kind) or,
+   for head dim 96/256 and the softcap, on the counted einsum path; one
+   decode step's logits within 2e-2 of the plain route and the kernel's
+   attention within 1e-5 of its plain version on the step's inputs; the
+   GEMV at every new (N, K) within 4e-3 of ``int4_matmul_plain``;
+   Qwen2.5-7B's layer of seven GEMVs timed at B = 1 and 8 beside the plain
+   version, the library call and the bound; Phi-3 also through ``generate
+   -4 --greedy`` from a checkpoint with fused qkv_proj/gate_up_proj, its
+   tokens equal to the in-memory model's;
+15. the kernel summary line (all five kernels), the card line, and the result line.
 
 It imports nothing of JAX. With no CUDA device it exits 1 and prints no
 result.
@@ -127,6 +169,7 @@ result.
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import os
@@ -2239,6 +2282,778 @@ def pool_step_profile(torch, ak, step, pool):
         f"{flash_us * 10 / device_us:.1%} of the step's device time")
 
 
+# [spec]: the draft, meta-llama/Llama-3.2-1B's config.json with
+# num_hidden_layers cut from 16 to 2 (bf16, random weights built on the card)
+LLAMA_32_1B = {
+    "architectures": ["LlamaForCausalLM"],
+    "hidden_act": "silu",
+    "hidden_size": 2048,
+    "head_dim": 64,
+    "intermediate_size": 8192,
+    "max_position_embeddings": 131072,
+    "model_type": "llama",
+    "num_attention_heads": 32,
+    "num_hidden_layers": LAYERS,
+    "num_key_value_heads": 8,
+    "rms_norm_eps": 1e-05,
+    "rope_scaling": {
+        "factor": 32.0,
+        "high_freq_factor": 4.0,
+        "low_freq_factor": 1.0,
+        "original_max_position_embeddings": 8192,
+        "rope_type": "llama3",
+    },
+    "rope_theta": 500000.0,
+    "tie_word_embeddings": True,
+    "vocab_size": 128256,
+}
+CARD = "cuda:0"  # the device the [spec] and [families] phases run on
+SPEC_K = 4
+SPEC_NEW = 1 + 16 * SPEC_K  # the first token, then 16 full rounds
+SPEC_PROMPT = 300  # prompt tokens of the solo streams
+# the speculative pool: (prompt tokens, max_tokens, pool steps driven before
+# the next submit); 10 requests for 8 slots
+SPEC_POOL_SLOTS, SPEC_POOL_CACHE = 8, 2048
+# the planted-miss pool: long-lived rows in a cache just over the largest
+# need (prompt + budget + k <= 512), so both caches compact again and again
+# while most rows are live and some lag
+SPEC_POOL_SHORT_CACHE = 512
+SPEC_POOL_LAG_REQUESTS = [(380, 96, 1), (120, 100, 2), (250, 80, 0), (300, 90, 1), (60, 100, 2), (400, 72, 0),
+                          (200, 96, 1), (330, 88, 0), (90, 64, 1), (150, 80, 0)]
+SPEC_POOL_REQUESTS = [(40, 48, 2), (300, 32, 1), (90, 40, 3), (700, 24, 0), (25, 56, 2), (160, 32, 1),
+                      (520, 40, 2), (64, 24, 0), (1200, 32, 1), (33, 40, 0)]
+PREFIX_SYSTEM = 2000  # tokens of the shared system prompt
+# a first difference is a near-tie where the plain route's top-2 margin is
+# at most NEAR_TIE x the verify's max-abs gap from the T=1 decode there
+NEAR_TIE = 4.0
+PLANTED_MISS = 0.2  # share of positions where the planted-miss draft proposes its runner-up
+
+
+def token_ids(text: str):
+    """IdTokenizer's text back to its token ids."""
+    return [int(t) for t in text[1:-1].split("><")] if text else []
+
+
+def first_difference(got, want):
+    """Index of the first token where two streams differ, or None."""
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a != b:
+            return i
+    return None if len(got) == len(want) else min(len(got), len(want))
+
+
+def replay(torch, engine, ids, tokens, k: int = SPEC_K):
+    """The plain route's logits before each of ``tokens`` (the prompt's
+    prefill, then one T=1 decode step a token: the kernels' route) and
+    their gaps from the T=k verify's logits over the same context: verify
+    forwards over k-token blocks of ``tokens`` at their slots, as a
+    speculative round feeds them. Returns (logits (n, V) f32, the max-abs
+    gap at each token (None where no verify row predicts it: the first, and
+    the tail past the last whole block), the largest gap, the relL2 gap)."""
+    from shardmerge_tpu_torch.models import llama
+
+    model, dev = engine.model, engine.device
+    L, n = len(ids), len(tokens)
+    cache = -(-(L + n + k) // 256) * 256
+    rope = llama.rope_tables(engine.cfg, cache, dev)
+    kv = engine._init_kv(1, cache)
+    with torch.inference_mode():
+        pids, ppos = engine._pad_prompt(ids, cache)
+        last, kv = engine._chunked_prefill(pids, ppos, kv, rope, L, keep_pos=L - 1)
+        steps = [last[0]]
+        for i, tok in enumerate(tokens[:-1]):
+            pos = L + i
+            logits, kv = model(torch.tensor([[tok]], device=dev), torch.tensor([[pos]], device=dev), kv, pos,
+                               rope, pos + 1)
+            steps.append(logits[0, -1])
+        steps = torch.stack(steps)
+        got, want = [], []
+        for j in range(0, n - k, k):
+            logits, kv = model(torch.tensor([tokens[j : j + k]], device=dev),
+                               torch.arange(L + j, L + j + k, device=dev)[None], kv, L + j, rope, L + j + k)
+            got.append(logits[0])  # row r predicts tokens[j + r + 1]
+            want.append(steps[j + 1 : j + 1 + k])
+        got, want = torch.cat(got), torch.cat(want)
+        per = (got - want).abs().amax(dim=-1).tolist()
+    gaps = [None] + per + [None] * (n - 1 - len(per))
+    return steps, gaps, max(per), rel_l2(got, want)
+
+
+def margins(torch, logits):
+    top = logits.float().topk(2, dim=-1).values
+    return (top[:, 0] - top[:, 1]).tolist()
+
+
+def tie_at(logits, a: int, b: int, gap: float):
+    """Whether tokens ``a`` and ``b`` are a near-tie of one row of the plain
+    route's logits: each lies within NEAR_TIE x ``gap`` of the row's best
+    logit. Where the plain route's top two are distinct this is its top-2
+    margin rule with both tokens among the top two; a token outside that
+    window (a wrong token at a low-margin position) never passes, and a
+    bf16 tie of three tokens within an ulp does. Returns (ok, the farther
+    token's distance from the best, both tokens' ranks)."""
+    row = logits.float()
+    best = float(row.max())
+    dist = max(best - float(row[a]), best - float(row[b]))
+    ranks = tuple(int((row > row[t]).sum()) for t in (a, b))
+    return dist <= NEAR_TIE * gap, dist, ranks
+
+
+def near_tie_check(tag: str, got, want, plain_logits, gaps, fallback: float):
+    """``got`` equals ``want`` token for token, or first differs at a token
+    p where the two tokens are a near-tie (:func:`tie_at`) of the plain
+    route's logits there, against the gap measured at p (``gaps[p]``;
+    ``fallback`` where no verify row predicts p); (equal, note)."""
+    p = first_difference(got, want)
+    if p is None:
+        return True, "equal"
+    if p >= min(len(got), len(want), len(plain_logits)):
+        raise SystemExit(f"{tag}: {len(got)} tokens against {len(want)}")
+    gap = gaps[p] if p < len(gaps) and gaps[p] is not None else fallback
+    ok, dist, ranks = tie_at(plain_logits[p], got[p], want[p], gap)
+    if not ok:
+        raise SystemExit(f"{tag}: first differs at token {p} ({got[p]} for {want[p]}, ranked {ranks} by the plain "
+                         f"route), not a near-tie ({dist:.3e} from its best > {NEAR_TIE} x gap {gap:.3e})")
+    return False, (f"first differs at token {p}, a near-tie (ranks {ranks}, {dist:.3e} from the best <= {NEAR_TIE} "
+                   f"x gap {gap:.3e})")
+
+
+def spec_engine(engine, draft, k: int = SPEC_K, **kw):
+    from shardmerge_tpu_torch.inference import InferenceEngine
+
+    return InferenceEngine(engine.cfg, engine.model, IdTokenizer(), draft=draft, speculation_k=k, **kw)
+
+
+def recorded_rounds(eng):
+    """Wrap an engine's round: each call's (t, packed) is kept."""
+    rounds = []
+    real = eng._spec_round
+
+    def recording(*args):
+        packed, kv, d_kv = real(*args)
+        rounds.append((args[5], packed))
+        return packed, kv, d_kv
+
+    eng._spec_round = recording
+    return rounds
+
+
+def accepted(packed, k: int = SPEC_K) -> int:
+    props, y = packed[: k - 1], packed[k - 1 :]
+    m = 0
+    while m < k - 1 and y[m] == props[m]:
+        m += 1
+    return m
+
+
+def planted_miss_draft(torch, model, seed: int = 13):
+    """The target as its own draft whose forward at a seeded random
+    PLANTED_MISS of positions ranks its best next token last, so that it
+    proposes the runner-up there and its rounds accept all, some or none of
+    their proposals. Returns (draft, the by-position list of misses)."""
+    gen = torch.Generator(device=model.device).manual_seed(seed)
+    table = torch.rand(1 << 16, generator=gen, device=model.device) < PLANTED_MISS
+
+    class PlantedMiss(type(model)):
+        def forward(self, input_ids, positions, *args, **kw):
+            logits, kv = super().forward(input_ids, positions, *args, **kw)
+            missed = logits.scatter(-1, logits.argmax(-1, keepdim=True), float("-inf"))
+            return torch.where(table[positions][..., None], missed, logits), kv
+
+    draft = copy.copy(model)
+    draft.__class__ = PlantedMiss
+    return draft, table.tolist()
+
+
+def spec_pool(torch, qk, ak, eng, plain, cache_len: int, requests, name: str, int4_draft: bool, planted=None):
+    """The speculative pool of ``eng`` over ``requests`` ((prompt tokens,
+    max_tokens, pool steps before the next submit)), staggered: every
+    completion equals its solo speculative stream under the near-tie rule;
+    the verify's route read from the GEMV launches (a round's k T=1 draft
+    forwards take the GEMV too when the draft is int4). With ``planted``
+    (the planted-miss draft's misses by position) every rejected proposal
+    must be a planted miss or a near-tie of the plain route along the
+    row's completion: a draft cache out of step with its row (a wrong
+    catch-up, a bad compaction) proposes other tokens, which the tokens
+    alone never show. Returns (stats, launches, live row-rounds by
+    accepted proposals 0..k-1, the rows lagging at each draft
+    compaction)."""
+    from shardmerge_tpu_torch.batching import ContinuousEngine
+
+    pool = ContinuousEngine(eng, slots=SPEC_POOL_SLOTS, cache_len=cache_len, greedy=True, use_template=False)
+    rounds, lagging = [], []
+    real_round, real_compact = pool._pool_spec_round, pool._compact_draft
+
+    def spec_round(t, t_d):
+        live = [(b, pool._rows[b], int(pool._pos_x1[b])) for b in range(pool.B) if pool._rows[b] is not None]
+        out = real_round(t, t_d)
+        rounds.append((live, out))
+        return out
+
+    def compact_draft():
+        lagging.append(sum(bool(pool._lag[b]) for b in range(pool.B) if pool._rows[b] is not None))
+        real_compact()
+
+    pool._pool_spec_round, pool._compact_draft = spec_round, compact_draft
+    reqs = [(text_of(n, 300 + i), m) for i, (n, m, _) in enumerate(requests)]
+    reset_counts(qk, ak)
+    t0 = time.perf_counter()
+    handles = []
+    for (p, m), (_, _, after) in zip(reqs, requests):
+        handles.append(pool.submit(p, max_new_tokens=m, repetition_penalty=1.0))
+        pool._admit_pending()
+        for _ in range(after):
+            if pool._active():
+                pool._step()
+            pool._admit_pending()
+    pool.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {"int4_gemv": qk.launch_counts["int4_gemv"], "flash_decode": ak.launch_counts["flash_decode"]}
+    stats = pool.stats
+    acc = [accepted(out[b].tolist()) for live, out in rounds for b, _, _ in live]
+    hist = [acc.count(m) for m in range(SPEC_K)]
+    per_round = 7 * LAYERS * (1 + (SPEC_K if int4_draft else 0))
+    route = "GEMV" if counts["int4_gemv"] >= per_round * stats["spec_rounds"] else "dense"
+    notes = []
+    for (p, m), h in zip(reqs, handles):
+        solo = token_ids("".join(eng.stream_generation(p, max_new_tokens=m, greedy=True, repetition_penalty=1.0)))
+        got = token_ids(h.result())
+        if got != solo:
+            # the pool and the solo stream round apart in their batched
+            # products and their attention over other slot layouts, not in
+            # the verify-vs-T=1 gap at one token: the rule takes the
+            # largest gap measured over the solo stream's tokens
+            solo_steps, _, solo_gap, _ = replay(torch, plain, IdTokenizer().encode(p), solo)
+            notes.append(near_tie_check(f"[spec] {name} pool completion", got, solo, solo_steps, [], solo_gap)[1])
+    ties = 0
+    if planted is not None:
+        index = {id(h): i for i, h in enumerate(handles)}
+        replays = {}
+        for live, out in rounds:
+            packed = out.tolist()
+            for b, handle, px in live:
+                m = accepted(packed[b])
+                # proposal m, for position px+m+1, comes from the draft's forward at px+m
+                if m == SPEC_K - 1 or planted[px + m]:
+                    continue
+                i = index[id(handle)]
+                ids = IdTokenizer().encode(reqs[i][0])
+                tokens = token_ids(handle.result())
+                gi = px + m + 1 - len(ids)
+                if gi >= len(tokens):
+                    continue  # past the row's end: never emitted
+                if i not in replays:
+                    replays[i] = replay(torch, plain, ids, tokens)
+                steps, _, gap, _ = replays[i]
+                ok, dist, ranks = tie_at(steps[gi], packed[b][m], packed[b][SPEC_K - 1 + m], gap)
+                if not ok:
+                    raise SystemExit(f"[spec] {name} pool: request {i} rejected a proposal at token {gi} that is "
+                                     f"neither a planted miss nor a near-tie (ranks {ranks}, {dist:.3e} from the "
+                                     f"best, gap {gap:.3e})")
+                ties += 1
+    say(f"[spec] {name} pool, {SPEC_POOL_SLOTS} slots x {cache_len} cache slots, {len(reqs)} staggered greedy "
+        f"requests in {wall:.2f} s: spec_rounds {stats['spec_rounds']}, spec_accepted {stats['spec_accepted']}, "
+        f"live row-rounds accepting 0..{SPEC_K - 1} proposals {hist}"
+        + (f" (every rejection a planted miss or one of {ties} near-ties)" if planted is not None else "")
+        + f", joins {stats['joins']}, frontier jumps "
+        f"{stats['frontier_jumps']}, compactions {stats['compactions']} (draft {len(lagging)}, lagging rows at "
+        f"each {lagging}); verify {SPEC_POOL_SLOTS * SPEC_K} rows a round on the {route} route; launches {counts}; "
+        f"completions vs their solo speculative streams: {len(reqs) - len(notes)} of {len(reqs)} equal"
+        + (f" ({'; '.join(notes)})" if notes else ""))
+    return stats, counts, hist, lagging
+
+
+def decode_rate(torch, fn, n: int) -> float:
+    """Decode tokens/s of ``fn(tokens)`` (a whole stream): (wall(n) -
+    wall(1)) over n - 1 tokens, medians of 3, so the prefill is excluded."""
+
+    def wall(tokens):
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn(tokens)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return sorted(times)[1]
+
+    return (n - 1) / (wall(n) - wall(1))
+
+
+def phase_spec(torch, engine, card: str):
+    """Speculative decoding and the prefix cache on the [generate] phase's
+    int4 merge: solo streams with a Llama-3.2-1B-width draft, with the
+    target as its own draft, with the planted-miss draft and without, the
+    speculative pool with the 1B and the planted-miss draft, and the server
+    with the prefix cache."""
+    from shardmerge_tpu_torch.inference import InferenceEngine
+    from shardmerge_tpu_torch.models import attn_kernels as ak
+    from shardmerge_tpu_torch.models import llama
+    from shardmerge_tpu_torch.models import quant_kernels as qk
+    from shardmerge_tpu_torch.serve import ModelServer
+
+    t_phase = time.perf_counter()
+    dev = torch.device(CARD)
+    engine.tokenizer = IdTokenizer()
+    d_cfg = llama.ModelConfig.from_hf_config(LLAMA_32_1B)
+    draft = llama.LlamaModel(d_cfg, llama.init_params(d_cfg, seed=11, dtype=torch.bfloat16, device=dev))
+    plain = InferenceEngine(engine.cfg, engine.model, IdTokenizer())
+    planted_miss, planted = planted_miss_draft(torch, engine.model)
+    engines = {"1B draft": spec_engine(engine, draft), "self-draft": spec_engine(engine, engine.model),
+               "planted-miss draft": spec_engine(engine, planted_miss)}
+    greedy = dict(greedy=True, repetition_penalty=1.0)
+    prompt = text_of(SPEC_PROMPT, 31)
+    ids = IdTokenizer().encode(prompt)
+
+    def run(eng, n=SPEC_NEW):
+        return "".join(eng.stream_generation(prompt, max_new_tokens=n, **greedy))
+
+    want = token_ids(run(plain))
+    steps, gaps, gap, gap_rel = replay(torch, plain, ids, want)
+    plain_margins = margins(torch, steps)
+    say(f"[spec] target: the [generate] merge (Llama-3.1-8B widths, {LAYERS} layers, int4); drafts: Llama-3.2-1B "
+        f"widths, {LAYERS} layers, bf16, random weights; the target itself; the target proposing its runner-up at "
+        f"{PLANTED_MISS:.0%} of positions (planted misses); k = {SPEC_K}; {SPEC_PROMPT}-token prompt, {SPEC_NEW} "
+        f"greedy tokens, repetition penalty 1.0")
+    say(f"[spec] verify (T={SPEC_K}) logits vs the T=1 decode's on the plain stream's tokens: max-abs "
+        f"{gap:.3e}, relL2 {gap_rel:.2e} (class 2e-2); plain route's smallest top-2 margin "
+        f"{min(plain_margins):.3e}")
+    if gap_rel > 2e-2:
+        raise SystemExit("[spec] the verify's logits leave the 2e-2 class of the T=1 decode's")
+    for name, eng in engines.items():
+        rounds = recorded_rounds(eng)
+        reset_counts(qk, ak)
+        got = token_ids(run(eng))
+        torch.cuda.synchronize()
+        counts = {"int4_gemv": qk.launch_counts["int4_gemv"], "flash_decode": ak.launch_counts["flash_decode"]}
+        acc = [accepted(packed.tolist()) for _, packed in rounds]
+        _, note = near_tie_check(f"[spec] {name} stream", got, want, steps, gaps, gap)
+        say(f"[spec] {name}: {len(rounds)} rounds, accepted proposals a round {acc}; stream vs plain: {note}; "
+            f"launches {counts}")
+        if name == "1B draft":
+            # the 1B draft is bf16: every GEMV is the target's verify, every
+            # flash launch a draft decode
+            if counts["int4_gemv"] != 7 * LAYERS * len(rounds):
+                raise SystemExit(f"[spec] the verify did not run the GEMV for every projection: {counts}")
+            if counts["flash_decode"] < LAYERS * (SPEC_K - 1) * len(rounds):
+                raise SystemExit(f"[spec] the draft's decodes did not run the flash kernel: {counts}")
+            continue
+        # the target drafts: a proposal is rejected only at a planted miss
+        # or at a near-tie of the stream's own T=1 route
+        if min(acc) < SPEC_K - 1:
+            own_steps, own_gaps, own_gap, _ = replay(torch, plain, ids, got)
+        ties = 0
+        for (t, packed), m in zip(rounds, acc):
+            # proposal m, for slot t+m+1, comes from the draft's forward at
+            # position t+m
+            if m == SPEC_K - 1 or (name == "planted-miss draft" and planted[t + m]):
+                continue
+            # the rejected proposal and the verify's token there
+            gi = t + m + 1 - len(ids)
+            g = own_gaps[gi] if gi < len(own_gaps) and own_gaps[gi] is not None else own_gap
+            prop, y = int(packed[m]), int(packed[SPEC_K - 1 + m])
+            ok, dist, ranks = tie_at(own_steps[gi], prop, y, g) if gi < len(own_steps) else (False, math.nan, ())
+            if not ok:
+                raise SystemExit(f"[spec] the {name} rejected a proposal at token {gi}, not a near-tie")
+            ties += 1
+            say(f"[spec] {name}: a rejection at token {gi}, a near-tie (ranks {ranks}, {dist:.3e} from the best <= "
+                f"{NEAR_TIE} x gap {g:.3e})")
+        hist = [acc.count(m) for m in range(SPEC_K)]
+        say(f"[spec] {name}: rounds accepting 0..{SPEC_K - 1} proposals {hist}; rejections at near-ties {ties}")
+        if name == "planted-miss draft" and not (hist[-1] and sum(hist[1:-1])):
+            raise SystemExit(f"[spec] the planted-miss draft's rounds are not mixed: {hist}")
+    rates = {"plain": decode_rate(torch, lambda n: run(plain, n), SPEC_NEW)}
+    for name, eng in engines.items():
+        rates[name] = decode_rate(torch, lambda n: run(eng, n), SPEC_NEW)
+    say(f"[spec] B=1 decode tokens/s ({card}; {SPEC_NEW} tokens, prefill excluded, medians of 3): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in rates.items()))
+
+    # the speculative pool: every completion equals its solo speculative
+    # stream; with the 1B draft (no proposal accepted), then with the
+    # planted-miss draft over a short cache (rounds accept all, some or
+    # none, rows lag, both caches compact)
+    for name, cache_len, requests in (("1B draft", SPEC_POOL_CACHE, SPEC_POOL_REQUESTS),
+                                      ("planted-miss draft", SPEC_POOL_SHORT_CACHE, SPEC_POOL_LAG_REQUESTS)):
+        stats, counts, hist, lagging = spec_pool(torch, qk, ak, engines[name], plain, cache_len, requests, name,
+                                                 int4_draft=name != "1B draft",
+                                                 planted=planted if name == "planted-miss draft" else None)
+        if counts["flash_decode"] == 0 or counts["int4_gemv"] == 0:
+            raise SystemExit(f"[spec] the {name} pool did not run both kernels: {counts}")
+        if name == "planted-miss draft" and not (stats["spec_accepted"] and hist[-1] and sum(hist[1:-1])
+                                                 and any(lagging)):
+            raise SystemExit(f"[spec] the planted-miss pool accepted no mix of prefixes or compacted no draft "
+                             f"cache while a row lagged: spec_accepted {stats['spec_accepted']}, row-rounds by "
+                             f"accepted {hist}, draft compactions {lagging}")
+    del engines
+    torch.cuda.empty_cache()
+
+    # the server with the prefix cache: two requests sharing a system prompt
+    cached = InferenceEngine(engine.cfg, engine.model, IdTokenizer(), prefix_cache_slots=4)
+    hits, returned = [], []
+    real_lookup = cached._prefix_lookup
+
+    def lookup(*args, **kw):
+        # each request's hit, and a copy of the slots the cache implanted
+        hit, kv = real_lookup(*args, **kw)
+        hits.append(hit)
+        returned.append({key: v[:, :, :, :hit].clone() for key, v in kv.items()})
+        return hit, kv
+
+    cached._prefix_lookup = lookup
+    system = text_of(PREFIX_SYSTEM, 41)
+    questions = [system + " first " + text_of(20, 42), system + " other " + text_of(20, 43)]
+    server = ModelServer(cached, model_id="llama-3.1-8b-width")
+    port = server.start("127.0.0.1", 0)
+    try:
+        server.warmup()
+        texts = []
+        for q in questions:
+            texts.append(post(port, {"prompt": q, "max_tokens": 24, "greedy": True, "repetition_penalty": 1.0})
+                         ["choices"][0]["text"])
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/v1/stats", timeout=60) as resp:
+            stats = json.loads(resp.read())
+    finally:
+        server.stop()
+    shared = PREFIX_SYSTEM + 1  # the system prompt and the space after it
+    want_hit = (len(IdTokenizer().encode(questions[1])) - 1) // 64 * 64
+    want_hit = min(want_hit, shared // 64 * 64)
+    # each request stores its own bucket-aligned prefix (one slab when the
+    # two prefixes are the same tokens): k and v, bf16
+    per_token = 2 * LAYERS * engine.cfg.num_key_value_heads * engine.cfg.head_dim * 2
+    stored = {tuple(ids[: (len(ids) - 1) // 64 * 64]) for ids in map(IdTokenizer().encode, questions)}
+    slab = sum(len(key) * per_token for key in stored)
+    if hits != [0, want_hit] or stats.get("prefix_cache", {}).get("bytes") != slab:
+        raise SystemExit(f"[spec] the prefix cache did not hit the bucket-aligned shared prefix: hits {hits} (want "
+                         f"[0, {want_hit}]), /v1/stats prefix_cache {stats.get('prefix_cache')} (want {slab} bytes)")
+    miss = token_ids("".join(plain.stream_generation(questions[1], max_new_tokens=24, **greedy)))
+    q_ids = IdTokenizer().encode(questions[1])
+    n = len(q_ids)
+    miss_steps, _, miss_gap, _ = replay(torch, plain, q_ids, miss)
+    with torch.inference_mode():
+        cache = -(-(n + 24) // 256) * 256
+        rope = llama.rope_tables(engine.cfg, cache, dev)
+        pids, ppos = plain._pad_prompt(q_ids, cache)
+        cold, cold_kv = plain._chunked_prefill(pids, ppos, plain._init_kv(1, cache), rope, n, keep_pos=n - 1)
+        # what the cache returned to the second request, against the plain
+        # prefill's KV at its slots; then the hit's prefill of the rest on it
+        hit_len, kv = want_hit, plain._init_kv(1, cache)
+        for key, v in returned[1].items():
+            kv[key][:, :, :, :hit_len].copy_(v)
+        kv_rel = max(rel_l2(kv[key][:, :, :, :hit_len].float(), cold_kv[key][:, :, :, :hit_len].float())
+                     for key in ("k", "v"))
+        warm, _ = plain._chunked_prefill(pids, ppos, kv, rope, n, keep_pos=n - 1, start=hit_len)
+        # the plain route split at the hit without the cache: the rounding
+        # that prefilling the rest alone opens, measured apart from the cache
+        _, split_kv = plain._chunked_prefill(pids[:, :hit_len], ppos[:, :hit_len], plain._init_kv(1, cache), rope,
+                                             hit_len)
+        split, _ = plain._chunked_prefill(pids, ppos, split_kv, rope, n, keep_pos=n - 1, start=hit_len)
+        split_gap = float((cold - split).abs().max())
+        hm_rel = rel_l2(warm.float(), cold.float())
+        hs_gap = float((warm - split).abs().max())
+    # the near-tie rule takes its gap from the plain route alone: the split
+    # prefill's, or the verify's against the T=1 decode's on the miss's tokens
+    _, note = near_tie_check("[spec] prefix-cache hit", token_ids(texts[1]), miss, miss_steps, [],
+                                 max(split_gap, miss_gap))
+    say(f"[spec] server --prefix-cache 4, two requests sharing a {PREFIX_SYSTEM}-token system prompt: "
+        f"prefix_cache_hit_tokens {hits} (want [0, {want_hit}]); /v1/stats prefix_cache {stats.get('prefix_cache')} "
+        f"(want {slab} bytes in {len(stored)} slab(s)); the cached KV vs the plain prefill's at its {hit_len} slots "
+        f"relL2 {kv_rel:.2e} (tol 2e-2); the hit's prompt logits vs a miss's relL2 {hm_rel:.2e} (tol 2e-2), vs "
+        f"the plain prefill split at the hit max-abs {hs_gap:.3e}; split vs whole prefill max-abs {split_gap:.3e}; "
+        f"the hit's tokens vs a miss's: {note}")
+    if not (kv_rel <= 2e-2 and hm_rel <= 2e-2):
+        raise SystemExit("[spec] the prefix cache's KV or the hit's prompt logits leave the 2e-2 class of the "
+                         "plain prefill's")
+
+    def ttft(eng, prompt):
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            next(iter(eng.stream_generation(prompt, max_new_tokens=2, **greedy)))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return sorted(times)[1] * 1e3
+
+    say(f"[spec] TTFT of a {len(q_ids)}-token prompt ({card}; medians of 3): prefix-cache hit "
+        f"{ttft(cached, questions[1]):.2f} ms, miss {ttft(plain, questions[1]):.2f} ms")
+    del cached, plain, draft
+    torch.cuda.empty_cache()
+    say(f"[spec] phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
+# [families]: one model per dense family from its public config.json, at
+# its published widths, num_hidden_layers cut to 2, random weights built on
+# the card, int4 projections. Each entry: (repository, config, the decode
+# attention's route on the card).
+PHI3_FACTORS = 48  # rotary dims / 2 of head dim 96
+FAMILY_MODELS = {
+    "qwen2.5-7b": ("Qwen/Qwen2.5-7B", {
+        "model_type": "qwen2", "hidden_act": "silu", "hidden_size": 3584, "intermediate_size": 18944,
+        "max_position_embeddings": 131072, "num_attention_heads": 28, "num_key_value_heads": 4,
+        "rms_norm_eps": 1e-06, "rope_theta": 1000000.0, "sliding_window": 131072, "use_sliding_window": False,
+        "tie_word_embeddings": False, "vocab_size": 152064}, "flash"),
+    "qwen3-8b": ("Qwen/Qwen3-8B", {
+        "model_type": "qwen3", "attention_bias": False, "head_dim": 128, "hidden_act": "silu", "hidden_size": 4096,
+        "intermediate_size": 12288, "max_position_embeddings": 40960, "num_attention_heads": 32,
+        "num_key_value_heads": 8, "rms_norm_eps": 1e-06, "rope_scaling": None, "rope_theta": 1000000,
+        "sliding_window": None, "use_sliding_window": False, "tie_word_embeddings": False, "vocab_size": 151936},
+        "flash"),
+    "mistral-7b-v0.1": ("mistralai/Mistral-7B-v0.1", {
+        "model_type": "mistral", "hidden_act": "silu", "hidden_size": 4096, "intermediate_size": 14336,
+        "max_position_embeddings": 32768, "num_attention_heads": 32, "num_key_value_heads": 8,
+        "rms_norm_eps": 1e-05, "rope_theta": 10000.0, "sliding_window": 4096, "tie_word_embeddings": False,
+        "vocab_size": 32000}, "flash"),
+    "gemma-2-9b": ("google/gemma-2-9b", {
+        "model_type": "gemma2", "attn_logit_softcapping": 50.0, "final_logit_softcapping": 30.0, "head_dim": 256,
+        "hidden_act": "gelu_pytorch_tanh", "hidden_activation": "gelu_pytorch_tanh", "hidden_size": 3584,
+        "intermediate_size": 14336, "max_position_embeddings": 8192, "num_attention_heads": 16,
+        "num_key_value_heads": 8, "query_pre_attn_scalar": 256, "rms_norm_eps": 1e-06, "rope_theta": 10000.0,
+        "sliding_window": 4096, "vocab_size": 256000}, "einsum"),
+    # the cut keeps the published 5:1 pattern's layers 6 and 7 (a local and
+    # the global one), so both rope tables and both masks are used
+    "gemma-3-1b": ("google/gemma-3-1b-pt", {
+        "model_type": "gemma3_text", "attn_logit_softcapping": None, "final_logit_softcapping": None,
+        "head_dim": 256, "hidden_activation": "gelu_pytorch_tanh", "hidden_size": 1152, "intermediate_size": 6912,
+        "max_position_embeddings": 32768, "num_attention_heads": 4, "num_key_value_heads": 1,
+        "query_pre_attn_scalar": 256, "rms_norm_eps": 1e-06, "rope_local_base_freq": 10000, "rope_scaling": None,
+        "rope_theta": 1000000, "sliding_window": 512, "sliding_window_pattern": 6,
+        "layer_types": ["sliding_attention", "full_attention"], "vocab_size": 262144}, "einsum"),
+    # the published long/short factor lists are not in the repo: 48-entry
+    # ramps of their shape stand in (short about 1, long rising to 64)
+    "phi-3-mini-128k": ("microsoft/Phi-3-mini-128k-instruct", {
+        "model_type": "phi3", "hidden_act": "silu", "hidden_size": 3072, "intermediate_size": 8192,
+        "max_position_embeddings": 131072, "original_max_position_embeddings": 4096, "num_attention_heads": 32,
+        "num_key_value_heads": 32, "rms_norm_eps": 1e-05, "rope_theta": 10000.0, "sliding_window": 262144,
+        "rope_scaling": {"type": "longrope",
+                         "short_factor": [1.0 + 0.2 * i / (PHI3_FACTORS - 1) for i in range(PHI3_FACTORS)],
+                         "long_factor": [1.08 * (64.84 / 1.08) ** (i / (PHI3_FACTORS - 1)) for i in
+                                         range(PHI3_FACTORS)]},
+        "tie_word_embeddings": False, "eos_token_id": 32000, "vocab_size": 32064}, "einsum"),
+    "olmo-2-7b": ("allenai/OLMo-2-1124-7B", {
+        "model_type": "olmo2", "hidden_act": "silu", "hidden_size": 4096, "intermediate_size": 11008,
+        "max_position_embeddings": 4096, "num_attention_heads": 32, "num_key_value_heads": 32,
+        "rms_norm_eps": 1e-06, "rope_theta": 500000, "tie_word_embeddings": False, "vocab_size": 100352}, "flash"),
+    # the cut keeps the published pattern's layers 3 and 4 (NoPE every 4th)
+    "smollm3-3b": ("HuggingFaceTB/SmolLM3-3B", {
+        "model_type": "smollm3", "hidden_act": "silu", "hidden_size": 2048, "intermediate_size": 11008,
+        "max_position_embeddings": 65536, "no_rope_layer_interval": 4, "no_rope_layers": [1, 0],
+        "num_attention_heads": 16, "num_key_value_heads": 4, "rms_norm_eps": 1e-06, "rope_theta": 5000000.0,
+        "sliding_window": None, "use_sliding_window": False, "tie_word_embeddings": True, "vocab_size": 128256},
+        "flash"),
+    "glm-4-9b-0414": ("THUDM/GLM-4-9B-0414", {
+        "model_type": "glm4", "attention_bias": True, "head_dim": 128, "hidden_act": "silu", "hidden_size": 4096,
+        "intermediate_size": 13696, "max_position_embeddings": 32768, "num_attention_heads": 32,
+        "num_key_value_heads": 2, "partial_rotary_factor": 0.5, "rms_norm_eps": 1e-05, "rope_theta": 10000.0,
+        "tie_word_embeddings": False, "vocab_size": 151552}, "flash"),
+}
+FAMILY_NEW = 8  # greedy tokens a model
+MISTRAL_PROMPT = 4200  # past the 4096-token window
+PROJECTIONS = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj")
+
+
+def card_quantize(torch, w):
+    """The loader's int4 arithmetic (models/quant.quantize) on the card:
+    per-channel absmax / 7 scales, split-half nibbles."""
+    w32 = w.float()
+    scale = (w32.abs().amax(dim=1, keepdim=True) / 7.0).clamp_min_(1e-12)
+    q = torch.round(w32 / scale).clamp_(-7, 7).to(torch.int8)
+    u = (q + 8).to(torch.uint8)
+    h = u.shape[1] // 2
+    return {"q": u[:, :h] | (u[:, h:] << 4), "scale": scale}
+
+
+def phi3_checkpoint_tensors(torch, params):
+    """The params under Phi-3's HF checkpoint names: q/k/v fused row-wise
+    into qkv_proj, gate/up into gate_up_proj."""
+    out = {"model.embed_tokens.weight": params["embed_tokens"], "model.norm.weight": params["norm"],
+           "lm_head.weight": params["lm_head"]}
+    for i, layer in enumerate(params["layers"]):
+        p = f"model.layers.{i}."
+        out[p + "self_attn.qkv_proj.weight"] = torch.cat([layer["q_proj"], layer["k_proj"], layer["v_proj"]])
+        out[p + "self_attn.o_proj.weight"] = layer["o_proj"]
+        out[p + "mlp.gate_up_proj.weight"] = torch.cat([layer["gate_proj"], layer["up_proj"]])
+        out[p + "mlp.down_proj.weight"] = layer["down_proj"]
+        for key in ("input_layernorm", "post_attention_layernorm"):
+            out[f"{p}{key}.weight"] = layer[key]
+    return {k: v.contiguous().cpu() for k, v in out.items()}
+
+
+def projections(layer):
+    """A decoder layer's seven Projection modules, in PROJECTIONS order."""
+    return [getattr(layer.self_attn if key in PROJECTIONS[:4] else layer.mlp, key) for key in PROJECTIONS]
+
+
+def family_step_check(torch, qk, ak, engine, prompt: str, tag: str, route: str):
+    """One decode step after ``prompt``'s prefill through the kernels and
+    again with both on their plain versions: every projection launches the
+    GEMV, the attention takes ``route``, the logits agree within 2e-2; the
+    kernel's attention is also held to the plain version on the step's own
+    inputs. Returns (logits relL2, attention relL2 or None, the step's
+    masks' valid slots)."""
+    from shardmerge_tpu_torch.models import llama
+
+    model, cfg, dev = engine.model, engine.cfg, engine.device
+    ids = torch.tensor([StubTokenizer().encode(prompt)], device=dev)
+    T = ids.shape[1]
+    cache = -(-(T + 1) // 256) * 256
+    rope = llama.rope_tables(cfg, cache, dev)
+    kv = llama.init_kv_cache(cfg, 1, cache, model.dtype, dev)
+    seen = []
+    kernel = ak.flash_decode
+
+    def recording(*args, **kw):
+        seen.append((args, kw))
+        return kernel(*args, **kw)
+
+    with torch.inference_mode():
+        pids, ppos = engine._pad_prompt(StubTokenizer().encode(prompt), cache)
+        last, kv = engine._chunked_prefill(pids, ppos, kv, rope, T, keep_pos=T - 1)
+        tok = last.argmax(-1)[:, None]
+        step_pos = torch.full((1, 1), T, device=dev)
+        kv_plain = {k: v.clone() for k, v in kv.items()}
+        reset_counts(qk, ak)
+        with mock.patch.object(ak, "flash_decode", recording):
+            with_kernel, _ = model(tok, step_pos, kv, T, rope, T + 1)
+        counts = dict(qk.launch_counts) | dict(ak.launch_counts)
+        with mock.patch.object(llama, "dequant_matmul", lambda x, wq: qk.int4_matmul_plain(x, wq["q"], wq["scale"])), \
+                mock.patch.object(ak, "flash_decode", lambda q, k, v, m, slots=None: ak.flash_decode_plain(q, k, v, m)):
+            with_plain, _ = model(tok, step_pos, kv_plain, T, rope, T + 1)
+        attn = max((rel_l2(kernel(*a, **kw), ak.flash_decode_plain(*a)) for a, kw in seen), default=None)
+        valid = sorted({int((a[3] > -1e8).sum()) for a, _ in seen})
+    if counts.get("int4_gemv", 0) != 7 * LAYERS:
+        raise SystemExit(f"{tag} decode step did not run the GEMV for every projection: {counts}")
+    if route == "flash" and counts.get("flash_decode", 0) != LAYERS:
+        raise SystemExit(f"{tag} decode step did not run the flash kernel in every layer: {counts}")
+    if route == "einsum" and (counts.get("decode_einsum", 0) != LAYERS or counts.get("flash_decode", 0)):
+        raise SystemExit(f"{tag} decode step did not take the counted einsum path: {counts}")
+    rel = rel_l2(with_kernel.float(), with_plain.float())
+    if rel > 2e-2 or not bool(torch.isfinite(with_kernel).all()) or (attn is not None and attn > 1e-5):
+        raise SystemExit(f"{tag} decode step disagrees with the plain route: logits {rel:.2e}, attention {attn}")
+    return rel, attn, valid
+
+
+def phase_families(torch, root: Path, card: str):
+    """Every dense family at its published widths on the card: 8 greedy
+    int4 tokens, one decode step against the plain route, the GEMV at each
+    new (N, K), the decode attention's route; Qwen2.5-7B's layer of GEMVs
+    timed; Phi-3 also through the generate CLI from a fused checkpoint."""
+    from scripts.bench_int4_torch import graph_ms, library_int4
+    from shardmerge_tpu_torch.inference import InferenceEngine, JsonTokenizer
+    from shardmerge_tpu_torch.io.safetensors_io import save_file
+    from shardmerge_tpu_torch.models import attn_kernels as ak
+    from shardmerge_tpu_torch.models import llama
+    from shardmerge_tpu_torch.models import quant_kernels as qk
+    from shardmerge_tpu_torch.models.quant import quantize
+
+    t_phase = time.perf_counter()
+    dev = torch.device(CARD)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    flush = torch.zeros(128 << 20, dtype=torch.uint8, device=dev)
+    launches = {"int4_gemv": 0, "flash_decode": 0, "decode_einsum": 0}
+    gemv_checked = set()
+    for seed, (name, (repo, hf, route)) in enumerate(FAMILY_MODELS.items()):
+        t0 = time.perf_counter()
+        cfg = llama.ModelConfig.from_hf_config({**hf, "num_hidden_layers": LAYERS})
+        params = llama.init_params(cfg, seed=20 + seed, dtype=torch.bfloat16, device=dev)
+        bf16_layers = [dict(layer) for layer in params["layers"]] if name.startswith("phi-3") else None
+        for layer in params["layers"]:
+            for key in PROJECTIONS:
+                layer[key] = card_quantize(torch, layer[key])
+        engine = InferenceEngine(cfg, llama.LlamaModel(cfg, params), StubTokenizer())
+        prompt = text_of(MISTRAL_PROMPT if name.startswith("mistral") else 100, 60 + seed)
+        reset_counts(qk, ak)
+        text = "".join(engine.stream_generation(prompt, max_new_tokens=FAMILY_NEW, greedy=True))
+        torch.cuda.synchronize()
+        counts = {k: ak.launch_counts.get(k, 0) for k in ("flash_decode", "flash_compact", "decode_einsum")}
+        counts["int4_gemv"] = qk.launch_counts["int4_gemv"]
+        for k in launches:
+            launches[k] += counts[k]
+        steps = FAMILY_NEW  # decode forwards of the stream (the last one's logits unread)
+        want_attn = {"flash": {"flash_decode": LAYERS * steps, "decode_einsum": 0},
+                     "einsum": {"flash_decode": 0, "decode_einsum": LAYERS * steps}}[route]
+        if len(text) != FAMILY_NEW or counts["int4_gemv"] != 7 * LAYERS * steps or any(
+                counts[k] != v for k, v in want_attn.items()):
+            raise SystemExit(f"[families] {name}: {len(text)} tokens, launches {counts} (want {want_attn}, "
+                             f"int4_gemv {7 * LAYERS * steps})")
+        if route == "flash" and counts["flash_decode"] != LAYERS * counts["flash_compact"]:
+            # one slot list a step for the one mask kind its layers use
+            raise SystemExit(f"[families] {name}: slot lists not compacted once a step per mask kind: {counts}")
+        rel, attn, valid = family_step_check(torch, qk, ak, engine, prompt, f"[families] {name}", route)
+        # the GEMV at each (N, K) not held yet, B = 1 and 8
+        worst = 0.0
+        for proj in projections(engine.model.layers[0]):
+            n, kh = proj.q.shape
+            if (n, 2 * kh) in gemv_checked:
+                continue
+            gemv_checked.add((n, 2 * kh))
+            for b in (1, 8):
+                x = torch.randn((b, 2 * kh), device=dev, generator=gen).to(torch.bfloat16)
+                worst = max(worst, rel_l2(qk.int4_matmul(x, proj.q, proj.scale).float(),
+                                          qk.int4_matmul_plain(x, proj.q, proj.scale).float()))
+        if worst > 4e-3:
+            raise SystemExit(f"[families] {name}: the GEMV leaves 4e-3 of its plain version ({worst:.2e})")
+        say(f"[families] {name} ({repo}, {LAYERS} layers, int4): {FAMILY_NEW} greedy tokens after a "
+            f"{len(prompt)}-token prompt; launches {counts}; decode step vs plain route: logits relL2 {rel:.2e} "
+            f"(tol 2e-2), attention " + (f"relL2 {attn:.2e} (tol 1e-5), valid slots a row {valid}" if attn is not None
+                                         else f"on the counted einsum path") + f"; GEMV at its new (N, K) relL2 <= "
+            f"{worst:.2e} (tol 4e-3); {time.perf_counter() - t0:.1f} s")
+        if name.startswith("mistral") and not (valid and max(valid) < len(prompt) + 1):
+            raise SystemExit(f"[families] mistral: the sliding window masked no slot ({valid})")
+        if name.startswith("qwen2.5"):
+            # one layer's seven GEMVs at B = 1 and 8: device time, plain, library, bound
+            projs = projections(engine.model.layers[0])
+            shapes = [(p.q.shape[0], 2 * p.q.shape[1]) for p in projs]
+            for b in (1, 8):
+                xs = [torch.randn((b, k), device=dev, generator=gen).to(torch.bfloat16) for _, k in shapes]
+                ms = sum(graph_ms(torch, lambda x=x, p=p: qk.int4_matmul(x, p.q, p.scale), flush)
+                         for x, p in zip(xs, projs))
+                plain = sum(graph_ms(torch, lambda x=x, p=p: qk.int4_matmul_plain(x, p.q, p.scale), flush)
+                            for x, p in zip(xs, projs))
+                libs = [library_int4(torch, p.q, p.scale)[0] for p in projs]
+                lib = None if any(f is None for f in libs) else sum(
+                    graph_ms(torch, lambda x=x, f=f: f(x), flush) for x, f in zip(xs, libs))
+                bound_ms, bound_by = gemv_bound(b, shapes)
+                say(f"[families] Qwen2.5-7B one layer's 7 int4 GEMVs at B={b} ({card}; CUDA-graph device time, L2 "
+                    f"flushed): kernel {ms:.4f} ms, plain {plain:.4f} ms, library int4 "
+                    f"{'not run' if lib is None else f'{lib:.4f} ms'}, bound {bound_ms:.4f} ms ({bound_by})")
+        if bf16_layers is not None:
+            # Phi-3 through the CLI: a fused-projection checkpoint in HF naming
+            phi = root / "phi3"
+            phi.mkdir()
+            bf16 = {**params, "layers": [{**layer, **{k: orig[k] for k in PROJECTIONS}}
+                                         for layer, orig in zip(params["layers"], bf16_layers)]}
+            save_file(phi3_checkpoint_tensors(torch, bf16), phi / "model.safetensors")
+            (phi / "config.json").write_text(json.dumps({**hf, "num_hidden_layers": LAYERS,
+                                                         "architectures": ["Phi3ForCausalLM"]}))
+            write_word_tokenizer(phi, cfg.vocab_size)
+            words = " ".join(f"w{7 + 13 * i}" for i in range(24))
+            out, wall = port_cli(["generate", phi, words, "-4", "--greedy", "--max-tokens", FAMILY_NEW])
+            host_q = {**bf16, "layers": [{**layer, **{k: {t: v.to(dev) for t, v in quantize(layer[k], 4).items()}
+                                                     for k in PROJECTIONS}} for layer in bf16["layers"]]}
+            mem = InferenceEngine(cfg, llama.LlamaModel(cfg, host_q), JsonTokenizer(phi))
+            want = "".join(mem.stream_generation(words, max_new_tokens=FAMILY_NEW, greedy=True))
+            say(f"[families] phi-3 through the CLI: generate -4 --greedy from a fused qkv_proj/gate_up_proj "
+                f"checkpoint in {wall:.1f} s: {out.strip()!r}; the in-memory model (host int4 of the same "
+                f"weights): {want!r}")
+            if out.rstrip("\n") != want:
+                raise SystemExit("[families] phi-3: the CLI's tokens differ from the in-memory model's")
+            shutil.rmtree(phi)
+            del mem, host_q, bf16, bf16_layers
+        del engine, params
+        torch.cuda.empty_cache()
+    del flush
+    say(f"[families] launches over the nine models' decodes: {launches}")
+    say(f"[families] phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
+def write_word_tokenizer(path: Path, vocab: int):
+    """A word-level tokenizer.json: word ``w{i}`` is token i."""
+    from tokenizers import Tokenizer, models, pre_tokenizers
+
+    tok = Tokenizer(models.WordLevel({f"w{i}": i for i in range(vocab)}, unk_token="w0"))
+    tok.pre_tokenizer = pre_tokenizers.Whitespace()
+    tok.save(str(path / "tokenizer.json"))
+
+
 def main() -> int:
     import torch
 
@@ -2291,6 +3106,12 @@ def main() -> int:
         lap("generate")
         launches = phase_serve(torch, engine)
         lap("serve")
+        phase_spec(torch, engine, card)
+        lap("spec")
+        del engine
+        torch.cuda.empty_cache()
+        phase_families(torch, root, card)
+        lap("families")
     finally:
         shutil.rmtree(root, ignore_errors=True)
 

@@ -1,5 +1,5 @@
 """Continuous batching: requests join and leave a running decode pool
-(counterpart of shardmerge_tpu/batching.py, without its speculative pool).
+(counterpart of shardmerge_tpu/batching.py).
 
 A FIXED pool of B cache rows advances every row by one token (or S with
 ``decode_chunk``) per step of the engine's batched decode; new requests join
@@ -16,11 +16,12 @@ Design (the JAX pool's, with its buffers updated in place):
   axis. Each decode attention is one T=1 call of the flash-decode kernel on
   the card, which reads only each row's valid slots.
 - A request joining at frontier ``t`` prefills its prompt OFF-POOL in a
-  batch-1 cache, then IMPLANTS the slab at slots [0, Lp) of a free row. The
-  dead span [Lp, t) is masked out; RoPE positions stay contiguous because
-  decode positions are slot - pad with pad = t - Lp. The per-slot position
-  map (``key_positions``) is kept on the device and stamped by each step
-  for the windowed families; the Llama forward does not read it.
+  batch-1 cache (from the engine's prefix cache where it holds a shared
+  prefix), then IMPLANTS the slab at slots [0, Lp) of a free row. The dead
+  span [Lp, t) is masked out; RoPE positions stay contiguous because decode
+  positions are slot - pad with pad = t - Lp. The per-slot position map
+  (``key_positions``) is kept on the device and stamped by each step, so
+  sliding windows compare true positions across the gap.
 - Admission is CHUNKED against active decode: while any row is decoding, at
   most ONE ``prefill_chunk``-token slice of the joining prompt runs between
   pool steps, so a long prompt stalls the running streams by one slice, not
@@ -31,6 +32,14 @@ Design (the JAX pool's, with its buffers updated in place):
   cache buffer moves every row's live slots to the front, rebasing the
   frontier to the longest live row. A row's live length is bounded by its
   prompt + budget (enforced at submit), so compaction always makes progress.
+- With a draft model loaded (``engine.draft_cfg``) the pool decodes
+  SPECULATIVELY: each step is one pooled round (:meth:`ContinuousEngine.
+  _pool_spec_round`: k-1 draft proposals per row and one target verify over
+  all k positions of all B rows), one host sync for up to k tokens a row.
+  Rows accept different prefix lengths; both caches burn k slots a round
+  at shared frontiers and each row's rejected slots are masked invalid, the
+  join gaps' machinery. Greedy output equals the solo stream paths'
+  (speculative and plain), up to the (B, k)-vs-(1, 1) rounding near-ties.
 
 Sampling is per request for temperature / top_p / repetition_penalty (they
 ride as (B, 1) tensors into the sampler); ``top_k`` and ``greedy`` are pool
@@ -59,7 +68,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from .inference import _CACHE_BUCKET, _PROMPT_BUCKET, InferenceEngine, _find_stop
+from .inference import _CACHE_BUCKET, _PROMPT_BUCKET, InferenceEngine, _find_stop, _greedy_verify, _penalized
 from .models.llama import rope_tables
 
 logger = logging.getLogger(__name__)
@@ -107,14 +116,17 @@ class _Admission:
     of the request currently joining the pool."""
 
     handle: Completion
+    ids: List[int]
     Lp: int  # true prompt length
     budget: int
     pids: torch.Tensor  # (1, L) padded prompt ids
     ppos: torch.Tensor  # (1, L) positions
     kv1: dict  # batch-1 prefill cache (bucketed prompt length)
-    next_c0: int = 0  # first unprefilled slot
+    next_c0: int = 0  # first unprefilled slot (prefix-cache hits skip ahead)
     row_logits: Optional[torch.Tensor] = None  # (1, V) logits at Lp-1
     complete: bool = False
+    d_kv1: Optional[dict] = None  # spec mode: the draft's batch-1 cache
+    d_next_c0: int = 0  # spec mode: the draft's prefill progress
 
 
 def _compact_pool(kv, key_pos, idx):
@@ -131,17 +143,23 @@ def _compact_pool(kv, key_pos, idx):
     key_pos.copy_(torch.gather(key_pos, 1, idx))
 
 
-def _implant_row(kv, slab, last, row_logits, gen_mask, key_pos, b: int):
-    """Install a prefilled request into pool row ``b``, in place: the
-    batch-1 cache at slots [0, slab_len), the row's next-token logits, an
-    empty repetition-penalty history, and positions 0..slab_len in the
-    slot -> position map."""
+def _implant_cache(kv, slab, key_pos, b: int):
+    """Install a batch-1 prefill cache into pool row ``b`` at slots
+    [0, slab_len), in place, with positions 0..slab_len in the slot ->
+    position map (the target's and the draft's pools alike)."""
     slab_len = slab["k"].shape[3]
     for name, buf in kv.items():
         buf[:, b : b + 1, :, :slab_len].copy_(slab[name])
+    key_pos[b, :slab_len] = torch.arange(slab_len, device=key_pos.device)
+
+
+def _implant_row(kv, slab, last, row_logits, gen_mask, key_pos, b: int):
+    """Install a prefilled request into pool row ``b``, in place: its cache
+    (:func:`_implant_cache`), the row's next-token logits and an empty
+    repetition-penalty history."""
+    _implant_cache(kv, slab, key_pos, b)
     last[b].copy_(row_logits[0])
     gen_mask[b] = False
-    key_pos[b, :slab_len] = torch.arange(slab_len, device=key_pos.device)
 
 
 class ContinuousEngine:
@@ -180,6 +198,14 @@ class ContinuousEngine:
     ):
         if slots < 1:
             raise ValueError("continuous batching needs at least one slot")
+        self.spec = engine.draft_cfg is not None
+        if self.spec and not greedy:
+            raise ValueError(
+                "the speculative pool verifies against target-greedy tokens; construct the pool with "
+                "greedy=True (sampled requests bypass the pool anyway)"
+            )
+        if self.spec and decode_chunk != 1:
+            raise ValueError("speculative rounds take up to k tokens a step; decode_chunk must be 1")
         self.engine = engine
         # admission prefill slice (tokens): the bound on how long an
         # arriving prompt may stall active decode between two pool steps;
@@ -221,6 +247,25 @@ class ContinuousEngine:
         self._pos_next = np.zeros(self.B, np.int64)  # next sequence position
         self._budget_left = np.zeros(self.B, np.int64)
 
+        # speculative pool state: a pooled draft cache with the target
+        # pool's slot discipline (its own frontier, validity and slot ->
+        # position map) and each row's pending-token bookkeeping
+        if self.spec:
+            self.k = engine.speculation_k
+            self._d_kv = engine._init_draft_kv(self.B, self.cache_len)
+            self._d_rope = rope_tables(engine.draft_cfg, self.cache_len, dev)
+            self._kp_d = torch.zeros((self.B, self.cache_len), dtype=torch.int64, device=dev)
+            self._valid_d = np.zeros((self.B, self.cache_len), bool)
+            self._valid_d_dev = torch.as_tensor(self._valid_d, device=dev)
+            self._valid_d_dirty = False
+            self._t_d = 0  # draft frontier
+            self._x1 = np.zeros(self.B, np.int64)  # pending tokens
+            self._pos_x1 = np.ones(self.B, np.int64)  # their positions
+            self._catch_tok = np.zeros(self.B, np.int64)
+            self._lag = np.zeros(self.B, bool)
+            self._prev_fed = np.zeros((self.B, self.k), np.int64)
+            self._prev_m = np.full(self.B, -1, np.int64)
+
         # the lock guards ONLY the queue and lifecycle flags; pool/device
         # state belongs to the single driving thread
         self._queue: deque = deque()
@@ -238,6 +283,9 @@ class ContinuousEngine:
             "admission_chunks": 0,  # prefill slices run between pool steps
             "admission_chunk_ms_max": 0.0,  # worst single-slice stall
         }
+        if self.spec:
+            self.stats["spec_rounds"] = 0
+            self.stats["spec_accepted"] = 0  # draft tokens the target approved
         # latency windows (bounded): per-request TTFT (submit -> first
         # token), TPOT (mean inter-token time after the first), queue wait
         # (submit -> join), and per-admission-slice stalls
@@ -266,6 +314,14 @@ class ContinuousEngine:
     def _budget(self, max_new_tokens: int) -> int:
         return -(-max_new_tokens // self.S) * self.S
 
+    def _capacity_need(self, n_ids: int, max_new_tokens: int) -> int:
+        """Cache slots a request may take before compaction reclaims it:
+        prompt + decode budget, or in the speculative pool prompt + budget +
+        k (its rounds always write k slots past the live frontier)."""
+        if self.spec:
+            return n_ids + max_new_tokens + self.k
+        return n_ids + self._budget(max_new_tokens)
+
     def fits(
         self,
         prompt: str,
@@ -280,7 +336,7 @@ class ContinuousEngine:
         submitting ANY: a mid-batch rejection would otherwise strand the
         already-submitted ones decoding results nobody reads."""
         ids = self._encode(prompt, use_template, system_prompt, previous_messages)
-        return 0 < len(ids) + self._budget(max_new_tokens) <= self.cache_len
+        return 0 < self._capacity_need(len(ids), max_new_tokens) <= self.cache_len
 
     def submit(
         self,
@@ -297,7 +353,7 @@ class ContinuousEngine:
         ids = self._encode(prompt, use_template, system_prompt, previous_messages)
         if not ids:
             raise ValueError("empty prompt after encoding")
-        if len(ids) + self._budget(max_new_tokens) > self.cache_len:
+        if self._capacity_need(len(ids), max_new_tokens) > self.cache_len:
             raise ValueError(
                 f"prompt ({len(ids)} tokens) + budget exceeds the pool "
                 f"cache ({self.cache_len}); raise cache_len or shorten"
@@ -329,30 +385,41 @@ class ContinuousEngine:
                 return b
         return None
 
-    def _compact(self):
-        """Drop dead slots from every row; rebase the frontier."""
+    def _compact_buffers(self, kv, key_pos, valid: np.ndarray, t: int) -> int:
+        """Gather every live row's valid slots below ``t`` to the front of
+        ``kv`` and ``key_pos``; mark the moved slots and every slot from the
+        new frontier on valid. Returns the new frontier (the longest live
+        row)."""
         idx = np.zeros((self.B, self.cache_len), np.int64)
         live_len = np.zeros(self.B, np.int64)
-        new_t = 0
         for b in range(self.B):
-            if self._rows[b] is None:
-                continue
-            live = np.nonzero(self._valid[b, : self._t])[0]
-            idx[b, : len(live)] = live
-            live_len[b] = len(live)
-            new_t = max(new_t, len(live))
-        _compact_pool(self._kv, self._kp, torch.as_tensor(idx, device=self.engine.device))
-        self._t = new_t
-        self._valid[:] = False
+            if self._rows[b] is not None:
+                live = np.nonzero(valid[b, :t])[0]
+                idx[b, : len(live)] = live
+                live_len[b] = len(live)
+        new_t = int(live_len.max())
+        _compact_pool(kv, key_pos, torch.as_tensor(idx, device=self.engine.device))
+        valid[:] = False
         for b in range(self.B):
-            if self._rows[b] is None:
-                continue
-            self._valid[b, : live_len[b]] = True
-            self._valid[b, new_t:] = True  # future decode slots
-            # the row's next token continues its sequence at the new frontier
-            self._pad[b] = new_t - self._pos_next[b]
-        self._valid_dirty = True
+            if self._rows[b] is not None:
+                valid[b, : live_len[b]] = True
+                valid[b, new_t:] = True  # future decode slots
         self.stats["compactions"] += 1
+        return new_t
+
+    def _compact(self):
+        """Drop dead slots from every row; rebase the frontier."""
+        self._t = self._compact_buffers(self._kv, self._kp, self._valid, self._t)
+        for b in range(self.B):
+            if self._rows[b] is not None:
+                # the row's next token continues its sequence at the new frontier
+                self._pad[b] = self._t - self._pos_next[b]
+        self._valid_dirty = True
+
+    def _compact_draft(self):
+        """Spec mode: compact the pooled draft cache (the same discipline)."""
+        self._t_d = self._compact_buffers(self._d_kv, self._kp_d, self._valid_d, self._t_d)
+        self._valid_d_dirty = True
 
     def _jump_frontier(self, to: int):
         """Advance the global frontier; other rows mask the skipped span."""
@@ -366,55 +433,89 @@ class ContinuousEngine:
         self._valid_dirty = True
         self.stats["frontier_jumps"] += 1
 
+    def _jump_frontier_d(self, to: int):
+        """Spec mode: advance the draft frontier past a joining prompt."""
+        assert to > self._t_d
+        for b in range(self.B):
+            if self._rows[b] is not None:
+                self._valid_d[b, self._t_d : to] = False
+        self._t_d = to
+        self._valid_d_dirty = True
+        self.stats["frontier_jumps"] += 1
+
     def _begin_admission(self, handle: Completion) -> None:
-        """Open the off-pool batch-1 prefill for the next queued request."""
+        """Open the off-pool batch-1 prefill for the next queued request,
+        from the prefix cache's slab where one matches."""
+        engine = self.engine
         ids = handle._input_ids  # type: ignore[attr-defined]
         Lp = len(ids)
         pcache = min(-(-Lp // _CACHE_BUCKET) * _CACHE_BUCKET, self.cache_len)
-        pids, ppos = self.engine._pad_prompt(ids, pcache)
+        pids, ppos = engine._pad_prompt(ids, pcache)
+        d_kv1, hit, d_hit = None, 0, 0
         with self._dev():
-            kv1 = self.engine._init_kv(1, pcache)
+            kv1 = engine._init_kv(1, pcache)
+            if engine.prefix_cache_slots > 0:
+                hit, kv1 = engine._prefix_lookup(ids, Lp, kv1)
+            if self.spec:
+                d_kv1 = engine._init_draft_kv(1, pcache)
+                if engine.prefix_cache_slots > 0:
+                    d_hit, d_kv1 = engine._prefix_lookup(ids, Lp, d_kv1, "d")
         self._admitting = _Admission(
             handle=handle,
+            ids=ids,
             Lp=Lp,
             budget=self._budget(handle.max_new_tokens),
             pids=pids,
             ppos=ppos,
             kv1=kv1,
+            next_c0=hit,
+            d_kv1=d_kv1,
+            d_next_c0=d_hit,
         )
 
     def _advance_admission(self) -> None:
-        """Run ONE prefill slice of the in-flight admission.
+        """Run ONE prefill slice of the in-flight admission: the target's
+        slices, then (spec mode) the draft's, one model's slice per call.
 
         The loop body of engine._chunked_prefill, returning after a single
-        slice: the pool interleaves slices with decode steps. Waits for the
-        slice's device work so the recorded stall is the real one."""
-        adm = self._admitting
+        slice: the pool interleaves slices with decode steps. A finished
+        prefill stores its prefix slab when the prefix cache is on. Waits
+        for the slice's device work so the recorded stall is the real one."""
+        adm, engine = self._admitting, self.engine
         L = adm.pids.shape[1]
-        c0 = adm.next_c0
-        c1 = min(c0 + self.prefill_chunk, L)
-        keep = adm.Lp - 1
+        target_done = adm.next_c0 >= L
         t0 = time.monotonic()
         with self._dev():
-            logits, adm.kv1 = self.engine.model(
-                adm.pids[:, c0:c1],
-                adm.ppos[:, c0:c1],
-                adm.kv1,
-                c0,
-                self._rope,
-                min(c1, adm.Lp),
-            )
-            if c0 <= keep < c1:
-                adm.row_logits = logits[:, keep - c0, :]
+            if not target_done:
+                c0 = adm.next_c0
+                c1 = min(c0 + self.prefill_chunk, L)
+                keep = adm.Lp - 1
+                logits, adm.kv1 = engine.model(
+                    adm.pids[:, c0:c1], adm.ppos[:, c0:c1], adm.kv1, c0, self._rope, min(c1, adm.Lp)
+                )
+                if c0 <= keep < c1:
+                    adm.row_logits = logits[:, keep - c0, :]
+                adm.next_c0 = c1
+                target_done = c1 >= L
+                if target_done and engine.prefix_cache_slots > 0:
+                    engine._prefix_store(adm.ids, adm.Lp, adm.kv1)
+            else:
+                c0 = adm.d_next_c0
+                c1 = min(c0 + self.prefill_chunk, L)
+                logits, adm.d_kv1 = engine.draft_model(
+                    adm.pids[:, c0:c1], adm.ppos[:, c0:c1], adm.d_kv1, c0, self._d_rope, min(c1, adm.Lp)
+                )
+                adm.d_next_c0 = c1
+                if c1 >= L and engine.prefix_cache_slots > 0:
+                    engine._prefix_store(adm.ids, adm.Lp, adm.d_kv1, "d")
             if logits.is_cuda:
                 torch.cuda.synchronize(logits.device)
-        adm.next_c0 = c1
         ms = (time.monotonic() - t0) * 1e3
         self.stats["admission_chunks"] += 1
         self._admission_ms.append(ms)
         if ms > self.stats["admission_chunk_ms_max"]:
             self.stats["admission_chunk_ms_max"] = round(ms, 3)
-        adm.complete = c1 >= L
+        adm.complete = target_done and (not self.spec or adm.d_next_c0 >= L)
 
     def _try_implant(self) -> bool:
         """Install the completed admission into a free row; False when the
@@ -424,21 +525,36 @@ class ContinuousEngine:
         if b is None:
             return False
         Lp, budget = adm.Lp, adm.budget
+        # headroom this join must find now: the decode budget, or one verify
+        # block in the speculative pool (which compacts as rounds fill it)
+        head = self.k if self.spec else budget
         t_join = max(self._t, Lp)
-        if t_join + budget > self.cache_len:
+        if t_join + head > self.cache_len:
             with self._dev():
                 self._compact()
             t_join = max(self._t, Lp)
-            if t_join + budget > self.cache_len:
+            if t_join + head > self.cache_len:
                 return False  # genuinely full: wait for a row to finish
+        if self.spec:
+            td_join = max(self._t_d, Lp)
+            if td_join + self.k > self.cache_len:
+                with self._dev():
+                    self._compact_draft()
+                td_join = max(self._t_d, Lp)
+                if td_join + self.k > self.cache_len:
+                    return False
         if t_join > self._t:
             self._jump_frontier(t_join)
+        if self.spec and td_join > self._t_d:
+            self._jump_frontier_d(td_join)
 
         handle = adm.handle
         with self._dev():
             _implant_row(
                 self._kv, adm.kv1, self._last, adm.row_logits, self._gen_mask, self._kp, b
             )
+            if self.spec:
+                _implant_cache(self._d_kv, adm.d_kv1, self._kp_d, b)
         self._rows[b] = handle
         self._valid[b, :] = True
         self._valid[b, Lp : self._t] = False  # the join gap
@@ -453,6 +569,20 @@ class ContinuousEngine:
         handle.joined_at = time.monotonic()
         self.stats["joins"] += 1
         self._admitting = None
+        if self.spec:
+            self._valid_d[b, :] = True
+            self._valid_d[b, Lp : self._t_d] = False
+            self._valid_d_dirty = True
+            self._prev_m[b] = -1
+            self._lag[b] = False
+            self._catch_tok[b] = 0
+            self._pos_x1[b] = Lp
+            # the first pending token: the plain argmax of the prompt's
+            # logits (empty penalty history), the solo path's first token
+            x1 = int(torch.argmax(adm.row_logits))
+            self._x1[b] = x1
+            handle.first_token_at = time.monotonic()
+            self._emit(b, handle, x1)
         return True
 
     def _finish(self, b: int, reason: str):
@@ -460,6 +590,14 @@ class ContinuousEngine:
         self._rows[b] = None
         self._valid[b, :] = False
         self._valid_dirty = True
+        if self.spec:
+            self._valid_d[b, :] = False
+            self._valid_d_dirty = True
+            self._prev_m[b] = -1
+            self._x1[b] = 0
+            self._catch_tok[b] = 0
+            self._lag[b] = False
+            self._pos_x1[b] = 1  # keeps the catch-up position non-negative
         handle.finish_reason = reason
         handle.text = self.engine.tokenizer.decode(handle.token_ids, skip_special_tokens=True)
         if handle._stop_cut is not None:
@@ -482,7 +620,10 @@ class ContinuousEngine:
 
     @torch.inference_mode()
     def _step(self):
-        """One pool step: every row advances S slots."""
+        """One pool step: every row advances S slots (decode pool) or by one
+        speculative round of up to k tokens (spec pool)."""
+        if self.spec:
+            return self._step_spec()
         t, S = self._t, self.S
         if t + S > self.cache_len:
             with self._dev():
@@ -525,19 +666,140 @@ class ContinuousEngine:
             if handle.first_token_at is None:
                 handle.first_token_at = now
             for s in range(S):
-                if len(handle.token_ids) >= handle.max_new_tokens:
+                if self._emit(b, handle, toks[s][b]):
                     break
-                tid = toks[s][b]
-                if tid in self._eos:
-                    self._finish(b, "stop")
-                    break
-                handle.token_ids.append(tid)
-                if handle.stop and self._check_stop(b, handle):
-                    break
-            if self._rows[b] is not None and (
-                len(handle.token_ids) >= handle.max_new_tokens or self._budget_left[b] <= 0
-            ):
+            if self._rows[b] is not None and self._budget_left[b] <= 0:
                 self._finish(b, "length")
+
+    def _pool_spec_round(self, t: int, t_d: int) -> torch.Tensor:
+        """One pooled speculative round, queued on the device.
+
+        The pooled form of the engine's ``_spec_round``: last round's
+        emitted tokens fold into the penalty history (``_gen_mask``) from
+        (prev_fed, prev_m); both slot -> position maps are stamped for the
+        round's slots; the draft's catch-up runs for EVERY row at draft slot
+        t_d (a row that does not lag has that slot masked invalid, so the
+        write is inert); k-1 chained draft proposals continue each row's
+        pending token; the target verifies all k positions of all rows in
+        one forward, each position's penalty mask assuming the earlier
+        proposals were emitted. Returns (B, 2k-1) [proposals | verify
+        argmaxes] for the round's one host sync."""
+        k, B, eng = self.k, self.B, self.engine
+        dev = eng.device
+        rows = torch.arange(B, device=dev)
+        prev_fed = torch.as_tensor(self._prev_fed, device=dev)
+        fold = torch.as_tensor(np.arange(k)[None, :] <= self._prev_m[:, None], device=dev)
+        self._gen_mask[rows[:, None].expand(B, k)[fold], prev_fed[fold]] = True
+        pos_x1 = torch.as_tensor(self._pos_x1[:, None], device=dev)
+        x1 = torch.as_tensor(self._x1, device=dev)
+        rp = torch.as_tensor(self._rep[:, None], device=dev)
+        steps = torch.arange(k, device=dev)[None, :]
+        self._kp[:, t : t + k] = pos_x1 + steps
+        self._kp_d[:, t_d : t_d + k] = torch.cat([pos_x1 - 1, pos_x1 + steps[:, : k - 1]], dim=1)
+
+        def draft_at(ids, pos, slot):
+            return eng.draft_model(
+                ids[:, None], pos, self._d_kv, slot, self._d_rope, t_d + k,
+                mask_positions=torch.full((B, 1), slot, dtype=torch.int64, device=dev),
+                token_valid=self._valid_d_dev, key_positions=self._kp_d,
+            )[0]
+
+        draft_at(torch.as_tensor(self._catch_tok, device=dev), pos_x1 - 1, t_d)
+        mask = self._gen_mask.clone()
+        mask[rows, x1] = True
+        prev, props = x1, []
+        for i in range(k - 1):
+            lg = draft_at(prev, pos_x1 + i, t_d + 1 + i)[:, -1]
+            prev = torch.argmax(torch.where(mask, _penalized(lg, rp), lg), dim=-1)
+            mask[rows, prev] = True
+            props.append(prev)
+        props = torch.stack(props, dim=1)  # (B, k-1)
+        fed = torch.cat([x1[:, None], props], dim=1)  # (B, k)
+        v_logits, _ = eng.model(
+            fed, pos_x1 + steps, self._kv, t, self._rope, t + k, mask_positions=(steps + t).expand(B, k),
+            token_valid=self._valid_dev, key_positions=self._kp,
+        )
+        y = _greedy_verify(v_logits, self._gen_mask, fed, rp[:, :, None])
+        return torch.cat([props, y], dim=1)
+
+    def _step_spec(self):
+        """One pooled speculative round: every live row advances by its own
+        accepted prefix and pending token (1..k tokens); both caches burn k
+        slots at the shared frontiers and rejected slots go invalid."""
+        k = self.k
+        if self._t + k > self.cache_len:
+            with self._dev():
+                self._compact()
+        if self._t_d + k > self.cache_len:
+            with self._dev():
+                self._compact_draft()
+        if self._t + k > self.cache_len or self._t_d + k > self.cache_len:
+            raise RuntimeError("pool cache exhausted beyond compaction")
+        t, t_d = self._t, self._t_d
+        # the catch-up slot is live only for rows whose whole proposal block
+        # was accepted last round
+        for b in range(self.B):
+            if self._rows[b] is not None:
+                self._valid_d[b, t_d] = bool(self._lag[b])
+        dev = self.engine.device
+        if self._valid_dirty:
+            self._valid_dev = torch.as_tensor(self._valid, device=dev)
+            self._valid_dirty = False
+        self._valid_d_dev = torch.as_tensor(self._valid_d, device=dev)
+        self._valid_d_dirty = False
+        with self._dev():
+            arr = self._pool_spec_round(t, t_d).tolist()  # (B, 2k-1): the round's one sync
+        self._t = t + k
+        self._t_d = t_d + k
+        self.stats["decode_dispatches"] += 1
+        self.stats["spec_rounds"] += 1
+
+        for b in range(self.B):
+            row = self._rows[b]
+            if row is None:
+                self._prev_m[b] = -1
+                continue
+            props, y = arr[b][: k - 1], arr[b][k - 1 :]
+            fed = [int(self._x1[b])] + props
+            m = 0
+            while m < k - 1 and y[m] == fed[m + 1]:
+                m += 1
+            self.stats["spec_accepted"] += m
+            # target slots [t, t+m] hold x1 and the accepted proposals; the
+            # rest of the block was rejected speculation
+            self._valid[b, t + m + 1 : t + k] = False
+            # draft slot t_d+1+i consumed [x1, d1..d_{k-2}][i]: live through
+            # the accepted prefix; the catch-up slot keeps its validity
+            self._valid_d[b, t_d + 2 + min(m, k - 2) : t_d + k] = False
+            # emit the accepted proposals, then the new pending token (the
+            # target's argmax at the first mismatch): the solo path's order
+            if any(self._emit(b, row, tok) for tok in fed[1 : m + 1] + [y[m]]):
+                continue
+            self._x1[b] = y[m]
+            self._pos_x1[b] += m + 1
+            self._pos_next[b] = self._pos_x1[b]
+            full = m == k - 1
+            self._lag[b] = full
+            self._catch_tok[b] = props[k - 2] if full else 0
+            self._prev_fed[b] = fed
+            self._prev_m[b] = m
+        self._valid_dirty = True
+        self._valid_d_dirty = True
+
+    def _emit(self, b: int, handle: Completion, tok: int) -> bool:
+        """Append one token to row ``b``, shared by both pools and the
+        join; True when it finished the row: EOS (not appended), a stop
+        sequence or the row's ``max_new_tokens``."""
+        if tok in self._eos:
+            self._finish(b, "stop")
+            return True
+        handle.token_ids.append(tok)
+        if handle.stop and self._check_stop(b, handle):
+            return True
+        if len(handle.token_ids) >= handle.max_new_tokens:
+            self._finish(b, "length")
+            return True
+        return False
 
     def _check_stop(self, b: int, handle: Completion) -> bool:
         """OpenAI stop sequences: finish the row at the earliest occurrence

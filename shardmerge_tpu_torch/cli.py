@@ -6,8 +6,8 @@ The twelve commands of the JAX CLI, with its option names::
           [--cache-dir D] [--clean_cache] [--write-through] [--token T]
           [--profile] [--trace-dir D]
     copy-model CONFIG [--revision R] [--token T]
-    generate MODEL_DIR PROMPT [-4|-8] [--greedy] ...
-    serve MODEL_DIR [-4|-8] [--continuous N] [--port P] ...
+    generate MODEL_DIR PROMPT [-4|-8] [--greedy] [--draft-model D] [--speculation-k K] ...
+    serve MODEL_DIR [-4|-8] [--continuous N] [--port P] [--draft-model D] [--prefix-cache N] ...
     quantize SRC DST [--bits 4|8] [--no-check]
     verify-safetensors --model_dir D [--index_path P] [--repair]
     fuse-lora BASE ADAPTER OUT [--scale S] [--device cpu]
@@ -25,10 +25,9 @@ when it finishes. The device is a CUDA card unless ``--device cpu`` is
 given (or the config's ``device`` is ``cpu``); with no card and no such
 request the command fails instead of running on the host. Errors print
 ``error: ...`` and exit 2. The mesh-sharded merge (config fields
-``shard_tensors``, ``distributed``), speculative decoding
-(``--draft-model``, ``--speculation-k``), the prefix cache
-(``--prefix-cache``), tensor-parallel decoding (``--shard``) and chunked
-decode (``generate --decode-chunk``) are refused by name.
+``shard_tensors``, ``distributed``), tensor-parallel decoding
+(``--shard``) and chunked decode (``generate --decode-chunk``) are refused
+by name.
 """
 
 from __future__ import annotations
@@ -285,14 +284,15 @@ def _refuse(**options) -> None:
 def _generate(args) -> int:
     from .inference import InferenceEngine
 
-    _refuse(**{"--draft-model": args.draft_model is not None, "--speculation-k": args.speculation_k != 4,
-               "--shard": args.shard, "--decode-chunk": args.decode_chunk != 1})
+    _refuse(**{"--shard": args.shard, "--decode-chunk": args.decode_chunk != 1})
     dev = resolve_device(args.device)
     engine = InferenceEngine.from_pretrained(
         args.model_path,
         load_in_4bit=args.load_in_4bit,
         load_in_8bit=args.load_in_8bit,
         device=dev,
+        draft_model=args.draft_model,
+        speculation_k=args.speculation_k,
     )
     for chunk in engine.stream_generation(
         prompt=args.prompt,
@@ -312,7 +312,6 @@ def _generate(args) -> int:
 def _serve(args) -> int:
     from .serve import serve
 
-    _refuse(**{"--speculation-k": args.speculation_k != 4})
     server = serve(
         args.model_path,
         host=args.host,
@@ -320,6 +319,7 @@ def _serve(args) -> int:
         load_in_4bit=args.load_in_4bit,
         load_in_8bit=args.load_in_8bit,
         draft_model=args.draft_model,
+        speculation_k=args.speculation_k,
         shard=args.shard,
         batch_window_ms=args.batch_window_ms,
         prefix_cache=args.prefix_cache,
@@ -475,8 +475,9 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("-8", "--load-in-8bit", action="store_true")
     g.add_argument("--seed", type=int, default=0)
     g.add_argument("--device", default=None, help="'cpu' runs on the host")
-    g.add_argument("--draft-model", type=_existing, default=None, help="not ported yet")
-    g.add_argument("--speculation-k", type=int, default=4, help="not ported yet")
+    g.add_argument("--draft-model", type=_existing, default=None,
+                   help="smaller same-vocab checkpoint for speculative decoding (greedy only; same tokens)")
+    g.add_argument("--speculation-k", type=int, default=4, help="speculative tokens per round")
     g.add_argument("--shard", action="store_true", help="not ported yet")
     g.add_argument("--decode-chunk", type=_int_range(1, 64), default=1, help="not ported yet")
     g.add_argument("--verbose", action="store_true")
@@ -511,10 +512,15 @@ def build_parser() -> argparse.ArgumentParser:
         help="run the serving hot path once (and build the kernels) before the port opens",
     )
     s.add_argument("--device", default=None, help="'cpu' runs on the host")
-    s.add_argument("--draft-model", default=None, help="not ported yet")
-    s.add_argument("--speculation-k", type=int, default=4, help="not ported yet")
+    s.add_argument("--draft-model", type=_existing, default=None,
+                   help="speculative-decoding draft checkpoint (greedy requests)")
+    s.add_argument("--speculation-k", type=int, default=4, help="speculative tokens per round")
     s.add_argument("--shard", action="store_true", help="not ported yet")
-    s.add_argument("--prefix-cache", type=_int_range(0, 64), default=0, help="not ported yet")
+    s.add_argument(
+        "--prefix-cache", type=_int_range(0, 64), default=0,
+        help="keep N prompt-prefix KV slabs on the device: single-prompt requests sharing "
+        "a system prompt skip its prefill (0 = off)",
+    )
     s.add_argument("--verbose", action="store_true")
     s.set_defaults(func=_serve)
 

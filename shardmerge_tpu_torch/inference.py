@@ -1,5 +1,5 @@
-"""Inference engine: streaming, batched and pooled generation (counterpart
-of shardmerge_tpu/inference.py).
+"""Inference engine: streaming, batched, pooled and speculative generation
+(counterpart of shardmerge_tpu/inference.py).
 
 The JAX engine jits one forward for chunked prefill and fuses sampling with
 the next forward, S steps per dispatch (``decode_chunk``). PyTorch runs
@@ -10,13 +10,21 @@ prompt and cache bucketing, the same masks, greedy tokens identical on the
 same weights. The continuous pool (batching.py) and the HTTP server
 (serve.py) drive the same methods.
 
-Not ported yet: speculative decoding, the prefix cache and the mesh-sharded
-engine.
+With a draft model, greedy streams decode speculatively
+(:meth:`InferenceEngine._stream_speculative`: one :func:`_spec_round` per
+round of up to k tokens, one host sync per round). With
+``prefix_cache_slots`` the KV slabs of bucket-aligned prompt prefixes stay
+on the device (LRU over slots and bytes) and a request sharing one prefills
+only the rest.
+
+Not ported yet: the mesh-sharded engine.
 """
 
 from __future__ import annotations
 
 import json
+import threading
+from collections import OrderedDict
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Iterator, List, Optional
@@ -47,6 +55,44 @@ class ChatMessage:
         return json.dumps(self.to_dict())
 
 
+def _slice_kv(kv, length: int) -> dict:
+    """A copy of the first ``length`` slots of every cache buffer
+    ((L, B, KVH, S, D): slots on axis 3)."""
+    return {k: v[:, :, :, :length].clone() for k, v in kv.items()}
+
+
+def _implant_kv(fresh, slab) -> dict:
+    """Write a cached prefix slab into the head of ``fresh``, in place.
+
+    Valid for any cache at least as long as the slab: causality makes the
+    prefix's KV the same whatever follows it."""
+    for k, v in slab.items():
+        fresh[k][:, :, :, : v.shape[3]].copy_(v)
+    return fresh
+
+
+def _penalized(logits: torch.Tensor, rp) -> torch.Tensor:
+    """The repetition penalty of ``sample_token``: positive logits divided,
+    the rest multiplied."""
+    return torch.where(logits > 0, logits / rp, logits * rp)
+
+
+def _greedy_verify(logits, base_mask, fed, repetition_penalty) -> torch.Tensor:
+    """Target-greedy tokens for every speculative position at once.
+
+    logits: (..., T, V) target logits for the fed tokens (..., T); position
+    i's penalty mask is ``base_mask | {fed[0..i]}`` (base_mask (..., V)),
+    valid because its result is read only when every earlier proposal was
+    accepted, and then exactly those tokens were emitted. The penalty is a
+    float or a tensor that broadcasts against the logits (the pool's
+    (B, 1, 1)). Returns (..., T) argmax ids (sample_token's greedy
+    penalty-then-argmax)."""
+    onehot = torch.zeros(logits.shape, dtype=torch.int32, device=logits.device)
+    onehot.scatter_(-1, fed[..., None], 1)
+    mask = base_mask[..., None, :] | (torch.cumsum(onehot, dim=-2) > 0)
+    return torch.argmax(torch.where(mask, _penalized(logits, repetition_penalty), logits), dim=-1)
+
+
 def _find_stop(text: str, stops) -> Optional[int]:
     """Char index of the EARLIEST occurrence of any stop string, or None.
     OpenAI semantics: generation halts at the stop sequence and the stop
@@ -71,6 +117,59 @@ def _stop_holdback(text: str, stops) -> int:
                 hold = max(hold, k)
                 break
     return hold
+
+
+class _StreamText:
+    """One stream's text as its tokens arrive, shared by the plain and the
+    speculative stream: incremental decode (BPE joins), stop sequences (the
+    earliest occurrence ends the stream and its text is never yielded; a
+    partial stop prefix or a trailing partial character is withheld until
+    resolved), EOS, the ``max_new_tokens`` budget, and the final flush with
+    ``meta``'s finish_reason and token counts."""
+
+    def __init__(self, tokenizer, eos_ids: set, stop, max_new_tokens: int, meta: dict):
+        self.tokenizer, self.eos_ids, self.stop = tokenizer, eos_ids, stop
+        self.max_new_tokens, self.meta = max_new_tokens, meta
+        self.generated: List[int] = []
+        self.emitted = ""  # the text yielded so far
+
+    def push(self, token_id: int):
+        """Append one token; returns (chunks to yield, go on)."""
+        self.generated.append(token_id)
+        chunks = []
+        text = self.tokenizer.decode(self.generated, skip_special_tokens=True)
+        if self.stop:
+            cut = _find_stop(text, self.stop)
+            if cut is not None:
+                if cut > len(self.emitted):
+                    chunks.append(text[len(self.emitted) : cut])
+                    self.emitted = text[:cut]
+                self.meta["finish_reason"] = "stop"
+                self.meta["stopped_at"] = cut
+                return chunks, False
+        if len(text) > len(self.emitted) and not text.endswith("�"):
+            safe = len(text) - (_stop_holdback(text, self.stop) if self.stop else 0)
+            if safe > len(self.emitted):
+                chunks.append(text[len(self.emitted) : safe])
+                self.emitted = text[:safe]
+        if token_id in self.eos_ids:
+            self.meta["finish_reason"] = "stop"
+            return chunks, False
+        return chunks, len(self.generated) < self.max_new_tokens
+
+    def flush(self, prompt_len: int) -> str:
+        """Record the counts in ``meta``; returns whatever was withheld, up
+        to a stop cut ('' when nothing was)."""
+        meta = self.meta
+        meta["prompt_tokens"] = prompt_len
+        # the EOS token is not a completion token (a stop sequence's are)
+        meta["completion_tokens"] = len(self.generated) - (
+            1 if meta["finish_reason"] == "stop" and "stopped_at" not in meta else 0
+        )
+        text = self.tokenizer.decode(self.generated, skip_special_tokens=True)
+        if "stopped_at" in meta:
+            text = text[: meta["stopped_at"]]
+        return text[len(self.emitted) :]
 
 
 class JsonTokenizer:
@@ -108,12 +207,37 @@ class JsonTokenizer:
 
 
 class InferenceEngine:
-    def __init__(self, cfg: ModelConfig, model: LlamaModel, tokenizer):
+    def __init__(
+        self,
+        cfg: ModelConfig,
+        model: LlamaModel,
+        tokenizer,
+        draft: Optional[LlamaModel] = None,
+        speculation_k: int = 4,
+        prefix_cache_slots: int = 0,
+        prefix_cache_bytes: int = 2**30,  # device budget for slabs
+    ):
         self.cfg = cfg
         self.model = model
         self.tokenizer = tokenizer
         self.device = model.device
         self.prompt_chunk = _PROMPT_CHUNK
+        # exact prefix caching: the KV slabs of up to N bucket-aligned
+        # prompt prefixes stay on the device, within a byte budget; the
+        # pool admits from its own thread while the stream path serves
+        # others, so lookups and stores hold one lock
+        self.prefix_cache_slots = int(prefix_cache_slots)
+        self.prefix_cache_bytes = int(prefix_cache_bytes)
+        self._prefix_cache: "OrderedDict" = OrderedDict()
+        self._prefix_cache_used = 0
+        self._prefix_lock = threading.Lock()
+        self.draft_model = draft
+        self.draft_cfg = None if draft is None else draft.cfg
+        self.speculation_k = max(int(speculation_k), 2)
+        if draft is not None and draft.cfg.vocab_size != cfg.vocab_size:
+            raise ValueError(
+                f"draft model vocab ({draft.cfg.vocab_size}) must match the target's ({cfg.vocab_size})"
+            )
 
     @classmethod
     def from_pretrained(
@@ -123,7 +247,15 @@ class InferenceEngine:
         load_in_8bit: bool = False,
         tokenizer=None,
         device="cuda:0",
+        draft_model=None,
+        speculation_k: int = 4,
+        prefix_cache_slots: int = 0,
+        prefix_cache_bytes: int = 2**30,
     ) -> "InferenceEngine":
+        """``draft_model``: a smaller same-vocab checkpoint for greedy
+        speculative decoding, loaded in bf16 and never quantized.
+        ``prefix_cache_slots=N`` keeps the KV of up to N bucket-aligned
+        prompt prefixes on the device (LRU)."""
         if load_in_4bit and load_in_8bit:
             raise ValueError("Cannot load model in both 4-bit and 8-bit precision")
         quant_bits = 4 if load_in_4bit else 8 if load_in_8bit else None
@@ -133,10 +265,16 @@ class InferenceEngine:
         cfg = ModelConfig.from_pretrained(weights_dir)
         params = load_params(weights_dir, cfg, quant_bits=quant_bits, device=device,
                              resolved=(weights_dir, adapter))
+        draft = None
+        if draft_model is not None:
+            d_dir, d_adapter = resolve_checkpoint_dir(draft_model)
+            d_cfg = ModelConfig.from_pretrained(d_dir)
+            draft = LlamaModel(d_cfg, load_params(d_dir, d_cfg, device=device, resolved=(d_dir, d_adapter)))
         if tokenizer is None:
             own = Path(model_path) / "tokenizer.json"
             tokenizer = JsonTokenizer(Path(model_path) if own.is_file() else weights_dir)
-        return cls(cfg, LlamaModel(cfg, params), tokenizer)
+        return cls(cfg, LlamaModel(cfg, params), tokenizer, draft=draft, speculation_k=speculation_k,
+                   prefix_cache_slots=prefix_cache_slots, prefix_cache_bytes=prefix_cache_bytes)
 
     # -- helpers -------------------------------------------------------------
 
@@ -165,6 +303,9 @@ class InferenceEngine:
     def _init_kv(self, batch: int, cache_len: int):
         return init_kv_cache(self.cfg, batch, cache_len, self.model.dtype, self.device)
 
+    def _init_draft_kv(self, batch: int, cache_len: int):
+        return init_kv_cache(self.draft_cfg, batch, cache_len, self.draft_model.dtype, self.device)
+
     def _eos_ids(self) -> set:
         eos = getattr(self.tokenizer, "eos_token_id", None)
         if eos is None:
@@ -186,19 +327,22 @@ class InferenceEngine:
 
     def _chunked_prefill(
         self, ids, positions, kv, rope, final_attn_len, keep_pos=None,
-        mask_positions=None, token_valid=None,
+        mask_positions=None, token_valid=None, start: int = 0, model=None,
     ):
-        """Prefill in chunks of at most ``prompt_chunk`` tokens; returns the
-        (B, V) logits at ``keep_pos`` (default: the last row) and the cache.
-        Causality makes chunking exact: a chunk's queries only attend slots
-        already written."""
+        """Prefill in chunks of at most ``prompt_chunk`` tokens from slot
+        ``start`` (earlier slots come from the prefix cache) with ``model``
+        (default: the target); returns the (B, V) logits at ``keep_pos``
+        (default: the last row) and the cache. Causality makes chunking
+        exact: a chunk's queries only attend slots already written."""
         B, L = ids.shape
         if keep_pos is None:
             keep_pos = L - 1
+        assert keep_pos >= start, (keep_pos, start)
+        model = self.model if model is None else model
         kept = None
-        for c0 in range(0, L, self.prompt_chunk):
+        for c0 in range(start, L, self.prompt_chunk):
             c1 = min(c0 + self.prompt_chunk, L)
-            logits, kv = self.model(
+            logits, kv = model(
                 ids[:, c0:c1],
                 positions[:, c0:c1],
                 kv,
@@ -211,6 +355,71 @@ class InferenceEngine:
             if c0 <= keep_pos < c1:
                 kept = logits[:, keep_pos - c0, :]
         return kept, kv
+
+    def _prefix_lookup(self, input_ids: List[int], prompt_len: int, kv, kind: str = "t"):
+        """Implant the longest bucket-aligned prefix this prompt shares with
+        a cached slab of ``kind`` ("t" target, "d" draft: their cache
+        geometries differ). Cached keys carry their own request's tail, so
+        the match is the element-wise common prefix rounded down to the
+        bucket; the slab is cut to it before the implant. At most
+        ``prompt_len - 1`` tokens come from the cache: the last prompt token
+        prefills live (its logits seed decoding). Returns (hit_len, kv)."""
+        max_pfx = (prompt_len - 1) // _PROMPT_BUCKET * _PROMPT_BUCKET
+        if max_pfx <= 0:
+            return 0, kv
+        target = tuple(input_ids[:max_pfx])
+        with self._prefix_lock:
+            best_key, best = None, 0
+            for key in self._prefix_cache:
+                k_kind, ktoks = key
+                if k_kind != kind:
+                    continue
+                n = 0
+                for a, b in zip(ktoks[:max_pfx], target):
+                    if a != b:
+                        break
+                    n += 1
+                n = n // _PROMPT_BUCKET * _PROMPT_BUCKET
+                if n > best:
+                    best, best_key = n, key
+                    if best == max_pfx:
+                        break  # cannot do better
+            if best == 0:
+                return 0, kv
+            self._prefix_cache.move_to_end(best_key)
+            slab, _ = self._prefix_cache[best_key]
+        if len(best_key[1]) > best:
+            slab = _slice_kv(slab, best)
+        return best, _implant_kv(kv, slab)
+
+    def _prefix_store(self, input_ids: List[int], prompt_len: int, kv, kind: str = "t"):
+        """Cache this prompt's longest bucket-aligned prefix slab, after its
+        prefill (causal writes never touch earlier slots, so the live cache
+        holds exactly the prefix's KV). Slabs live on the device: eviction
+        is LRU over both the slot count and the byte budget, and a slab over
+        the whole budget is not stored."""
+        plen = (prompt_len - 1) // _PROMPT_BUCKET * _PROMPT_BUCKET
+        if plen < _PROMPT_BUCKET:
+            return
+        key = (kind, tuple(input_ids[:plen]))
+        slab = _slice_kv(kv, plen)
+        nbytes = sum(v.numel() * v.element_size() for v in slab.values())
+        if nbytes > self.prefix_cache_bytes:
+            return
+        # the membership check and the insert share one critical section,
+        # so two threads storing one key cannot count its bytes twice
+        with self._prefix_lock:
+            if key in self._prefix_cache:
+                self._prefix_cache.move_to_end(key)
+                return
+            self._prefix_cache[key] = (slab, nbytes)
+            self._prefix_cache_used += nbytes
+            while (
+                len(self._prefix_cache) > self.prefix_cache_slots
+                or self._prefix_cache_used > self.prefix_cache_bytes
+            ):
+                _, (_, freed) = self._prefix_cache.popitem(last=False)
+                self._prefix_cache_used -= freed
 
     def _chunk_decode(
         self,
@@ -291,6 +500,12 @@ class InferenceEngine:
     ) -> Iterator[str]:
         """Yield generated text chunks token by token.
 
+        With a draft model loaded and ``greedy=True`` decoding is
+        speculative (:meth:`_stream_speculative`: the same tokens up to
+        floating-point near-ties, fewer target forwards); ``decode_chunk``
+        does not apply there. With the prefix cache on, a prompt sharing a
+        cached bucket-aligned prefix prefills only the rest
+        (``meta["prefix_cache_hit_tokens"]``).
         ``decode_chunk=S`` runs S decode steps per :meth:`_chunk_decode`
         call (identical tokens). ``stop``: OpenAI stop sequences:
         generation halts at the earliest occurrence, the stop text is never
@@ -305,6 +520,9 @@ class InferenceEngine:
         prompt_len = len(input_ids)
         if prompt_len == 0 or max_new_tokens <= 0:
             return
+        if greedy and self.draft_model is not None:
+            yield from self._stream_speculative(input_ids, max_new_tokens, repetition_penalty, meta, stop)
+            return
 
         # whole chunks, as the JAX engine dispatches them: the cache covers
         # the rounded-up budget and surplus tokens are dropped on the host
@@ -314,63 +532,162 @@ class InferenceEngine:
         rope = rope_tables(cfg, cache_len, self.device)
         kv = self._init_kv(1, cache_len)
         ids, positions = self._pad_prompt(input_ids, cache_len)
+        hit_len = 0
+        if self.prefix_cache_slots > 0:
+            hit_len, kv = self._prefix_lookup(input_ids, prompt_len, kv)
         last, kv = self._chunked_prefill(
-            ids, positions, kv, rope, prompt_len, keep_pos=prompt_len - 1
+            ids, positions, kv, rope, prompt_len, keep_pos=prompt_len - 1, start=hit_len
         )
+        if self.prefix_cache_slots > 0:
+            self._prefix_store(input_ids, prompt_len, kv)
+        meta["prefix_cache_hit_tokens"] = hit_len
 
         generator = torch.Generator(device=self.device).manual_seed(seed)
-        eos_ids = self._eos_ids()
+        out = _StreamText(self.tokenizer, self._eos_ids(), stop, max_new_tokens, meta)
         mask = torch.zeros((1, cfg.vocab_size), dtype=torch.bool, device=self.device)
         no_pad = torch.zeros((1, 1), dtype=torch.int64, device=self.device)
-        generated: List[int] = []
-        emitted_text = ""
         done = 0
-        stopped = False
-        while done < max_new_tokens and not stopped:
+        go_on = True
+        while done < max_new_tokens and go_on:
             toks, last, kv = self._chunk_decode(
                 chunk_size, last, mask, generator, kv, rope, prompt_len + done, no_pad,
                 temperature, top_p, repetition_penalty, top_k=top_k, greedy=greedy,
             )
             done += chunk_size
+            # a rounded-up final chunk's surplus tokens are never pushed
             for token_id in toks[:, 0].tolist():
-                if len(generated) >= max_new_tokens:
-                    break  # surplus from the rounded-up final chunk
-                generated.append(token_id)
-                # incremental decode: emit the new text suffix (BPE joins);
-                # ``emitted_text`` is what was yielded: a trailing partial
-                # character or partial stop prefix is held back
-                text = self.tokenizer.decode(generated, skip_special_tokens=True)
-                if stop:
-                    cut = _find_stop(text, stop)
-                    if cut is not None:
-                        if cut > len(emitted_text):
-                            yield text[len(emitted_text) : cut]
-                            emitted_text = text[:cut]
-                        meta["finish_reason"] = "stop"
-                        meta["stopped_at"] = cut
-                        stopped = True
-                        break
-                if len(text) > len(emitted_text) and not text.endswith("\ufffd"):
-                    safe = len(text) - (_stop_holdback(text, stop) if stop else 0)
-                    if safe > len(emitted_text):
-                        yield text[len(emitted_text) : safe]
-                        emitted_text = text[:safe]
-                if token_id in eos_ids:
-                    meta["finish_reason"] = "stop"
-                    stopped = True
+                chunks, go_on = out.push(token_id)
+                yield from chunks
+                if not go_on:
                     break
+        tail = out.flush(prompt_len)
+        if tail:
+            yield tail
 
-        meta["prompt_tokens"] = prompt_len
-        # the EOS token is not a completion token (a stop sequence's are)
-        meta["completion_tokens"] = len(generated) - (
-            1 if meta["finish_reason"] == "stop" and "stopped_at" not in meta else 0
+    def _spec_round(self, kv, d_kv, rope, d_rope, x1: int, t: int, mask_pre, rp: float,
+                    catch_tok: Optional[int]):
+        """One speculative round, queued on the device without a sync.
+
+        (a) the draft's catch-up decode of the true token at slot t-1 when
+        it lags by one (``catch_tok``; full acceptance leaves exactly that
+        one unconsumed), (b) k-1 chained draft decodes proposing
+        continuations of the pending token ``x1`` (at slot t), each with the
+        penalized argmax, (c) the target's verify forward over all k
+        positions with the per-position greedy re-derivation
+        (:func:`_greedy_verify`). Returns the proposals and the verify
+        argmaxes PACKED in one (2k-1,) tensor, so the host reads a round
+        with one sync, and the caches."""
+        k, draft, dev = self.speculation_k, self.draft_model, self.device
+        if catch_tok is not None:
+            _, d_kv = draft(
+                torch.tensor([[catch_tok]], device=dev), torch.tensor([[t - 1]], device=dev), d_kv, t - 1,
+                d_rope, t,
+            )
+        x1_t = torch.tensor([x1], device=dev)
+        mask = mask_pre[0].clone()
+        mask[x1_t] = True
+        prev, props = x1_t, []
+        for i in range(k - 1):
+            pos = t + i
+            logits, d_kv = draft(prev[None], torch.tensor([[pos]], device=dev), d_kv, pos, d_rope, pos + 1)
+            lg = logits[0, -1]
+            prev = torch.argmax(torch.where(mask, _penalized(lg, rp), lg))[None]
+            mask[prev] = True
+            props.append(prev)
+        fed = torch.cat([x1_t] + props)  # (k,)
+        v_logits, kv = self.model(fed[None], torch.arange(t, t + k, device=dev)[None], kv, t, rope, t + k)
+        y = _greedy_verify(v_logits[0], mask_pre[0], fed, rp)
+        return torch.cat([fed[1:], y]), kv, d_kv
+
+    def _stream_speculative(
+        self, input_ids: List[int], max_new_tokens: int, repetition_penalty: float, meta: dict,
+        stop: Optional[List[str]] = None,
+    ) -> Iterator[str]:
+        """Greedy speculative decoding against the loaded draft model.
+
+        Per round (:meth:`_spec_round`) the draft proposes k-1
+        continuations of the known-correct pending token and the target
+        scores them all; the longest target-greedy-matching prefix is
+        accepted and the target's own argmax at the first mismatch becomes
+        the next pending token. The verify applies the same
+        repetition-penalty-then-argmax per position, each position's mask
+        assuming the earlier drafts were accepted (the only case its result
+        is read), so the output equals plain greedy decoding token for
+        token, up to floating-point near-ties: the (1, k) verify forward
+        may round logits differently from the (1, 1) decode, and an
+        ulp-level tie between the top two tokens can resolve either way.
+        One host sync per round for up to k tokens. Rejected tokens leave
+        stale cache slots on both models, harmless because every slot is
+        rewritten (cache_pos) before the attn_len mask exposes it."""
+        cfg = self.cfg
+        k = self.speculation_k
+        rp = float(np.float32(repetition_penalty))
+        prompt_len = len(input_ids)
+
+        total = prompt_len + max_new_tokens + k  # the verify may write past the budget
+        cache_len = -(-total // _CACHE_BUCKET) * _CACHE_BUCKET
+        rope = rope_tables(cfg, cache_len, self.device)
+        d_rope = rope_tables(self.draft_cfg, cache_len, self.device)
+        kv = self._init_kv(1, cache_len)
+        d_kv = self._init_draft_kv(1, cache_len)
+        ids, positions = self._pad_prompt(input_ids, cache_len)
+        t_hit = d_hit = 0
+        if self.prefix_cache_slots > 0:
+            # target and draft slabs cache under separate kinds
+            t_hit, kv = self._prefix_lookup(input_ids, prompt_len, kv, "t")
+            d_hit, d_kv = self._prefix_lookup(input_ids, prompt_len, d_kv, "d")
+        prompt_last, kv = self._chunked_prefill(
+            ids, positions, kv, rope, prompt_len, keep_pos=prompt_len - 1, start=t_hit
         )
-        # final flush: whatever was withheld, up to a stop cut
-        text = self.tokenizer.decode(generated, skip_special_tokens=True)
-        if "stopped_at" in meta:
-            text = text[: meta["stopped_at"]]
-        if len(text) > len(emitted_text):
-            yield text[len(emitted_text) :]
+        _, d_kv = self._chunked_prefill(
+            ids, positions, d_kv, d_rope, prompt_len, start=d_hit, model=self.draft_model
+        )
+        if self.prefix_cache_slots > 0:
+            self._prefix_store(input_ids, prompt_len, kv, "t")
+            self._prefix_store(input_ids, prompt_len, d_kv, "d")
+        meta["prefix_cache_hit_tokens"] = t_hit
+
+        out = _StreamText(self.tokenizer, self._eos_ids(), stop, max_new_tokens, meta)
+        # the emitted-token penalty mask lives on the host and rides into
+        # each round (the JAX engine's choice: no device scatter per round)
+        mask_pre = np.zeros((1, cfg.vocab_size), bool)
+        x1 = int(sample_token(prompt_last, torch.as_tensor(mask_pre, device=self.device),
+                              repetition_penalty=rp, greedy=True)[0])
+        draft_pos = prompt_len  # next slot the draft cache will consume
+        while True:
+            chunks, go_on = out.push(x1)
+            yield from chunks
+            if not go_on:
+                break
+            t = prompt_len + len(out.generated) - 1  # x1's slot
+            assert draft_pos in (t, t - 1), (draft_pos, t)
+            # a lag follows a full acceptance, so the token at slot t-1 is
+            # a generated one
+            packed, kv, d_kv = self._spec_round(
+                kv, d_kv, rope, d_rope, x1, t, torch.as_tensor(mask_pre, device=self.device), rp,
+                out.generated[-2] if draft_pos < t else None,
+            )
+            arr = packed.tolist()  # the round's one sync
+            fed = [x1] + arr[: k - 1]
+            y = arr[k - 1 :]
+            m = 0
+            while m < k - 1 and y[m] == fed[m + 1]:
+                m += 1
+            for tok in fed[1 : m + 1]:
+                chunks, go_on = out.push(tok)
+                yield from chunks
+                if not go_on:
+                    break
+            # fed[0..m] are emitted history for later penalty masks
+            mask_pre[0, fed[: m + 1]] = True
+            # the true context the draft has consumed (a rejected tail is stale)
+            draft_pos = t + min(m, k - 2) + 1
+            if not go_on:
+                break
+            x1 = y[m]
+        tail = out.flush(prompt_len)
+        if tail:
+            yield tail
 
     @torch.inference_mode()
     def generate_batch(

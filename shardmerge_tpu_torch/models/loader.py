@@ -1,11 +1,15 @@
-"""Load an HF Llama safetensors checkpoint into the port's params dict
-(counterpart of shardmerge_tpu/models/loader.py, Llama family only).
+"""Load an HF safetensors checkpoint of a dense family into the port's
+params dict (counterpart of shardmerge_tpu/models/loader.py, dense families
+only).
 
 Each tensor is read as a view of its shard file and copied to the device
 once. With ``quant_bits`` the seven per-layer projections are quantized ON
 THE HOST before the copy (a device-side quantize would first place the
 full-width weight, the very memory quantization is meant to save);
-embeddings, norms and lm_head stay in ``dtype``.
+embeddings, norms, biases and lm_head stay in ``dtype``. Phi-3's fused
+``qkv_proj`` and ``gate_up_proj`` split by head geometry before that (each
+part quantized on its own), and GLM-4's sandwich norms land in the Gemma-2
+slots, as the JAX loader maps them.
 
 A PEFT LoRA adapter directory loads as its base checkpoint with the pairs
 fused per tensor as they are read (``resolve_checkpoint_dir``; the fuse is
@@ -26,7 +30,7 @@ from typing import Optional
 import torch
 
 from ..io.safetensors_io import SafeTensorsReader
-from .llama import ModelConfig
+from .llama import ModelConfig, layer_keys
 from .quant import quantize
 
 logger = logging.getLogger(__name__)
@@ -89,8 +93,37 @@ _LAYER_WEIGHTS = {
     "mlp.down_proj.weight": "down_proj",
     "input_layernorm.weight": "input_layernorm",
     "post_attention_layernorm.weight": "post_attention_layernorm",
+    # qwen2 / glm4 q/k/v biases (kept in the dtype)
+    "self_attn.q_proj.bias": "q_bias",
+    "self_attn.k_proj.bias": "k_bias",
+    "self_attn.v_proj.bias": "v_bias",
+    # gemma2/3 post-norm blocks, olmo2's post-FFN norm
+    "pre_feedforward_layernorm.weight": "pre_feedforward_layernorm",
+    "post_feedforward_layernorm.weight": "post_feedforward_layernorm",
+    # qwen3/gemma3 per-head and olmo2 full-vector q/k norms
+    "self_attn.q_norm.weight": "q_norm",
+    "self_attn.k_norm.weight": "k_norm",
+}
+# glm4's sandwich norms in the gemma2 slots: its post_attention_layernorm
+# is the PRE-ffn norm
+_GLM4_NORMS = {
+    "post_self_attn_layernorm.weight": "post_attention_layernorm",
+    "post_attention_layernorm.weight": "pre_feedforward_layernorm",
+    "post_mlp_layernorm.weight": "post_feedforward_layernorm",
 }
 _QUANTIZABLE = {"q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj"}
+
+
+def _split_fused(suffix: str, arr, cfg: ModelConfig):
+    """phi3 (and glm4's MLP) fuse projections row-wise: qkv_proj splits by
+    head geometry, gate_up_proj into equal halves. None for other names."""
+    if suffix == "self_attn.qkv_proj.weight":
+        q_dim = cfg.num_attention_heads * cfg.head_dim
+        kv_dim = cfg.num_key_value_heads * cfg.head_dim
+        return zip(("q_proj", "k_proj", "v_proj"), torch.split(arr, [q_dim, kv_dim, kv_dim], dim=0))
+    if suffix == "mlp.gate_up_proj.weight":
+        return zip(("gate_proj", "up_proj"), torch.chunk(arr, 2, dim=0))
+    return None
 
 
 def load_params(
@@ -160,16 +193,24 @@ def load_params(
                     params["lm_head"] = place(arr)
                 elif name.startswith("model.layers."):
                     parts = name.split(".")
-                    key = _LAYER_WEIGHTS.get(".".join(parts[3:]))
-                    if key is None:
-                        raise NotImplementedError(
-                            f"weight {name} belongs to a feature not ported yet"
-                        )
-                    if quant_bits and key in _QUANTIZABLE:
-                        w = {k: v.to(device) for k, v in quantize(arr, quant_bits).items()}
+                    suffix = ".".join(parts[3:])
+                    if cfg.model_type == "glm4" and suffix in _GLM4_NORMS:
+                        pieces = [(_GLM4_NORMS[suffix], arr)]
                     else:
-                        w = place(arr)
-                    params["layers"][int(parts[2])][key] = w
+                        pieces = _split_fused(suffix, arr, cfg)
+                        if pieces is None:
+                            key = _LAYER_WEIGHTS.get(suffix)
+                            if key is None:
+                                raise NotImplementedError(
+                                    f"weight {name} belongs to a feature not ported yet"
+                                )
+                            pieces = [(key, arr)]
+                    for key, w in pieces:
+                        if quant_bits and key in _QUANTIZABLE:
+                            w = {k: v.to(device) for k, v in quantize(w, quant_bits).items()}
+                        else:
+                            w = place(w)
+                        params["layers"][int(parts[2])][key] = w
                 else:
                     logger.warning("Skipping unknown weight %s", name)
 
@@ -177,11 +218,12 @@ def load_params(
         raise ValueError(f"{model_path}: packed modules with missing parts: {sorted(pending)[:4]}")
     if cfg.tie_word_embeddings:
         params.pop("lm_head", None)
-    missing = [i for i, layer in enumerate(params["layers"]) if set(layer) != set(_LAYER_WEIGHTS.values())]
+    want = layer_keys(cfg)
+    missing = [i for i, layer in enumerate(params["layers"]) if set(layer) != want]
     if missing or "embed_tokens" not in params or "norm" not in params:
         raise ValueError(
-            f"Checkpoint at {model_path} is incomplete "
-            f"(embed/norm or layers {missing[:4]})"
+            f"Checkpoint at {model_path} is incomplete or does not match its config "
+            f"(embed/norm, or layers {missing[:4]} against {sorted(want)})"
         )
     if not cfg.tie_word_embeddings and "lm_head" not in params:
         raise ValueError(f"Checkpoint at {model_path} has no lm_head.weight")

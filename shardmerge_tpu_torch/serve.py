@@ -7,7 +7,10 @@ shardmerge_tpu/serve.py, with the same JSON shapes and status codes).
   "finish_reason"}, ...], "usage"}`` with ``finish_reason`` "stop" (EOS or a
   stop sequence) or "length". A request runs the lockstep batched decode
   (``InferenceEngine.generate_batch``), unless a continuous pool is
-  configured and the request is greedy: then each prompt joins the pool.
+  configured and the request is greedy: then each prompt joins the pool
+  (speculative rounds when a draft model is loaded). A single prompt takes
+  the engine's stream path when it is greedy and a draft model is loaded
+  (speculative decoding) or when the prefix cache is on.
   ``stream: true`` (one prompt) answers with Server-Sent Events from the
   engine's stream path: one ``data:`` event per text delta, a final event
   carrying ``finish_reason`` and ``usage``, then ``data: [DONE]``.
@@ -15,16 +18,16 @@ shardmerge_tpu/serve.py, with the same JSON shapes and status codes).
   ...}`` -> the chat-completion shape. The conversation renders through the
   tokenizer's chat template when it has one, otherwise as a plain
   role-tagged transcript (history is never silently dropped).
-- ``GET /v1/models``, ``GET /health``, ``GET /v1/stats``.
+- ``GET /v1/models``, ``GET /health``, ``GET /v1/stats`` (with the prefix
+  cache's slots, entries and bytes when it is on).
 
 Device work is serialized by one lock (``ThreadingHTTPServer`` accepts
 concurrently); the continuous pool's daemon takes the same lock for each of
 its steps. On the card every T=1 decode attention of these paths runs the
 flash-decode kernel and every int4 decode GEMV the int4 kernel.
 
-Not ported yet (``serve`` raises ``NotImplementedError`` naming each):
-speculative decoding (``draft_model``), the prefix cache (``prefix_cache``)
-and tensor-parallel serving (``shard``).
+Not ported yet (``serve`` raises ``NotImplementedError`` naming it):
+tensor-parallel serving (``shard``).
 """
 
 from __future__ import annotations
@@ -421,6 +424,15 @@ class ModelServer:
                 )
             # over pool capacity (prompt + budget vs cache_len): fall
             # through to the lockstep paths, which size their own cache
+        if len(prompts) == 1 and (
+            (kwargs.get("greedy") and getattr(self.engine, "draft_cfg", None) is not None)
+            or getattr(self.engine, "prefix_cache_slots", 0) > 0
+        ):
+            # a single prompt on the stream path: speculative decoding
+            # (greedy with a draft) and the prefix cache live there, not
+            # on generate_batch
+            text, meta = self._stream_to_text(prompts[0], kwargs)
+            return self._choices([text], [meta["finish_reason"]], [_meta_usage(meta)])
         # only GREEDY requests coalesce: the lockstep sampler draws one key
         # per step over the whole (B, V) batch, so a sampled request's
         # output would depend on who it happened to share a batch with
@@ -582,6 +594,12 @@ class ModelServer:
                 **self.pool.stats,
                 "latency": self.pool.metrics(),
             }
+        if getattr(self.engine, "prefix_cache_slots", 0) > 0:
+            out["prefix_cache"] = {
+                "slots": self.engine.prefix_cache_slots,
+                "entries": len(self.engine._prefix_cache),
+                "bytes": self.engine._prefix_cache_used,
+            }
         return out
 
     def _count(self, kind: str, usage=None):
@@ -597,23 +615,29 @@ class ModelServer:
         """Run the serving hot path once before the port opens: one short
         greedy generation per configured decode_chunk (prefill and decode,
         which builds the CUDA kernels on first use), a 2-prompt lockstep
-        batch when a batcher is configured, and one pool request. Returns
-        seconds spent."""
+        batch when a batcher is configured, and one pool request. The prefix
+        cache is held off meanwhile, so the junk prompt takes no slot.
+        Returns seconds spent."""
         t0 = time.monotonic()
-        with self._device_lock:
-            for s in decode_chunks:
-                for _ in self.engine.stream_generation(
-                    "warmup", max_new_tokens=max(2, int(s)),
-                    greedy=True, use_template=False, decode_chunk=int(s),
-                ):
-                    pass
-        if self.batcher is not None:
-            self._run_batch(
-                ["warmup", "warmup"],
-                dict(max_new_tokens=2, greedy=True, use_template=False),
-            )
-        if self.pool is not None:
-            self.pool.submit("warmup", max_new_tokens=2).result(timeout=600)
+        saved_pfx = getattr(self.engine, "prefix_cache_slots", 0)
+        self.engine.prefix_cache_slots = 0
+        try:
+            with self._device_lock:
+                for s in decode_chunks:
+                    for _ in self.engine.stream_generation(
+                        "warmup", max_new_tokens=max(2, int(s)),
+                        greedy=True, use_template=False, decode_chunk=int(s),
+                    ):
+                        pass
+            if self.batcher is not None:
+                self._run_batch(
+                    ["warmup", "warmup"],
+                    dict(max_new_tokens=2, greedy=True, use_template=False),
+                )
+            if self.pool is not None:
+                self.pool.submit("warmup", max_new_tokens=2).result(timeout=600)
+        finally:
+            self.engine.prefix_cache_slots = saved_pfx
         return time.monotonic() - t0
 
     # -- server lifecycle ---------------------------------------------------
@@ -795,6 +819,7 @@ def serve(
     load_in_4bit: bool = False,
     load_in_8bit: bool = False,
     draft_model: Optional[str] = None,
+    speculation_k: int = 4,
     shard: bool = False,
     batch_window_ms: float = 0.0,
     prefix_cache: int = 0,
@@ -806,32 +831,30 @@ def serve(
     device="cuda:0",
     tokenizer=None,
 ) -> ModelServer:
-    """Load a model and start the HTTP server (CLI entry).
-    ``batch_window_ms`` > 0 coalesces concurrent compatible requests into
-    one lockstep decode (DynamicBatcher); ``continuous`` > 0 serves greedy
-    requests from a continuously batched pool of that many slots (requests
-    join the running decode and free their slot the moment they finish; see
-    batching.ContinuousEngine). ``draft_model``, ``shard`` and
-    ``prefix_cache`` are the JAX server's options that are not ported."""
+    """Load a model and start the HTTP server (CLI entry). ``draft_model``
+    enables speculative decoding (``speculation_k`` tokens a round) for
+    greedy single-prompt requests and the greedy pool; ``batch_window_ms``
+    > 0 coalesces concurrent compatible requests into one lockstep decode
+    (DynamicBatcher); ``prefix_cache`` > 0 keeps that many prompt-prefix KV
+    slabs on the device, so single-prompt requests sharing a system prompt
+    skip its prefill; ``continuous`` > 0 serves greedy requests from a
+    continuously batched pool of that many slots (requests join the running
+    decode and free their slot the moment they finish; see
+    batching.ContinuousEngine). ``shard`` is the JAX server's option that
+    is not ported."""
     from .inference import InferenceEngine
 
-    unported = [
-        name
-        for name, on in (
-            ("speculative decoding (draft_model)", draft_model is not None),
-            ("tensor-parallel serving (shard)", shard),
-            ("the prefix cache (prefix_cache)", prefix_cache > 0),
-        )
-        if on
-    ]
-    if unported:
-        raise NotImplementedError(f"serve options not ported yet: {', '.join(unported)}")
+    if shard:
+        raise NotImplementedError("serve options not ported yet: tensor-parallel serving (shard)")
     engine = InferenceEngine.from_pretrained(
         model_path,
         load_in_4bit=load_in_4bit,
         load_in_8bit=load_in_8bit,
         tokenizer=tokenizer,
         device=device,
+        draft_model=draft_model,
+        speculation_k=speculation_k,
+        prefix_cache_slots=prefix_cache,
     )
     server = ModelServer(
         engine,

@@ -144,11 +144,37 @@ def test_load_params_quantizes_projections_on_host(tmp_path):
 
 
 def test_unported_families_raise():
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="mixtral"):
         tllama.ModelConfig.from_hf_config({**HF_CONFIG, "model_type": "mixtral"})
-    yarn = {**HF_CONFIG, "rope_scaling": {"rope_type": "yarn", "factor": 4.0}}
-    with pytest.raises(NotImplementedError):
-        tllama.rope_tables(tllama.ModelConfig.from_hf_config(yarn), 8)
+    dynamic = {**HF_CONFIG, "rope_scaling": {"rope_type": "dynamic", "factor": 4.0}}
+    with pytest.raises(NotImplementedError, match="dynamic"):
+        tllama.rope_tables(tllama.ModelConfig.from_hf_config(dynamic), 8)
+
+
+# configs the port refused before the dense families were ported
+ONCE_REFUSED = {
+    "yarn": {"rope_scaling": {"rope_type": "yarn", "factor": 4.0}},
+    "sliding_window": {"model_type": "mistral", "sliding_window": 3},
+    "attn_logit_softcapping": {"model_type": "gemma2", "attn_logit_softcapping": 5.0, "head_dim": 16,
+                               "sliding_window": 4},
+    "attention_bias": {"model_type": "qwen2"},
+    "hidden_act": {"model_type": "gemma", "hidden_act": "gelu_pytorch_tanh", "head_dim": 16},
+}
+
+
+@pytest.mark.parametrize("name", sorted(ONCE_REFUSED))
+def test_once_refused_configs_reach_the_engine(name):
+    """Each config the port used to refuse now builds, ropes as the JAX
+    tables do, and decodes greedy tokens through the engine on the CPU."""
+    hf = {**HF_CONFIG, **ONCE_REFUSED[name]}
+    tcfg = tllama.ModelConfig.from_hf_config(hf)
+    jcfg = jllama.ModelConfig.from_hf_config(hf)
+    for ours, theirs in zip(tllama.rope_tables(tcfg, 64), jllama.rope_tables(jcfg, 64)):
+        np.testing.assert_allclose(ours.numpy(), np.asarray(theirs), rtol=1e-6, atol=1e-6)
+    model = tllama.LlamaModel(tcfg, tllama.init_params(tcfg, seed=3, dtype=torch.float32))
+    text = "".join(InferenceEngine(tcfg, model, StubTokenizer()).stream_generation(
+        "reaches the engine", max_new_tokens=4, greedy=True))
+    assert text.count("<") == 4 or text.endswith("<1>")
 
 
 def test_sampling_top_k_one_and_penalty_greedy():

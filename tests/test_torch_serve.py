@@ -233,11 +233,43 @@ def test_unported_serve_options_raise_by_name(tmp_path, capsys):
     from shardmerge_tpu_torch.cli import main
     from shardmerge_tpu_torch.serve import serve
 
-    for kw, name in ((dict(draft_model="d"), "draft_model"), (dict(shard=True), "shard"),
-                     (dict(prefix_cache=2), "prefix_cache")):
-        with pytest.raises(NotImplementedError, match=name):
-            serve(str(tmp_path), device="cpu", **kw)
-    assert main(["serve", str(tmp_path), "--prefix-cache", "2", "--device", "cpu"]) == 2
-    assert "prefix_cache" in capsys.readouterr().err
+    with pytest.raises(NotImplementedError, match="shard"):
+        serve(str(tmp_path), device="cpu", shard=True)
+    assert main(["serve", str(tmp_path), "--shard", "--device", "cpu"]) == 2
+    assert "shard" in capsys.readouterr().err
     with pytest.raises(SystemExit):
         main(["serve", str(tmp_path), "--continuous", "65"])  # beyond the pool's 64 slots
+
+
+@pytest.mark.parametrize("option", ["draft_model", "prefix_cache"])
+def test_serve_entry_takes_speculation_and_the_prefix_cache(tmp_path, option):
+    """``serve(draft_model=...)`` and ``serve(prefix_cache=...)`` on the CPU:
+    the engine holds the draft (the target itself, k = 3) or the cache; a
+    greedy single prompt rides the stream path and equals the plain solo
+    stream; two requests sharing a 70-token prefix hit the cache, whose
+    slab /v1/stats counts; the warmup request takes no cache slot."""
+    from shardmerge_tpu_torch.serve import serve
+
+    from .test_torch_engine import _save_tiny_checkpoint
+
+    _save_tiny_checkpoint(tmp_path)
+    kw = {"draft_model": str(tmp_path), "speculation_k": 3} if option == "draft_model" else {"prefix_cache": 2}
+    server = serve(str(tmp_path), port=0, warmup=True, device="cpu", tokenizer=StubTokenizer(), **kw)
+    try:
+        engine = server.engine
+        assert (engine.draft_model is not None and engine.speculation_k == 3) if option == "draft_model" \
+            else (engine.prefix_cache_slots == 2 and len(engine._prefix_cache) == 0)
+        plain = InferenceEngine(engine.cfg, engine.model, StubTokenizer())
+        shared = "a shared system prompt, " * 3
+        for prompt in (shared + "first", shared + "second"):
+            status, body = _call(server.port, "/v1/completions", {"prompt": prompt, **GREEDY})
+            assert status == 200
+            want = "".join(plain.stream_generation(prompt, max_new_tokens=8, greedy=True))
+            assert body["choices"][0]["text"] == want
+        stats = _call(server.port, "/v1/stats")[1]
+        if option == "prefix_cache":
+            assert stats["prefix_cache"]["entries"] == 1 and stats["prefix_cache"]["bytes"] > 0
+        else:
+            assert "prefix_cache" not in stats
+    finally:
+        server.stop()

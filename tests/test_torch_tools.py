@@ -65,10 +65,14 @@ def _cfg(tmp_path, base, fts, out, **extra):
 # JAX options the port accepts but refuses by name, with the queue item of
 # ROADMAP.md section A that ports each
 REFUSED = {
-    ("generate", "--draft-model"): "A.7", ("generate", "--speculation-k"): "A.7",
     ("generate", "--shard"): "A.10", ("generate", "--decode-chunk"): "A.4",
-    ("serve", "--draft-model"): "A.7", ("serve", "--speculation-k"): "A.7",
-    ("serve", "--prefix-cache"): "A.7", ("serve", "--shard"): "A.10",
+    ("serve", "--shard"): "A.10",
+}
+# options once refused that now reach the engine: speculative decoding and
+# the prefix cache
+ACCEPTED = {
+    ("generate", "--draft-model"), ("generate", "--speculation-k"), ("serve", "--draft-model"),
+    ("serve", "--speculation-k"), ("serve", "--prefix-cache"),
 }
 # the port's own options: logging on the serving commands, and the card for
 # extract-lora's SVDs (the JAX tool runs them in numpy on the host)
@@ -94,7 +98,7 @@ def test_the_port_cli_has_every_jax_command_and_option():
         assert ours[name][1] == args, name
         assert opts - ours[name][0] == set(), name
         assert {(name, o) for o in ours[name][0] - opts} <= EXTRA, name
-    assert {k for k in REFUSED} <= {(n, o) for n, (opts, _) in ours.items() for o in opts}
+    assert {k for k in REFUSED} | ACCEPTED <= {(n, o) for n, (opts, _) in ours.items() for o in opts}
 
 
 @pytest.mark.parametrize("command,option", sorted(REFUSED), ids=lambda v: str(v))
@@ -105,6 +109,54 @@ def test_unported_options_are_refused_by_name(tmp_path, capsys, command, option)
     argv = [command, str(tmp_path / "m")] + (["p"] if command == "generate" else []) + [option, *value]
     assert torch_cli(argv + ["--device", "cpu"]) == 2
     assert option.lstrip("-").replace("-", "_") in capsys.readouterr().err.replace("-", "_")
+
+
+@pytest.mark.parametrize("command,option", sorted(ACCEPTED), ids=lambda v: str(v))
+def test_speculation_and_prefix_cache_options_reach_the_engine(tmp_path, capsys, monkeypatch, command, option):
+    """``generate`` and ``serve`` take the options on the CPU: the engine
+    the command builds holds the draft, k and prefix-cache slots asked for,
+    and its greedy output (self-draft) equals the plain command's."""
+    from tokenizers import Tokenizer, models, pre_tokenizers
+
+    from shardmerge_tpu_torch import cli as tcli
+    from shardmerge_tpu_torch.inference import InferenceEngine
+
+    from .test_torch_engine import _save_tiny_checkpoint
+
+    model = tmp_path / "m"
+    _save_tiny_checkpoint(model)
+    tok = Tokenizer(models.WordLevel({f"w{i}": i for i in range(128)}, unk_token="w0"))
+    tok.pre_tokenizer = pre_tokenizers.Whitespace()
+    tok.save(str(model / "tokenizer.json"))
+    built = []
+    real = InferenceEngine.from_pretrained.__func__
+
+    def recording(cls, *a, **kw):
+        built.append(real(cls, *a, **kw))
+        return built[-1]
+
+    monkeypatch.setattr(InferenceEngine, "from_pretrained", classmethod(recording))
+    value = {"--draft-model": [str(model)], "--speculation-k": ["3"], "--prefix-cache": ["2"]}[option]
+    if option == "--speculation-k":
+        value += ["--draft-model", str(model)]
+    if command == "generate":
+        base = ["generate", str(model), "w3 w5 w7", "--max-tokens", "6", "--greedy", "--device", "cpu"]
+        assert torch_cli(base) == 0
+        plain = capsys.readouterr().out
+        assert torch_cli(base + [option, *value]) == 0
+        assert capsys.readouterr().out == plain
+    else:
+        def stop_serving(_):
+            raise KeyboardInterrupt
+
+        monkeypatch.setattr(tcli.time, "sleep", stop_serving)
+        assert torch_cli(["serve", str(model), "--port", "0", "--device", "cpu", option, *value]) == 0
+    engine = built[-1]
+    if option == "--prefix-cache":
+        assert engine.prefix_cache_slots == 2 and engine.draft_model is None
+    else:
+        assert engine.draft_model is not None and engine.draft_cfg.vocab_size == engine.cfg.vocab_size
+        assert engine.speculation_k == (3 if option == "--speculation-k" else 4)
 
 
 # -- verify-safetensors ---------------------------------------------------------
@@ -332,8 +384,10 @@ def test_cli_generate_wires_its_options(monkeypatch, tmp_path, capsys):
 
     class FakeEngine:
         @classmethod
-        def from_pretrained(cls, path, load_in_4bit=False, load_in_8bit=False, device=None):
+        def from_pretrained(cls, path, load_in_4bit=False, load_in_8bit=False, device=None, draft_model=None,
+                            speculation_k=4):
             calls["init"] = (str(path), load_in_4bit, load_in_8bit, str(device))
+            calls["draft"] = (draft_model, speculation_k)
             return cls()
 
         def stream_generation(self, **kw):
@@ -347,6 +401,7 @@ def test_cli_generate_wires_its_options(monkeypatch, tmp_path, capsys):
                       "0.5", "-4", "--greedy", "--decode-chunk", "1", "--device", "cpu"]) == 0
     assert "hello world" in capsys.readouterr().out
     assert calls["init"] == (str(tmp_path / "model"), True, False, "cpu")
+    assert calls["draft"] == (None, 4)
     assert calls["gen"]["max_new_tokens"] == 7 and calls["gen"]["temperature"] == 0.5
     assert calls["gen"]["greedy"] is True
     assert torch_cli(["generate", str(tmp_path / "model"), "x", "--no-greedy", "--device", "cpu"]) == 0

@@ -2882,13 +2882,14 @@ def projections(layer):
     return [getattr(layer.self_attn if key in PROJECTIONS[:4] else layer.mlp, key) for key in PROJECTIONS]
 
 
-def family_step_check(torch, qk, ak, engine, prompt: str, tag: str, route: str):
+def family_step_check(torch, qk, ak, engine, prompt: str, tag: str, route: str, gemvs: int = 7 * LAYERS):
     """One decode step after ``prompt``'s prefill through the kernels and
     again with both on their plain versions: every projection launches the
-    GEMV, the attention takes ``route``, the logits agree within 2e-2; the
-    kernel's attention is also held to the plain version on the step's own
-    inputs. Returns (logits relL2, attention relL2 or None, the step's
-    masks' valid slots)."""
+    GEMV (``gemvs`` launches), the attention takes ``route``, the logits
+    agree within 2e-2; the kernel's attention is also held to the plain
+    version on the step's own inputs. Returns (logits relL2, attention
+    relL2 or None, the step's masks' valid slots, the logits' max-abs
+    gap)."""
     from shardmerge_tpu_torch.models import llama
 
     model, cfg, dev = engine.model, engine.cfg, engine.device
@@ -2919,8 +2920,8 @@ def family_step_check(torch, qk, ak, engine, prompt: str, tag: str, route: str):
             with_plain, _ = model(tok, step_pos, kv_plain, T, rope, T + 1)
         attn = max((rel_l2(kernel(*a, **kw), ak.flash_decode_plain(*a)) for a, kw in seen), default=None)
         valid = sorted({int((a[3] > -1e8).sum()) for a, _ in seen})
-    if counts.get("int4_gemv", 0) != 7 * LAYERS:
-        raise SystemExit(f"{tag} decode step did not run the GEMV for every projection: {counts}")
+    if counts.get("int4_gemv", 0) != gemvs:
+        raise SystemExit(f"{tag} decode step did not run the GEMV for every projection ({gemvs}): {counts}")
     if route == "flash" and counts.get("flash_decode", 0) != LAYERS:
         raise SystemExit(f"{tag} decode step did not run the flash kernel in every layer: {counts}")
     if route == "einsum" and (counts.get("decode_einsum", 0) != LAYERS or counts.get("flash_decode", 0)):
@@ -2928,7 +2929,7 @@ def family_step_check(torch, qk, ak, engine, prompt: str, tag: str, route: str):
     rel = rel_l2(with_kernel.float(), with_plain.float())
     if rel > 2e-2 or not bool(torch.isfinite(with_kernel).all()) or (attn is not None and attn > 1e-5):
         raise SystemExit(f"{tag} decode step disagrees with the plain route: logits {rel:.2e}, attention {attn}")
-    return rel, attn, valid
+    return rel, attn, valid, float((with_kernel.float() - with_plain.float()).abs().max())
 
 
 def phase_families(torch, root: Path, card: str):
@@ -2937,7 +2938,7 @@ def phase_families(torch, root: Path, card: str):
     new (N, K), the decode attention's route; Qwen2.5-7B's layer of GEMVs
     timed; Phi-3 also through the generate CLI from a fused checkpoint."""
     from scripts.bench_int4_torch import graph_ms, library_int4
-    from shardmerge_tpu_torch.inference import InferenceEngine, JsonTokenizer
+    from shardmerge_tpu_torch.inference import InferenceEngine, load_tokenizer
     from shardmerge_tpu_torch.io.safetensors_io import save_file
     from shardmerge_tpu_torch.models import attn_kernels as ak
     from shardmerge_tpu_torch.models import llama
@@ -2977,7 +2978,7 @@ def phase_families(torch, root: Path, card: str):
         if route == "flash" and counts["flash_decode"] != LAYERS * counts["flash_compact"]:
             # one slot list a step for the one mask kind its layers use
             raise SystemExit(f"[families] {name}: slot lists not compacted once a step per mask kind: {counts}")
-        rel, attn, valid = family_step_check(torch, qk, ak, engine, prompt, f"[families] {name}", route)
+        rel, attn, valid, _ = family_step_check(torch, qk, ak, engine, prompt, f"[families] {name}", route)
         # the GEMV at each (N, K) not held yet, B = 1 and 8
         worst = 0.0
         for proj in projections(engine.model.layers[0]):
@@ -3029,7 +3030,7 @@ def phase_families(torch, root: Path, card: str):
             out, wall = port_cli(["generate", phi, words, "-4", "--greedy", "--max-tokens", FAMILY_NEW])
             host_q = {**bf16, "layers": [{**layer, **{k: {t: v.to(dev) for t, v in quantize(layer[k], 4).items()}
                                                      for k in PROJECTIONS}} for layer in bf16["layers"]]}
-            mem = InferenceEngine(cfg, llama.LlamaModel(cfg, host_q), JsonTokenizer(phi))
+            mem = InferenceEngine(cfg, llama.LlamaModel(cfg, host_q), load_tokenizer(phi, phi))
             want = "".join(mem.stream_generation(words, max_new_tokens=FAMILY_NEW, greedy=True))
             say(f"[families] phi-3 through the CLI: generate -4 --greedy from a fused qkv_proj/gate_up_proj "
                 f"checkpoint in {wall:.1f} s: {out.strip()!r}; the in-memory model (host int4 of the same "
@@ -3045,13 +3046,329 @@ def phase_families(torch, root: Path, card: str):
     say(f"[families] phase wall {time.perf_counter() - t_phase:.1f} s")
 
 
-def write_word_tokenizer(path: Path, vocab: int):
-    """A word-level tokenizer.json: word ``w{i}`` is token i."""
+# [experts]: the expert and latent-attention families from their public
+# config.json values at published widths, num_hidden_layers cut to 2 (and
+# DeepSeek-V3's first_k_dense_replace from 3 to 1, so that one dense and
+# one MoE layer remain; its fp8 quantization_config is left out: the weights
+# are seeded random), random weights made and int4-quantized matrix by
+# matrix on the card. Each entry: (repository, config, the decode
+# attention's route, int4 GEMVs a decode step: the attention projections,
+# every expert's three (the dense-and-mask loop runs all of them), the
+# shared or dense MLP's three; kv_b_proj is dequantized at use).
+MIXTRAL_HF = {
+    "model_type": "mixtral", "hidden_act": "silu", "hidden_size": 4096, "intermediate_size": 14336,
+    "max_position_embeddings": 32768, "num_attention_heads": 32, "num_experts_per_tok": 2,
+    "num_key_value_heads": 8, "num_local_experts": 8, "rms_norm_eps": 1e-05, "rope_theta": 1000000.0,
+    "sliding_window": None, "tie_word_embeddings": False, "vocab_size": 32000}
+DSV2_LITE_HF = {
+    "model_type": "deepseek_v2", "first_k_dense_replace": 1, "hidden_act": "silu", "hidden_size": 2048,
+    "intermediate_size": 10944, "kv_lora_rank": 512, "max_position_embeddings": 163840,
+    "moe_intermediate_size": 1408, "n_group": 1, "n_routed_experts": 64, "n_shared_experts": 2,
+    "norm_topk_prob": False, "num_attention_heads": 16, "num_experts_per_tok": 6, "num_key_value_heads": 16,
+    "q_lora_rank": None, "qk_nope_head_dim": 128, "qk_rope_head_dim": 64, "rms_norm_eps": 1e-06,
+    "rope_scaling": {"beta_fast": 32, "beta_slow": 1, "factor": 40, "mscale": 0.707, "mscale_all_dim": 0.707,
+                     "original_max_position_embeddings": 4096, "type": "yarn"},
+    "rope_theta": 10000, "routed_scaling_factor": 1.0, "tie_word_embeddings": False, "topk_group": 1,
+    "topk_method": "greedy", "v_head_dim": 128, "eos_token_id": 100001, "vocab_size": 102400}
+EXPERT_MODELS = {
+    "mixtral-8x7b": ("mistralai/Mixtral-8x7B-v0.1", MIXTRAL_HF, "flash", LAYERS * (4 + 8 * 3)),
+    "qwen3-30b-a3b": ("Qwen/Qwen3-30B-A3B", {
+        "model_type": "qwen3_moe", "attention_bias": False, "head_dim": 128, "hidden_act": "silu",
+        "hidden_size": 2048, "intermediate_size": 6144, "max_position_embeddings": 40960, "mlp_only_layers": [],
+        "moe_intermediate_size": 768, "norm_topk_prob": True, "num_attention_heads": 32, "num_experts": 128,
+        "num_experts_per_tok": 8, "num_key_value_heads": 4, "rms_norm_eps": 1e-06, "rope_scaling": None,
+        "rope_theta": 1000000.0, "sliding_window": None, "use_sliding_window": False, "tie_word_embeddings": False,
+        "vocab_size": 151936}, "flash", LAYERS * (4 + 128 * 3)),
+    "deepseek-v2-lite": ("deepseek-ai/DeepSeek-V2-Lite", DSV2_LITE_HF, "einsum", (3 + 3) + (3 + 64 * 3 + 3)),
+    "deepseek-v3": ("deepseek-ai/DeepSeek-V3", {
+        "model_type": "deepseek_v3", "first_k_dense_replace": 1, "hidden_act": "silu", "hidden_size": 7168,
+        "intermediate_size": 18432, "kv_lora_rank": 512, "max_position_embeddings": 163840,
+        "moe_intermediate_size": 2048, "n_group": 8, "n_routed_experts": 256, "n_shared_experts": 1,
+        "norm_topk_prob": True, "num_attention_heads": 128, "num_experts_per_tok": 8, "num_key_value_heads": 128,
+        "q_lora_rank": 1536, "qk_nope_head_dim": 128, "qk_rope_head_dim": 64, "rms_norm_eps": 1e-06,
+        "rope_scaling": {"beta_fast": 32, "beta_slow": 1, "factor": 40, "mscale": 1.0, "mscale_all_dim": 1.0,
+                         "original_max_position_embeddings": 4096, "type": "yarn"},
+        "rope_theta": 10000, "routed_scaling_factor": 2.5, "tie_word_embeddings": False, "topk_group": 4,
+        "topk_method": "noaux_tc", "v_head_dim": 128, "vocab_size": 129280}, "einsum", (4 + 3) + (4 + 256 * 3 + 3)),
+}
+EXPERT_PROMPT = 100  # prompt tokens before the 8 greedy ones
+# the pools: (cache slots, 6 staggered greedy requests (prompt tokens,
+# max_tokens, pool steps driven before the next submit)) over 4 slots;
+# V2-Lite's long-lived rows fill a cache just over the largest need
+# (472 <= 512), so its latent rows compact
+EXPERT_POOL_SLOTS = 4
+EXPERT_POOLS = {
+    "mixtral-8x7b": (1024, [(300, 24, 6), (120, 32, 3), (250, 16, 0), (60, 40, 4), (200, 24, 2), (90, 32, 0)]),
+    "deepseek-v2-lite": (512, [(380, 64, 2), (120, 100, 2), (250, 80, 0), (300, 90, 1), (60, 100, 2), (400, 72, 0)]),
+}
+# V2-Lite's chat template in its word-level vocabulary
+DSV2_TEMPLATE = ("{% for m in messages %}w5 {{ m['content'] }} w6 {% endfor %}"
+                 "{% if add_generation_prompt %}w7{% endif %}")
+
+
+def hf_tensors(params):
+    """Port params of a DeepSeek-V2 model under the HF checkpoint names
+    (MLA, the dense first layer, routed and shared experts)."""
+    names = {"q_proj": "self_attn.q_proj", "kv_a_proj": "self_attn.kv_a_proj_with_mqa",
+             "kv_a_layernorm": "self_attn.kv_a_layernorm", "kv_b_proj": "self_attn.kv_b_proj",
+             "o_proj": "self_attn.o_proj", "gate_proj": "mlp.gate_proj", "up_proj": "mlp.up_proj",
+             "down_proj": "mlp.down_proj", "moe_gate": "mlp.gate", "shared_gate_proj": "mlp.shared_experts.gate_proj",
+             "shared_up_proj": "mlp.shared_experts.up_proj", "shared_down_proj": "mlp.shared_experts.down_proj",
+             "input_layernorm": "input_layernorm", "post_attention_layernorm": "post_attention_layernorm"}
+    out = {"model.embed_tokens.weight": params["embed_tokens"], "model.norm.weight": params["norm"],
+           "lm_head.weight": params["lm_head"]}
+    for i, layer in enumerate(params["layers"]):
+        p = f"model.layers.{i}."
+        for key, value in layer.items():
+            if key == "experts":
+                for e, ex in enumerate(value):
+                    for w, hf in (("w1", "gate_proj"), ("w3", "up_proj"), ("w2", "down_proj")):
+                        out[f"{p}mlp.experts.{e}.{hf}.weight"] = ex[w]
+            else:
+                out[f"{p}{names[key]}.weight"] = value
+    return {k: v.contiguous().cpu() for k, v in out.items()}
+
+
+def path_projections(model):
+    """The quantized Projection modules whose products run at decode (every
+    one but MLA's kv_b_proj, which is dequantized at use)."""
+    from shardmerge_tpu_torch.models import llama
+
+    return [m for name, m in model.named_modules()
+            if isinstance(m, llama.Projection) and m.q is not None and not name.endswith("kv_b_proj")]
+
+
+def expert_pool(torch, engine, name: str):
+    """A pool of EXPERT_POOL_SLOTS rows over EXPERT_POOLS[name], staggered:
+    every completion equals its solo stream, or first differs at a near-tie
+    of the plain route (the largest verify-vs-T=1 gap over the solo
+    stream's tokens, as the speculative pools' rule)."""
+    from shardmerge_tpu_torch.batching import ContinuousEngine
+    from shardmerge_tpu_torch.models import attn_kernels as ak
+    from shardmerge_tpu_torch.models import quant_kernels as qk
+
+    cache_len, requests = EXPERT_POOLS[name]
+    pool = ContinuousEngine(engine, slots=EXPERT_POOL_SLOTS, cache_len=cache_len, greedy=True, use_template=False)
+    reqs = [(text_of(n, 500 + i), m) for i, (n, m, _) in enumerate(requests)]
+    reset_counts(qk, ak)
+    t0 = time.perf_counter()
+    handles = []
+    for (p, m), (_, _, after) in zip(reqs, requests):
+        handles.append(pool.submit(p, max_new_tokens=m, repetition_penalty=1.0))
+        pool._admit_pending()
+        for _ in range(after):
+            if pool._active():
+                pool._step()
+            pool._admit_pending()
+    pool.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: ak.launch_counts.get(k, 0) for k in ("flash_decode", "flash_compact", "decode_einsum")}
+    counts["int4_gemv"] = qk.launch_counts["int4_gemv"]
+    notes = []
+    for (p, m), h in zip(reqs, handles):
+        solo = token_ids("".join(engine.stream_generation(p, max_new_tokens=m, greedy=True, repetition_penalty=1.0)))
+        got = token_ids(h.result())
+        if got != solo:
+            steps, _, gap, _ = replay(torch, engine, IdTokenizer().encode(p), solo)
+            notes.append(near_tie_check(f"[experts] {name} pool completion", got, solo, steps, [], gap)[1])
+    say(f"[experts] {name} pool, {EXPERT_POOL_SLOTS} slots x {cache_len} cache slots, {len(reqs)} staggered greedy "
+        f"requests in {wall:.2f} s: joins {pool.stats['joins']}, frontier jumps {pool.stats['frontier_jumps']}, "
+        f"compactions {pool.stats['compactions']}, decode dispatches {pool.stats['decode_dispatches']}; launches "
+        f"{counts}; completions vs their solo streams: {len(reqs) - len(notes)} of {len(reqs)} equal"
+        + (f" ({'; '.join(notes)})" if notes else ""))
+    if engine.cfg.is_mla and not pool.stats["compactions"]:
+        raise SystemExit(f"[experts] {name} pool: the latent rows never compacted")
+
+
+def expert_cli(torch, root: Path, params, cfg, hf: dict, dev):
+    """DeepSeek-V2-Lite through the CLI: the bf16 params written as an HF
+    checkpoint with a word-level tokenizer whose tokenizer_config.json
+    carries a chat template and an EOS token; ``generate -4 --greedy`` and
+    ``--decode-chunk 4`` must print the in-memory engine's tokens (the same
+    weights int4-quantized on the host as the loader does, the tokenizer
+    through the CLI's loader, the template on)."""
+    from shardmerge_tpu_torch.inference import InferenceEngine, load_tokenizer
+    from shardmerge_tpu_torch.io.safetensors_io import save_file
+    from shardmerge_tpu_torch.models import llama
+    from shardmerge_tpu_torch.models.quant import quantize
+
+    path = root / "dsv2lite"
+    path.mkdir()
+    t0 = time.perf_counter()
+    save_file(hf_tensors(params), path / "model.safetensors")
+    (path / "config.json").write_text(json.dumps({**hf, "num_hidden_layers": LAYERS,
+                                                  "architectures": ["DeepseekV2ForCausalLM"]}))
+    write_word_tokenizer(path, cfg.vocab_size, chat_template=DSV2_TEMPLATE, eos_token=f"w{hf['eos_token_id']}")
+    written = time.perf_counter() - t0
+    words = " ".join(f"w{11 + 37 * i}" for i in range(24))
+    with ThreadPoolExecutor(2) as ex:  # the two processes side by side
+        outs = dict(zip((1, 4), ex.map(lambda chunk: port_cli(
+            ["generate", path, words, "-4", "--greedy", "--max-tokens", FAMILY_NEW, "--decode-chunk", chunk]),
+            (1, 4))))
+
+    def host_int4(w):
+        return {t: v.to(dev) for t, v in quantize(w, 4).items()}
+
+    host_q = {**params, "layers": [
+        {k: ([{w: host_int4(m) for w, m in e.items()} for e in v] if k == "experts"
+             else host_int4(v) if k in llama.QUANTIZABLE else v) for k, v in layer.items()}
+        for layer in params["layers"]]}
+    mem = InferenceEngine(cfg, llama.LlamaModel(cfg, host_q), load_tokenizer(path, path))
+    ids = mem._encode(words, True, None, None)
+    want = "".join(mem.stream_generation(words, max_new_tokens=FAMILY_NEW, greedy=True))
+    say(f"[experts] deepseek-v2-lite through the CLI ({written:.1f} s to write the checkpoint): generate -4 --greedy "
+        f"{outs[1][1]:.1f} s, --decode-chunk 4 {outs[4][1]:.1f} s (side by side): {outs[1][0].strip()!r} / "
+        f"{outs[4][0].strip()!r}; "
+        f"the in-memory engine (host int4 of the same weights, the chat template rendered to {len(ids)} ids, EOS "
+        f"{sorted(mem._eos_ids())}): {want!r}")
+    if len(ids) != 24 + 3 or mem._eos_ids() != {hf["eos_token_id"]}:
+        raise SystemExit(f"[experts] deepseek-v2-lite: the template or EOS did not come through ({ids}, "
+                         f"{mem._eos_ids()})")
+    if any(out.rstrip("\n") != want for out, _ in outs.values()):
+        raise SystemExit("[experts] deepseek-v2-lite: the CLI's tokens differ from the in-memory engine's")
+    shutil.rmtree(path)
+
+
+def expert_prefix_hit(torch, engine, name: str):
+    """V2-Lite's prefix cache: two requests sharing a 300-token prefix; the
+    second implants 256 slots of the first's ckv/kpe slab, which must be
+    bit-equal to the plain prefill's latents; its tokens are held to a cold
+    engine's under the near-tie rule."""
+    from shardmerge_tpu_torch.inference import InferenceEngine, _slice_kv
+    from shardmerge_tpu_torch.models import llama
+
+    cached = InferenceEngine(engine.cfg, engine.model, IdTokenizer(), prefix_cache_slots=4)
+    shared = text_of(300, 77)
+    prompts = [shared + text_of(40, 78), shared + text_of(60, 79)]
+    metas = [{}, {}]
+    outs = [token_ids("".join(cached.stream_generation(p, max_new_tokens=FAMILY_NEW, greedy=True, meta=meta,
+                                                       repetition_penalty=1.0)))
+            for p, meta in zip(prompts, metas)]
+    hits = [m["prefix_cache_hit_tokens"] for m in metas]
+    ids = IdTokenizer().encode(prompts[0])
+    key = ("t", tuple(ids[: (len(ids) - 1) // 64 * 64]))  # the first prompt's stored slab
+    slab, nbytes = cached._prefix_cache[key]
+    cache = -(-(len(ids) + FAMILY_NEW) // 256) * 256
+    kv = engine._init_kv(1, cache)
+    with torch.inference_mode():
+        pids, ppos = engine._pad_prompt(ids, cache)
+        engine._chunked_prefill(pids, ppos, kv, llama.rope_tables(engine.cfg, cache, engine.device), len(ids))
+    plain = _slice_kv(kv, len(key[1]))
+    equal = {k: bool(torch.equal(slab[k], plain[k])) for k in ("ckv", "kpe")}
+    cold = token_ids("".join(engine.stream_generation(prompts[1], max_new_tokens=FAMILY_NEW, greedy=True,
+                                                      repetition_penalty=1.0)))
+    note = "equal"
+    if outs[1] != cold:
+        steps, _, gap, _ = replay(torch, engine, IdTokenizer().encode(prompts[1]), cold)
+        note = near_tie_check(f"[experts] {name} prefix hit", outs[1], cold, steps, [], gap)[1]
+    say(f"[experts] {name} prefix cache: hits {hits}, a {len(key[1])}-slot slab of {nbytes} bytes; its ckv/kpe "
+        f"bit-equal to the plain prefill's: {equal}; the hit's tokens vs a cold engine's: {note}")
+    if hits != [0, 256] or not all(equal.values()):
+        raise SystemExit(f"[experts] {name}: prefix cache hits {hits}, slab equal to the plain prefill {equal}")
+
+
+def phase_experts(torch, root: Path, card: str):
+    """The expert and latent-attention families at published widths on the
+    card: 8 greedy int4 tokens a model, one decode step against the plain
+    route, the launches against EXPERT_MODELS' counts, the GEMV at each new
+    (N, K); pools of Mixtral (flash slot lists) and V2-Lite (latent rows
+    compacting), V2-Lite's prefix cache and its CLI."""
+    from shardmerge_tpu_torch.inference import InferenceEngine
+    from shardmerge_tpu_torch.models import attn_kernels as ak
+    from shardmerge_tpu_torch.models import llama
+    from shardmerge_tpu_torch.models import quant_kernels as qk
+
+    t_phase = time.perf_counter()
+    dev = torch.device(CARD)
+    torch.empty(0, device=dev)  # the allocator's memory statistics need it started
+    gen = torch.Generator(device=dev).manual_seed(6)
+    launches = {"int4_gemv": 0, "flash_decode": 0, "decode_einsum": 0}
+    gemv_checked = set()
+    for seed, (name, (repo, hf, route, gemvs)) in enumerate(EXPERT_MODELS.items()):
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats(dev)
+        cfg = llama.ModelConfig.from_hf_config({**hf, "num_hidden_layers": LAYERS})
+        cli = name == "deepseek-v2-lite"
+        # V2-Lite keeps its bf16 weights for the checkpoint the CLI reads
+        params = llama.init_params(cfg, seed=40 + seed, dtype=torch.bfloat16, device=dev,
+                                   project=None if cli else (lambda w: card_quantize(torch, w)))
+        if cli:
+            bf16 = params
+            params = {**bf16, "layers": [
+                {k: ([{w: card_quantize(torch, m) for w, m in e.items()} for e in v] if k == "experts"
+                     else card_quantize(torch, v) if k in llama.QUANTIZABLE else v) for k, v in layer.items()}
+                for layer in bf16["layers"]]}
+        engine = InferenceEngine(cfg, llama.LlamaModel(cfg, params), StubTokenizer())
+        built = time.perf_counter() - t0
+        memory = torch.cuda.memory_allocated(dev)
+        prompt = text_of(EXPERT_PROMPT, 80 + seed)
+        reset_counts(qk, ak)
+        t1 = time.perf_counter()
+        text = "".join(engine.stream_generation(prompt, max_new_tokens=FAMILY_NEW, greedy=True))
+        torch.cuda.synchronize()
+        stream_s = time.perf_counter() - t1
+        counts = {k: ak.launch_counts.get(k, 0) for k in ("flash_decode", "flash_compact", "decode_einsum")}
+        counts["int4_gemv"] = qk.launch_counts["int4_gemv"]
+        for k in launches:
+            launches[k] += counts[k]
+        steps = FAMILY_NEW
+        want_attn = {"flash": {"flash_decode": LAYERS * steps, "decode_einsum": 0},
+                     "einsum": {"flash_decode": 0, "decode_einsum": LAYERS * steps}}[route]
+        if len(text) != FAMILY_NEW or counts["int4_gemv"] != gemvs * steps or any(
+                counts[k] != v for k, v in want_attn.items()):
+            raise SystemExit(f"[experts] {name}: {len(text)} tokens, launches {counts} (want {want_attn}, "
+                             f"int4_gemv {gemvs * steps})")
+        if route == "flash" and counts["flash_decode"] != LAYERS * counts["flash_compact"]:
+            raise SystemExit(f"[experts] {name}: slot lists not compacted once a step: {counts}")
+        if route == "einsum" and counts["flash_compact"]:
+            raise SystemExit(f"[experts] {name}: a slot list was built for latent attention: {counts}")
+        rel, attn, _, gap = family_step_check(torch, qk, ak, engine, prompt, f"[experts] {name}", route, gemvs)
+        worst, new = 0.0, []
+        for proj in path_projections(engine.model):
+            n, kh = proj.q.shape
+            if (n, 2 * kh) in gemv_checked:
+                continue
+            gemv_checked.add((n, 2 * kh))
+            new.append((n, 2 * kh))
+            for b in (1, 8):
+                x = torch.randn((b, 2 * kh), device=dev, generator=gen).to(torch.bfloat16)
+                worst = max(worst, rel_l2(qk.int4_matmul(x, proj.q, proj.scale).float(),
+                                          qk.int4_matmul_plain(x, proj.q, proj.scale).float()))
+        if worst > 4e-3:
+            raise SystemExit(f"[experts] {name}: the GEMV leaves 4e-3 of its plain version ({worst:.2e})")
+        say(f"[experts] {name} ({repo}, {LAYERS} layers, int4): {FAMILY_NEW} greedy tokens after a "
+            f"{len(prompt)}-token prompt in {stream_s:.2f} s; launches {counts} ({gemvs} GEMVs a decode step); "
+            f"decode step vs plain route: logits relL2 {rel:.2e} (tol 2e-2, max-abs {gap:.3e}), attention "
+            + (f"relL2 {attn:.2e} (tol 1e-5)" if attn is not None else "on the counted einsum path")
+            + f"; GEMV at {len(new)} new (N, K) {new} relL2 <= {worst:.2e} (tol 4e-3); card memory "
+            f"{memory / 2**30:.2f} GiB (peak {torch.cuda.max_memory_allocated(dev) / 2**30:.2f}), built in "
+            f"{built:.1f} s; {time.perf_counter() - t0:.1f} s")
+        if name in EXPERT_POOLS:
+            engine.tokenizer = IdTokenizer()
+            expert_pool(torch, engine, name)
+        if cli:
+            expert_prefix_hit(torch, engine, name)
+            expert_cli(torch, root, bf16, cfg, hf, dev)
+            del bf16
+        del engine, params
+        torch.cuda.empty_cache()
+    say(f"[experts] launches over the four models' streams: {launches}")
+    say(f"[experts] phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
+def write_word_tokenizer(path: Path, vocab: int, **config):
+    """A word-level tokenizer.json (word ``w{i}`` is token i) and its
+    tokenizer_config.json, which fixes the class (without it transformers
+    takes config.json's model type's, which may add a BOS) and carries
+    ``config`` (a chat_template, an eos_token)."""
     from tokenizers import Tokenizer, models, pre_tokenizers
 
     tok = Tokenizer(models.WordLevel({f"w{i}": i for i in range(vocab)}, unk_token="w0"))
     tok.pre_tokenizer = pre_tokenizers.Whitespace()
     tok.save(str(path / "tokenizer.json"))
+    (path / "tokenizer_config.json").write_text(json.dumps(
+        {"tokenizer_class": "PreTrainedTokenizerFast", "unk_token": "w0", **config}))
 
 
 def main() -> int:
@@ -3112,6 +3429,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_families(torch, root, card)
         lap("families")
+        phase_experts(torch, root, card)
+        lap("experts")
     finally:
         shutil.rmtree(root, ignore_errors=True)
 

@@ -68,7 +68,9 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from .inference import _CACHE_BUCKET, _PROMPT_BUCKET, InferenceEngine, _find_stop, _greedy_verify, _penalized
+from .inference import (
+    _CACHE_BUCKET, _KV_SEQ_AXIS, _PROMPT_BUCKET, InferenceEngine, _find_stop, _greedy_verify, _penalized,
+)
 from .models.llama import rope_tables
 
 logger = logging.getLogger(__name__)
@@ -136,10 +138,13 @@ def _compact_pool(kv, key_pos, idx):
     anywhere (the caller masks those destinations). ``key_pos`` rides the
     same gather."""
     rows = torch.arange(idx.shape[0], device=idx.device)[:, None]
-    for buf in kv.values():  # (L, B, KVH, S, D)
+    for name, buf in kv.items():
         for layer in buf:
-            moved = layer.transpose(1, 2)[rows, idx]  # (B, S, KVH, D)
-            layer.copy_(moved.transpose(1, 2))
+            if _KV_SEQ_AXIS[name] == 2:  # MLA: (B, S, rank)
+                layer.copy_(layer[rows, idx])
+            else:  # K/V: (B, KVH, S, D)
+                moved = layer.transpose(1, 2)[rows, idx]  # (B, S, KVH, D)
+                layer.copy_(moved.transpose(1, 2))
     key_pos.copy_(torch.gather(key_pos, 1, idx))
 
 
@@ -147,9 +152,11 @@ def _implant_cache(kv, slab, key_pos, b: int):
     """Install a batch-1 prefill cache into pool row ``b`` at slots
     [0, slab_len), in place, with positions 0..slab_len in the slot ->
     position map (the target's and the draft's pools alike)."""
-    slab_len = slab["k"].shape[3]
+    slab_len = 0
     for name, buf in kv.items():
-        buf[:, b : b + 1, :, :slab_len].copy_(slab[name])
+        axis = _KV_SEQ_AXIS[name]
+        slab_len = slab[name].shape[axis]
+        buf[:, b : b + 1].narrow(axis, 0, slab_len).copy_(slab[name])
     key_pos[b, :slab_len] = torch.arange(slab_len, device=key_pos.device)
 
 

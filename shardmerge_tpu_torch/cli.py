@@ -25,9 +25,8 @@ when it finishes. The device is a CUDA card unless ``--device cpu`` is
 given (or the config's ``device`` is ``cpu``); with no card and no such
 request the command fails instead of running on the host. Errors print
 ``error: ...`` and exit 2. The mesh-sharded merge (config fields
-``shard_tensors``, ``distributed``), tensor-parallel decoding
-(``--shard``) and chunked decode (``generate --decode-chunk``) are refused
-by name.
+``shard_tensors``, ``distributed``) and tensor-parallel decoding
+(``--shard``) are refused by name.
 """
 
 from __future__ import annotations
@@ -284,7 +283,7 @@ def _refuse(**options) -> None:
 def _generate(args) -> int:
     from .inference import InferenceEngine
 
-    _refuse(**{"--shard": args.shard, "--decode-chunk": args.decode_chunk != 1})
+    _refuse(**{"--shard": args.shard})
     dev = resolve_device(args.device)
     engine = InferenceEngine.from_pretrained(
         args.model_path,
@@ -303,6 +302,7 @@ def _generate(args) -> int:
         repetition_penalty=args.repetition_penalty,
         greedy=args.greedy,
         seed=args.seed,
+        decode_chunk=args.decode_chunk,
     ):
         print(chunk, end="", flush=True)
     print()
@@ -479,7 +479,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="smaller same-vocab checkpoint for speculative decoding (greedy only; same tokens)")
     g.add_argument("--speculation-k", type=int, default=4, help="speculative tokens per round")
     g.add_argument("--shard", action="store_true", help="not ported yet")
-    g.add_argument("--decode-chunk", type=_int_range(1, 64), default=1, help="not ported yet")
+    g.add_argument("--decode-chunk", type=_int_range(1, 64), default=1,
+                   help="decode steps per engine call (the same tokens; S-token emission)")
     g.add_argument("--verbose", action="store_true")
     g.set_defaults(func=_generate)
 

@@ -36,7 +36,7 @@ from .models.llama import LlamaModel, ModelConfig, init_kv_cache, rope_tables
 from .models.loader import load_params, resolve_checkpoint_dir
 from .models.sampling import sample_token
 
-__all__ = ["ChatMessage", "InferenceEngine", "JsonTokenizer"]
+__all__ = ["ChatMessage", "InferenceEngine", "load_tokenizer"]
 
 _CACHE_BUCKET = 256  # KV cache length granularity
 _PROMPT_BUCKET = 64  # prompts pad to a multiple of this
@@ -55,10 +55,14 @@ class ChatMessage:
         return json.dumps(self.to_dict())
 
 
+# the slot axis of each cache buffer: K/V (L, B, KVH, S, D), MLA's
+# compressed latent and shared roped key (L, B, S, rank)
+_KV_SEQ_AXIS = {"k": 3, "v": 3, "ckv": 2, "kpe": 2}
+
+
 def _slice_kv(kv, length: int) -> dict:
-    """A copy of the first ``length`` slots of every cache buffer
-    ((L, B, KVH, S, D): slots on axis 3)."""
-    return {k: v[:, :, :, :length].clone() for k, v in kv.items()}
+    """A copy of the first ``length`` slots of every cache buffer."""
+    return {k: v.narrow(_KV_SEQ_AXIS[k], 0, length).clone() for k, v in kv.items()}
 
 
 def _implant_kv(fresh, slab) -> dict:
@@ -67,7 +71,8 @@ def _implant_kv(fresh, slab) -> dict:
     Valid for any cache at least as long as the slab: causality makes the
     prefix's KV the same whatever follows it."""
     for k, v in slab.items():
-        fresh[k][:, :, :, : v.shape[3]].copy_(v)
+        axis = _KV_SEQ_AXIS[k]
+        fresh[k].narrow(axis, 0, v.shape[axis]).copy_(v)
     return fresh
 
 
@@ -172,38 +177,24 @@ class _StreamText:
         return text[len(self.emitted) :]
 
 
-class JsonTokenizer:
-    """A ``tokenizer.json`` (HF ``tokenizers`` format) behind the small
-    interface the engine uses: ``encode``, ``decode``, ``eos_token_id``."""
-
-    def __init__(self, model_dir):
-        model_dir = Path(model_dir)
-        path = model_dir / "tokenizer.json"
-        if not path.is_file():
-            raise FileNotFoundError(
-                f"generate needs a tokenizer.json next to the model ({path})"
-            )
-        try:
-            from tokenizers import Tokenizer
-        except ImportError as e:
-            raise RuntimeError(
-                "reading tokenizer.json needs the 'tokenizers' package"
-            ) from e
-        self._tok = Tokenizer.from_file(str(path))
-        self.eos_token_id = None
-        for name in ("generation_config.json", "config.json"):
-            f = model_dir / name
-            if f.is_file():
-                eos = json.loads(f.read_text()).get("eos_token_id")
-                if eos is not None:
-                    self.eos_token_id = eos
-                    break
-
-    def encode(self, text: str) -> List[int]:
-        return self._tok.encode(text).ids
-
-    def decode(self, ids, skip_special_tokens: bool = True) -> str:
-        return self._tok.decode(list(ids), skip_special_tokens=skip_special_tokens)
+def load_tokenizer(model_path, weights_dir):
+    """The JAX engine's tokenizer for a checkpoint:
+    ``transformers.AutoTokenizer`` over an adapter directory's own files
+    when it holds ``tokenizer_config.json``, else the weights directory's."""
+    model_path = Path(model_path)
+    tok_dir = model_path if (model_path / "tokenizer_config.json").is_file() else Path(weights_dir)
+    if not any((tok_dir / name).is_file() for name in ("tokenizer.json", "tokenizer.model", "tokenizer_config.json")):
+        raise FileNotFoundError(
+            f"generate needs the tokenizer next to the model (tokenizer.json and tokenizer_config.json in {tok_dir})"
+        )
+    try:
+        from transformers import AutoTokenizer
+    except ImportError as e:
+        raise RuntimeError(
+            "generate reads the tokenizer with transformers: install the 'inference' extra "
+            "(pip install 'shardmerge-tpu[inference]')"
+        ) from e
+    return AutoTokenizer.from_pretrained(str(tok_dir))
 
 
 class InferenceEngine:
@@ -271,8 +262,7 @@ class InferenceEngine:
             d_cfg = ModelConfig.from_pretrained(d_dir)
             draft = LlamaModel(d_cfg, load_params(d_dir, d_cfg, device=device, resolved=(d_dir, d_adapter)))
         if tokenizer is None:
-            own = Path(model_path) / "tokenizer.json"
-            tokenizer = JsonTokenizer(Path(model_path) if own.is_file() else weights_dir)
+            tokenizer = load_tokenizer(model_path, weights_dir)
         return cls(cfg, LlamaModel(cfg, params), tokenizer, draft=draft, speculation_k=speculation_k,
                    prefix_cache_slots=prefix_cache_slots, prefix_cache_bytes=prefix_cache_bytes)
 
@@ -297,6 +287,8 @@ class InferenceEngine:
             ids = self.tokenizer.apply_chat_template(
                 [m.to_dict() for m in raw], tokenize=True, add_generation_prompt=True
             )
+            if hasattr(ids, "keys"):  # newer transformers return a BatchEncoding
+                ids = ids["input_ids"]
             return list(ids)
         return list(self.tokenizer.encode(prompt))
 

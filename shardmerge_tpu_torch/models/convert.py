@@ -2,9 +2,10 @@
 
 ``params_from_jax`` takes the JAX param pytree with every leaf already a
 numpy array (``jax.tree_util.tree_map(np.asarray, params)`` on the JAX side:
-raw arrays, and ``{"q", "scale"}`` dicts for quantized weights) and returns
-the port's params dict on ``device``, ready for ``LlamaModel``. bfloat16
-arrays (ml_dtypes) come across bit for bit.
+raw arrays, and ``{"q", "scale"}`` dicts for quantized weights; a MoE
+layer's ``experts`` list of ``{"w1", "w3", "w2"}`` dicts) and returns the
+port's params dict on ``device``, ready for ``LlamaModel``. bfloat16 arrays
+(ml_dtypes) come across bit for bit.
 """
 
 from __future__ import annotations

@@ -1,6 +1,7 @@
-"""The dense decoder families' forward pass in PyTorch (counterpart of
-shardmerge_tpu/models/llama.py, dense families only): Llama 2/3, Qwen2,
-Qwen3, Mistral, Gemma 1/2/3, Phi-3, OLMo-2, SmolLM3 and GLM-4.
+"""The decoder families' forward pass in PyTorch (counterpart of
+shardmerge_tpu/models/llama.py): Llama 2/3, Qwen2, Qwen3, Mistral, Gemma
+1/2/3, Phi-3, OLMo-2, SmolLM3 and GLM-4, and the expert and latent-attention
+families Mixtral, Qwen3-MoE and DeepSeek V2/V3.
 
 - RMSNorm in f32 (Gemma's zero-centred ``(1 + w)`` form too), RoPE with
   llama3, linear, longrope (Phi-3) or yarn scaling, Gemma-3's dual tables,
@@ -12,16 +13,24 @@ Qwen3, Mistral, Gemma 1/2/3, Phi-3, OLMo-2, SmolLM3 and GLM-4.
   softcaps, and sliding windows beside full attention; SwiGLU or GeGLU MLP;
   the post-norm blocks of Gemma-2/3, OLMo-2 and GLM-4; untied or tied
   lm_head;
+- experts (:class:`MoE`): Mixtral / Qwen3-MoE softmax top-k routing and
+  DeepSeek's (V2 greedy and group-limited, V3 ``noaux_tc``) with shared
+  experts and dense first layers, every expert computed and masked
+  (dense-and-mask, the JAX route of quantized experts); top-k breaks exact ties toward the lower index, as ``jax.lax.top_k`` does;
+- DeepSeek's multi-head latent attention (:class:`LatentAttention`) over a
+  compressed cache ``{"ckv": (L, B, S, kv_lora_rank), "kpe": (L, B, S,
+  qk_rope_head_dim)}`` with ``kv_b_proj`` absorbed into the einsums (on the
+  card too: it is not a flash-decode shape);
 - weights are bf16 (or f32) tensors, or int8 / packed-int4 dicts
   ``{"q", "scale"}`` whose product dequantizes on the fly (models/quant.py,
   and the CUDA int4 GEMV for decode-sized products on the card);
 - one ``forward`` serves chunked prefill and single-token decode against a
-  stacked KV cache ``(L, B, KVH, S, D)`` that is updated IN PLACE (the JAX
-  version donates the buffer to get the same effect).
+  stacked KV cache ``(L, B, KVH, S, D)`` (or the compressed one) that is
+  updated IN PLACE (the JAX version donates the buffer to get the same
+  effect).
 
-The families with experts, latent attention, sinks or chunked attention
-(Mixtral, Qwen3-MoE, DeepSeek V2/V3, GPT-OSS, Llama-4) are not ported yet:
-their configs raise ``NotImplementedError`` naming the feature.
+The families with sinks or chunked attention (GPT-OSS, Llama-4) are not
+ported yet: their configs raise ``NotImplementedError`` naming the feature.
 """
 
 from __future__ import annotations
@@ -37,7 +46,7 @@ import torch
 from torch import nn
 
 from . import attn_kernels
-from .quant import dequant_matmul
+from .quant import dequant, dequant_matmul
 
 __all__ = [
     "ModelConfig",
@@ -48,17 +57,16 @@ __all__ = [
     "init_kv_cache",
     "init_params",
     "matmul",
+    "layer_keys",
+    "topk",
+    "deepseek_topk",
 ]
 
 # model types whose forward is ported, and those refused by name with the
 # feature each needs
 FAMILIES = ("llama", "qwen2", "qwen3", "mistral", "gemma", "gemma2", "gemma3_text", "phi3", "olmo2",
-            "smollm3", "glm4")
+            "smollm3", "glm4", "mixtral", "qwen3_moe", "deepseek_v2", "deepseek_v3")
 NOT_PORTED = {
-    "mixtral": "experts (MoE)",
-    "qwen3_moe": "experts (MoE)",
-    "deepseek_v2": "latent attention (MLA) and experts",
-    "deepseek_v3": "latent attention (MLA) and experts",
     "gpt_oss": "attention sinks and MXFP4 experts",
     "llama4": "chunked attention, L2 q/k norms and experts",
     "llama4_text": "chunked attention, L2 q/k norms and experts",
@@ -103,6 +111,28 @@ class ModelConfig:
     no_rope_layers: Optional[tuple] = None
     # gemma3: sliding layers rope at this base with no scaling
     rope_local_base_freq: Optional[float] = None
+    # experts (Mixtral / Qwen3-MoE / DeepSeek): 0 experts is a dense MLP;
+    # Qwen3-MoE's and DeepSeek's experts are narrower than the dense width
+    num_local_experts: int = 0
+    num_experts_per_tok: int = 2
+    moe_intermediate_size: Optional[int] = None
+    norm_topk_prob: bool = True
+    # DeepSeek multi-head latent attention, on when kv_lora_rank is set
+    q_lora_rank: Optional[int] = None
+    kv_lora_rank: Optional[int] = None
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: Optional[int] = None
+    # DeepSeek MoE: dense first layers, always-on shared experts, routed
+    # weight scaling, group-limited selection; "greedy" /
+    # "group_limited_greedy" (V2, softmax) or "noaux_tc" (V3, sigmoid with
+    # the selection bias)
+    n_shared_experts: int = 0
+    first_k_dense_replace: int = 0
+    routed_scaling_factor: float = 1.0
+    n_group: Optional[int] = None
+    topk_group: Optional[int] = None
+    topk_method: str = "greedy"
 
     @property
     def head_dim(self) -> int:
@@ -111,9 +141,44 @@ class ModelConfig:
         return self.hidden_size // self.num_attention_heads
 
     @property
+    def is_mla(self) -> bool:
+        return self.kv_lora_rank is not None
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+    @property
     def rope_dims(self) -> int:
-        """Head dims the rotary tables cover (glm4: a fraction)."""
+        """Head dims the rotary tables cover (MLA: the shared qk_rope part;
+        glm4: a fraction)."""
+        if self.is_mla:
+            return self.qk_rope_head_dim
         return int(self.head_dim * self.partial_rotary_factor)
+
+    @property
+    def mla_softmax_scale(self) -> float:
+        """MLA score scale: qk_head_dim^-0.5, times mscale^2 under V3's yarn
+        with mscale_all_dim (HF's deepseek_v2 applies no mscale: so here)."""
+        scale = self.qk_head_dim**-0.5
+        if self.model_type == "deepseek_v3" and self.rope_scaling:
+            mscale_all_dim = self.rope_scaling.get("mscale_all_dim", 0)
+            factor = self.rope_scaling.get("factor", 1.0)
+            if mscale_all_dim and factor > 1:
+                mscale = 0.1 * mscale_all_dim * float(np.log(factor)) + 1.0
+                scale = scale * mscale * mscale
+        return scale
+
+    def layer_is_moe(self, layer_idx: int) -> bool:
+        """The JAX per-layer MoE table: every layer follows
+        num_local_experts (DeepSeek's dense first layers are
+        :meth:`layer_has_experts`'s rule)."""
+        return self.num_local_experts > 0
+
+    def layer_has_experts(self, layer_idx: int) -> bool:
+        """Experts in this layer's params: MoE layers past DeepSeek's
+        first_k_dense_replace dense ones (the JAX ``init_params`` rule)."""
+        return self.layer_is_moe(layer_idx) and layer_idx >= self.first_k_dense_replace
 
     @property
     def is_gemma(self) -> bool:
@@ -162,9 +227,6 @@ class ModelConfig:
             raise NotImplementedError(
                 f"model_type {model_type!r} is not ported (dense families: {', '.join(FAMILIES)})"
             )
-        experts = config.get("num_local_experts") or config.get("num_experts") or config.get("n_routed_experts")
-        if experts or config.get("kv_lora_rank"):
-            raise NotImplementedError(f"{model_type} config with experts or latent attention is not ported yet")
         if config.get("mlp_bias"):
             raise NotImplementedError("mlp_bias is not ported")
         hidden_act = config.get("hidden_activation", config.get("hidden_act", "silu"))
@@ -207,7 +269,7 @@ class ModelConfig:
             ),
             attention_bias=config.get("attention_bias", model_type in ("qwen2", "glm4")),
             model_type=model_type,
-            qk_norm=model_type == "qwen3" or model_type == "gemma3_text",
+            qk_norm=model_type.startswith("qwen3") or model_type == "gemma3_text",
             qk_norm_full=model_type == "olmo2",
             head_dim_override=config.get("head_dim"),
             hidden_act=hidden_act,
@@ -217,12 +279,34 @@ class ModelConfig:
             sliding_window=config.get("sliding_window") if windowed else None,
             layer_types=tuple(layer_types) if layer_types else None,
             original_max_position_embeddings=config.get("original_max_position_embeddings"),
-            rope_interleave=model_type == "glm4",
+            # deepseek_v2 always ropes interleaved pairs, deepseek_v3 unless
+            # its config says otherwise
+            rope_interleave=model_type in ("glm4", "deepseek_v2")
+            or (model_type == "deepseek_v3" and config.get("rope_interleave", True)),
             partial_rotary_factor=config.get("partial_rotary_factor", 0.5 if model_type == "glm4" else 1.0),
             no_rope_layers=tuple(no_rope) if no_rope is not None else None,
             rope_local_base_freq=(
                 config.get("rope_local_base_freq", 10000.0) if model_type == "gemma3_text" else None
             ),
+            # Mixtral names the expert count num_local_experts, Qwen3-MoE
+            # num_experts, DeepSeek n_routed_experts
+            num_local_experts=config.get(
+                "num_local_experts", config.get("num_experts", config.get("n_routed_experts", 0))
+            ) or 0,
+            num_experts_per_tok=config.get("num_experts_per_tok", 2),
+            moe_intermediate_size=config.get("moe_intermediate_size"),
+            norm_topk_prob=config.get("norm_topk_prob", True),
+            q_lora_rank=config.get("q_lora_rank"),
+            kv_lora_rank=config.get("kv_lora_rank"),
+            qk_nope_head_dim=config.get("qk_nope_head_dim", 0),
+            qk_rope_head_dim=config.get("qk_rope_head_dim", 0),
+            v_head_dim=config.get("v_head_dim"),
+            n_shared_experts=config.get("n_shared_experts") or 0,
+            first_k_dense_replace=config.get("first_k_dense_replace", 0),
+            routed_scaling_factor=config.get("routed_scaling_factor", 1.0),
+            n_group=config.get("n_group"),
+            topk_group=config.get("topk_group"),
+            topk_method="noaux_tc" if model_type == "deepseek_v3" else config.get("topk_method", "greedy"),
         )
 
     @classmethod
@@ -402,19 +486,48 @@ def _act(g32: torch.Tensor, hidden_act: str) -> torch.Tensor:
 def init_kv_cache(
     cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16, device=None
 ) -> Dict[str, torch.Tensor]:
-    shape = (cfg.num_hidden_layers, batch, cfg.num_key_value_heads, max_len, cfg.head_dim)
+    """The stacked cache: ``k``/``v`` (L, B, KVH, S, D), or MLA's compressed
+    latent ``ckv`` (L, B, S, kv_lora_rank) and shared roped key ``kpe``
+    (L, B, S, qk_rope_head_dim)."""
+    L = cfg.num_hidden_layers
+    if cfg.is_mla:
+        return {
+            "ckv": torch.zeros((L, batch, max_len, cfg.kv_lora_rank), dtype=dtype, device=device),
+            "kpe": torch.zeros((L, batch, max_len, cfg.qk_rope_head_dim), dtype=dtype, device=device),
+        }
+    shape = (L, batch, cfg.num_key_value_heads, max_len, cfg.head_dim)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
     }
 
 
-def layer_keys(cfg: ModelConfig) -> set:
-    """The leaves every layer of ``cfg``'s params holds."""
-    keys = {"q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj",
-            "post_attention_layernorm"}
-    if not cfg.is_olmo2:
-        keys.add("input_layernorm")
+# the per-layer leaves that go through a quantized product when loaded with
+# int8/int4 (kv_b_proj is dequantized at use by the absorbed MLA einsums);
+# an expert's w1/w3/w2 are quantized alike
+QUANTIZABLE = {"q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj", "q_a_proj",
+               "q_b_proj", "kv_a_proj", "kv_b_proj", "shared_gate_proj", "shared_up_proj", "shared_down_proj"}
+
+
+def layer_keys(cfg: ModelConfig, layer_idx: int = 0) -> set:
+    """The leaves layer ``layer_idx`` of ``cfg``'s params holds (``experts``
+    is a list of ``{"w1", "w3", "w2"}`` dicts)."""
+    if cfg.is_mla:
+        keys = {"kv_a_proj", "kv_a_layernorm", "kv_b_proj", "o_proj", "input_layernorm",
+                "post_attention_layernorm"}
+        keys |= {"q_a_proj", "q_a_layernorm", "q_b_proj"} if cfg.q_lora_rank else {"q_proj"}
+    else:
+        keys = {"q_proj", "k_proj", "v_proj", "o_proj", "post_attention_layernorm"}
+        if not cfg.is_olmo2:
+            keys.add("input_layernorm")
+    if cfg.layer_has_experts(layer_idx):
+        keys |= {"moe_gate", "experts"}
+        if cfg.topk_method == "noaux_tc":
+            keys.add("gate_bias")
+        if cfg.n_shared_experts:
+            keys |= {"shared_gate_proj", "shared_up_proj", "shared_down_proj"}
+    else:
+        keys |= {"gate_proj", "up_proj", "down_proj"}
     if cfg.attention_bias:
         keys |= {"q_bias", "k_bias", "v_bias"}
     if cfg.qk_norm or cfg.qk_norm_full:
@@ -426,40 +539,121 @@ def layer_keys(cfg: ModelConfig) -> set:
     return keys
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16, device=None) -> dict:
+def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16, device=None, project=None) -> dict:
     """Random params with ``cfg``'s leaves (the JAX ``init_params`` layout):
     matrices and biases N(0, 0.02) from a seeded generator on ``device``,
-    norms ones (zeros for Gemma's (1 + w) form)."""
+    norms ones (zeros for Gemma's (1 + w) form), V3's selection bias f32
+    zeros. ``project(w)``, when given, replaces each per-layer projection
+    and expert matrix as soon as it is drawn (a quantizer: a model whose
+    bf16 experts would not fit never holds them all)."""
     gen = torch.Generator(device=device).manual_seed(seed)
     h, q_dim, kv_dim = cfg.hidden_size, cfg.num_attention_heads * cfg.head_dim, cfg.num_key_value_heads * cfg.head_dim
+    H = cfg.num_attention_heads
+    moe_inter = cfg.moe_intermediate_size or cfg.intermediate_size
+    shared = moe_inter * cfg.n_shared_experts
 
     def dense(*shape):
         return (torch.randn(shape, generator=gen, device=device) * 0.02).to(dtype)
+
+    def matrix(*shape):
+        w = dense(*shape)
+        return w if project is None else project(w)
 
     def norm(n):
         return (torch.zeros if cfg.is_gemma else torch.ones)(n, dtype=dtype, device=device)
 
     shapes = {
-        "q_proj": (q_dim, h), "k_proj": (kv_dim, h), "v_proj": (kv_dim, h), "o_proj": (h, q_dim),
+        "q_proj": (H * cfg.qk_head_dim if cfg.is_mla else q_dim, h), "k_proj": (kv_dim, h),
+        "v_proj": (kv_dim, h), "o_proj": (h, H * cfg.v_head_dim if cfg.is_mla else q_dim),
         "gate_proj": (cfg.intermediate_size, h), "up_proj": (cfg.intermediate_size, h),
         "down_proj": (h, cfg.intermediate_size), "q_bias": (q_dim,), "k_bias": (kv_dim,), "v_bias": (kv_dim,),
         "q_norm": (q_dim if cfg.qk_norm_full else cfg.head_dim,),
         "k_norm": (kv_dim if cfg.qk_norm_full else cfg.head_dim,),
+        "q_a_proj": (cfg.q_lora_rank, h), "q_a_layernorm": (cfg.q_lora_rank,),
+        "q_b_proj": (H * cfg.qk_head_dim, cfg.q_lora_rank),
+        "kv_a_proj": ((cfg.kv_lora_rank or 0) + cfg.qk_rope_head_dim, h), "kv_a_layernorm": (cfg.kv_lora_rank,),
+        "kv_b_proj": (H * (cfg.qk_nope_head_dim + (cfg.v_head_dim or 0)), cfg.kv_lora_rank),
+        "moe_gate": (cfg.num_local_experts, h), "shared_gate_proj": (shared, h), "shared_up_proj": (shared, h),
+        "shared_down_proj": (h, shared),
     }
     params = {"embed_tokens": dense(cfg.vocab_size, h), "norm": norm(h), "layers": []}
     if not cfg.tie_word_embeddings:
         params["lm_head"] = dense(cfg.vocab_size, h)
-    for _ in range(cfg.num_hidden_layers):
+    for i in range(cfg.num_hidden_layers):
         layer = {}
-        for key in sorted(layer_keys(cfg)):
-            if key.endswith("layernorm"):
+        for key in sorted(layer_keys(cfg, i)):
+            if key == "experts":
+                layer[key] = [{"w1": matrix(moe_inter, h), "w3": matrix(moe_inter, h), "w2": matrix(h, moe_inter)}
+                              for _ in range(cfg.num_local_experts)]
+            elif key == "gate_bias":
+                layer[key] = torch.zeros(cfg.num_local_experts, dtype=torch.float32, device=device)
+            elif key in ("q_a_layernorm", "kv_a_layernorm"):
+                layer[key] = torch.ones(shapes[key], dtype=dtype, device=device)
+            elif key.endswith("layernorm"):
                 layer[key] = norm(h)
             elif key.endswith("_norm"):
                 layer[key] = norm(shapes[key][0])
+            elif key in QUANTIZABLE:
+                layer[key] = matrix(*shapes[key])
             else:
                 layer[key] = dense(*shapes[key])
         params["layers"].append(layer)
     return params
+
+
+def topk(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(values, indices) of the k largest along the last axis, exact ties
+    toward the lower index (``jax.lax.top_k``'s order; ``torch.topk``
+    promises none): a stable descending sort."""
+    values, indices = torch.sort(x, dim=-1, descending=True, stable=True)
+    return values[..., :k], indices[..., :k]
+
+
+def _dense_weights(idx: torch.Tensor, w: torch.Tensor, n_exp: int) -> torch.Tensor:
+    """Per-expert weights (..., n_exp) f32 from top-k (idx, w): zero off
+    the chosen experts (the JAX one-hot einsum, exact)."""
+    out = torch.zeros(idx.shape[:-1] + (n_exp,), dtype=torch.float32, device=idx.device)
+    return out.scatter_(-1, idx, w.to(torch.float32))
+
+
+def deepseek_topk(cfg: ModelConfig, gate_w, gate_bias, x):
+    """DeepSeek expert routing -> (topk_idx, topk_w), each (..., k).
+
+    V3 (``noaux_tc``): sigmoid scores; selection adds
+    e_score_correction_bias, a group's score is the sum of its top-2
+    biased scores, the top ``topk_group`` groups survive and the biased
+    scores outside them are set to 0.0 (not -inf: a negative biased score
+    ranks below a masked one) before the top-k; the weights are the
+    UNBIASED scores, normalized over the top-k (+ 1e-20) when
+    norm_topk_prob, then scaled by routed_scaling_factor.
+    V2 (``greedy`` / ``group_limited_greedy``): softmax scores, a group's
+    score its max; the weights are the (masked) scores themselves scaled by
+    routed_scaling_factor, never normalized (HF's V2 skips norm_topk_prob).
+    """
+    n_exp, k = cfg.num_local_experts, cfg.num_experts_per_tok
+    v3 = cfg.topk_method == "noaux_tc"
+    logits = torch.einsum("...e,ne->...n", x.to(torch.float32), gate_w.to(torch.float32))
+    scores = torch.sigmoid(logits) if v3 else torch.softmax(logits, dim=-1)
+    choice = scores + gate_bias.to(torch.float32) if v3 else scores
+    if cfg.topk_method in ("noaux_tc", "group_limited_greedy") and cfg.n_group:
+        G = cfg.n_group
+        grouped = choice.reshape(*choice.shape[:-1], G, n_exp // G)
+        if v3:
+            group_scores = topk(grouped, min(2, n_exp // G))[0].sum(dim=-1)
+        else:
+            group_scores = grouped.amax(dim=-1)
+        group_idx = topk(group_scores, cfg.topk_group)[1]
+        keep = torch.zeros(group_scores.shape, dtype=torch.bool, device=x.device).scatter_(-1, group_idx, True)
+        keep = keep.repeat_interleave(n_exp // G, dim=-1)
+        choice = torch.where(keep, choice, torch.zeros((), dtype=choice.dtype, device=x.device))
+    topk_choice, topk_idx = topk(choice, k)
+    if v3:
+        topk_w = torch.gather(scores, -1, topk_idx)
+        if cfg.norm_topk_prob:
+            topk_w = topk_w / (topk_w.sum(dim=-1, keepdim=True) + 1e-20)
+    else:
+        topk_w = topk_choice
+    return topk_idx, topk_w * float(np.float32(cfg.routed_scaling_factor))
 
 
 # ---------------------------------------------------------------------------
@@ -485,6 +679,12 @@ class Projection(nn.Module):
         if self.weight is None:
             return matmul(x, {"q": self.q, "scale": self.scale})
         return matmul(x, self.weight)
+
+    def dense(self, dtype: torch.dtype) -> torch.Tensor:
+        """The (out, in) weight in ``dtype``, dequantized when quantized."""
+        if self.weight is None:
+            return dequant({"q": self.q, "scale": self.scale}, dtype)
+        return self.weight.to(dtype)
 
 
 class Attention(nn.Module):
@@ -548,6 +748,61 @@ class Attention(nn.Module):
         return self.o_proj(out.to(x.dtype))
 
 
+class LatentAttention(nn.Module):
+    """DeepSeek multi-head latent attention over the compressed cache: q
+    (through the q_lora bottleneck when the config has one) splits into a
+    per-head no-position part and a roped part; the cache keeps the
+    normalized kv_lora_rank latent and the roped key shared by the heads;
+    ``kv_b_proj`` (dequantized to f32 at use) is absorbed into the query and
+    output sides, scores = (W_k^T q_nope)^T c + q_pe k_pe, out = (probs c)
+    W_v. The einsum path on every device: a T=1 call on the card counts
+    under ``attn_kernels.launch_counts["decode_einsum"]``."""
+
+    def __init__(self, cfg: ModelConfig, layer: dict):
+        super().__init__()
+        self.cfg = cfg
+        for name in ("q_proj", "q_a_proj", "q_b_proj", "kv_a_proj", "kv_b_proj", "o_proj"):
+            setattr(self, name, Projection(layer[name]) if name in layer else None)
+        for name in ("q_a_layernorm", "kv_a_layernorm"):
+            self.register_buffer(name, layer.get(name))
+
+    def forward(self, x, cos, sin, positions, kv_cache, layer_idx, cache_pos, mask, slots=None):
+        cfg = self.cfg
+        B, T, _ = x.shape
+        H, dn, dr, dc, dv = (cfg.num_attention_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                             cfg.kv_lora_rank, cfg.v_head_dim)
+        if self.q_proj is not None:  # no q_lora_rank (V2-Lite)
+            q = self.q_proj(x)
+        else:
+            q = self.q_b_proj(rms_norm(self.q_a_proj(x), self.q_a_layernorm, cfg.rms_norm_eps))
+        q = q.reshape(B, T, H, dn + dr).transpose(1, 2)
+        q_nope, q_pe = q[..., :dn], q[..., dn:]
+        ckv = self.kv_a_proj(x)  # (B, T, dc + dr)
+        c = rms_norm(ckv[..., :dc], self.kv_a_layernorm, cfg.rms_norm_eps)
+        q_pe, k_pe = apply_rope_cfg(cfg, q_pe, ckv[..., dc:][:, None], cos, sin, positions)
+
+        c_buf, pe_buf = kv_cache["ckv"], kv_cache["kpe"]
+        c_buf[layer_idx, :, cache_pos : cache_pos + T] = c.to(c_buf.dtype)
+        pe_buf[layer_idx, :, cache_pos : cache_pos + T] = k_pe[:, 0].to(pe_buf.dtype)
+        sm = mask.shape[-1]  # the mask covers the first attn_len slots
+        c_keys = c_buf[layer_idx, :, :sm].to(torch.float32)
+        pe_keys = pe_buf[layer_idx, :, :sm].to(torch.float32)
+        if T == 1 and x.is_cuda:
+            attn_kernels.launch_counts["decode_einsum"] += 1
+
+        wkb = self.kv_b_proj.dense(torch.float32).reshape(H, dn + dv, dc)
+        q_abs = torch.einsum("bhtd,hdc->bhtc", q_nope.to(torch.float32), wkb[:, :dn])
+        scores = torch.einsum("bhtc,bsc->bhts", q_abs, c_keys) + torch.einsum(
+            "bhtd,bsd->bhts", q_pe.to(torch.float32), pe_keys
+        )
+        scores = scores * float(np.float32(cfg.mla_softmax_scale)) + mask[:, None]
+        probs = torch.softmax(scores, dim=-1)
+        ctx = torch.einsum("bhts,bsc->bhtc", probs, c_keys)
+        out = torch.einsum("bhtc,hvc->bhtv", ctx, wkb[:, dn:])
+        out = out.transpose(1, 2).reshape(B, T, H * dv)
+        return self.o_proj(out.to(x.dtype))
+
+
 class MLP(nn.Module):
     def __init__(self, layer: dict, hidden_act: str = "silu"):
         super().__init__()
@@ -560,6 +815,52 @@ class MLP(nn.Module):
         return self.down_proj(act.to(x.dtype) * self.up_proj(x))
 
 
+class MoE(nn.Module):
+    """Routed experts: Mixtral / Qwen3-MoE (bf16 router product, softmax,
+    top-k, renormalized per norm_topk_prob) or DeepSeek
+    (:func:`deepseek_topk`, plus the always-on shared-experts MLP).
+    Dense-and-mask: every expert runs on every token and its output is
+    weighted (zero off its tokens), summed in f32 in expert order; with
+    quantized experts each product is a quantized matmul (the int4 GEMV at
+    decode on the card)."""
+
+    def __init__(self, cfg: ModelConfig, layer: dict):
+        super().__init__()
+        self.cfg = cfg
+        self.deepseek = cfg.model_type.startswith("deepseek")
+        self.register_buffer("moe_gate", layer["moe_gate"])
+        self.register_buffer("gate_bias", layer.get("gate_bias"))
+        self.experts = nn.ModuleList(
+            MLP({"gate_proj": e["w1"], "up_proj": e["w3"], "down_proj": e["w2"]}, cfg.hidden_act)
+            for e in layer["experts"]
+        )
+        self.shared = None
+        if "shared_gate_proj" in layer:
+            self.shared = MLP({k: layer["shared_" + k] for k in ("gate_proj", "up_proj", "down_proj")},
+                              cfg.hidden_act)
+
+    def route(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(topk_idx, topk_w) of tokens ``x`` (..., E)."""
+        cfg = self.cfg
+        if self.deepseek:
+            return deepseek_topk(cfg, self.moe_gate, self.gate_bias, x)
+        probs = torch.softmax(matmul(x, self.moe_gate).to(torch.float32), dim=-1)
+        topk_probs, topk_idx = topk(probs, cfg.num_experts_per_tok)
+        if cfg.norm_topk_prob:
+            topk_probs = topk_probs / topk_probs.sum(dim=-1, keepdim=True)
+        return topk_idx, topk_probs
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n_exp = self.cfg.num_local_experts
+        weights = _dense_weights(*self.route(x), n_exp)
+        out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        for e in range(n_exp):
+            out = out + self.experts[e](x).to(torch.float32) * weights[..., e : e + 1]
+        if self.shared is not None:
+            out = out + self.shared(x).to(torch.float32)
+        return out.to(x.dtype)
+
+
 class DecoderLayer(nn.Module):
     def __init__(self, cfg: ModelConfig, layer: dict, layer_idx: int):
         super().__init__()
@@ -569,8 +870,14 @@ class DecoderLayer(nn.Module):
         for name in ("input_layernorm", "post_attention_layernorm", "pre_feedforward_layernorm",
                      "post_feedforward_layernorm"):
             self.register_buffer(name, layer.get(name))
-        self.self_attn = Attention(cfg, layer, cfg.layer_uses_rope(layer_idx))
-        self.mlp = MLP(layer, cfg.hidden_act)
+        if cfg.is_mla:
+            self.self_attn = LatentAttention(cfg, layer)
+        else:
+            self.self_attn = Attention(cfg, layer, cfg.layer_uses_rope(layer_idx))
+        if "experts" in layer:
+            self.mlp = MoE(cfg, layer)
+        else:
+            self.mlp = MLP(layer, cfg.hidden_act)
 
     def forward(self, x, cos, sin, positions, kv_cache, layer_idx, cache_pos, mask, slots=None):
         eps, po = self.eps, self.po
@@ -660,7 +967,8 @@ class LlamaModel(nn.Module):
             else:
                 recent = key_positions[:, None, :attn_len] > positions[:, :, None] - cfg.sliding_window
             mask_sliding = torch.where(valid & recent, zero, masked)
-        decode = input_ids.shape[1] == 1
+        # the flash kernel's slot lists: the K/V route's decode only
+        decode = input_ids.shape[1] == 1 and not cfg.is_mla
         slots = attn_kernels.Slots(mask[:, 0, :]) if decode else None
         slots_sliding = attn_kernels.Slots(mask_sliding[:, 0, :]) if decode and mask_sliding is not None else None
         for i, layer in enumerate(self.layers):

@@ -1,12 +1,16 @@
-"""Load an HF safetensors checkpoint of a dense family into the port's
-params dict (counterpart of shardmerge_tpu/models/loader.py, dense families
-only).
+"""Load an HF safetensors checkpoint into the port's params dict
+(counterpart of shardmerge_tpu/models/loader.py, without GPT-OSS's and
+Llama-4's weights).
 
 Each tensor is read as a view of its shard file and copied to the device
-once. With ``quant_bits`` the seven per-layer projections are quantized ON
-THE HOST before the copy (a device-side quantize would first place the
-full-width weight, the very memory quantization is meant to save);
-embeddings, norms, biases and lm_head stay in ``dtype``. Phi-3's fused
+once. With ``quant_bits`` the per-layer projections (``llama.QUANTIZABLE``:
+attention, MLP, DeepSeek's MLA and shared-expert matrices) and every
+expert's w1/w3/w2, one expert at a time, are quantized ON THE HOST before
+the copy (a device-side quantize would first place the full-width weight,
+the very memory quantization is meant to save); embeddings, norms, biases,
+routers and lm_head stay in ``dtype``. Mixtral's
+``block_sparse_moe.experts.E.w{1,2,3}`` and Qwen3-MoE's and DeepSeek's
+``mlp.experts.E.{gate,up,down}_proj`` fill the ``experts`` list. Phi-3's fused
 ``qkv_proj`` and ``gate_up_proj`` split by head geometry before that (each
 part quantized on its own), and GLM-4's sandwich norms land in the Gemma-2
 slots, as the JAX loader maps them.
@@ -30,7 +34,7 @@ from typing import Optional
 import torch
 
 from ..io.safetensors_io import SafeTensorsReader
-from .llama import ModelConfig, layer_keys
+from .llama import QUANTIZABLE, ModelConfig, layer_keys
 from .quant import quantize
 
 logger = logging.getLogger(__name__)
@@ -103,7 +107,25 @@ _LAYER_WEIGHTS = {
     # qwen3/gemma3 per-head and olmo2 full-vector q/k norms
     "self_attn.q_norm.weight": "q_norm",
     "self_attn.k_norm.weight": "k_norm",
+    # deepseek v2/v3 multi-head latent attention
+    "self_attn.q_a_proj.weight": "q_a_proj",
+    "self_attn.q_a_layernorm.weight": "q_a_layernorm",
+    "self_attn.q_b_proj.weight": "q_b_proj",
+    "self_attn.kv_a_proj_with_mqa.weight": "kv_a_proj",
+    "self_attn.kv_a_layernorm.weight": "kv_a_layernorm",
+    "self_attn.kv_b_proj.weight": "kv_b_proj",
+    # the routers (mixtral; qwen3-moe and deepseek), deepseek's shared
+    # experts and V3's selection bias
+    "block_sparse_moe.gate.weight": "moe_gate",
+    "mlp.gate.weight": "moe_gate",
+    "mlp.shared_experts.gate_proj.weight": "shared_gate_proj",
+    "mlp.shared_experts.up_proj.weight": "shared_up_proj",
+    "mlp.shared_experts.down_proj.weight": "shared_down_proj",
+    "mlp.gate.e_score_correction_bias": "gate_bias",
 }
+# qwen3-moe / deepseek expert weights use the MLP names; the params keep
+# mixtral's w1/w3/w2
+_EXPERT_WEIGHTS = {"gate_proj": "w1", "up_proj": "w3", "down_proj": "w2", "w1": "w1", "w2": "w2", "w3": "w3"}
 # glm4's sandwich norms in the gemma2 slots: its post_attention_layernorm
 # is the PRE-ffn norm
 _GLM4_NORMS = {
@@ -111,7 +133,6 @@ _GLM4_NORMS = {
     "post_attention_layernorm.weight": "pre_feedforward_layernorm",
     "post_mlp_layernorm.weight": "post_feedforward_layernorm",
 }
-_QUANTIZABLE = {"q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj"}
 
 
 def _split_fused(suffix: str, arr, cfg: ModelConfig):
@@ -194,6 +215,17 @@ def load_params(
                 elif name.startswith("model.layers."):
                     parts = name.split(".")
                     suffix = ".".join(parts[3:])
+                    layer = params["layers"][int(parts[2])]
+                    if suffix.startswith(("block_sparse_moe.experts.", "mlp.experts.")) and parts[5].isdigit():
+                        # model.layers.N.block_sparse_moe.experts.E.w{1,2,3}.weight (mixtral)
+                        # model.layers.N.mlp.experts.E.{gate,up,down}_proj.weight (qwen3-moe, deepseek)
+                        experts = layer.setdefault("experts", [dict() for _ in range(cfg.num_local_experts)])
+                        wname = _EXPERT_WEIGHTS[parts[6]]
+                        experts[int(parts[5])][wname] = (
+                            {k: v.to(device) for k, v in quantize(arr, quant_bits).items()} if quant_bits
+                            else place(arr)
+                        )
+                        continue
                     if cfg.model_type == "glm4" and suffix in _GLM4_NORMS:
                         pieces = [(_GLM4_NORMS[suffix], arr)]
                     else:
@@ -206,11 +238,11 @@ def load_params(
                                 )
                             pieces = [(key, arr)]
                     for key, w in pieces:
-                        if quant_bits and key in _QUANTIZABLE:
+                        if quant_bits and key in QUANTIZABLE:
                             w = {k: v.to(device) for k, v in quantize(w, quant_bits).items()}
                         else:
                             w = place(w)
-                        params["layers"][int(parts[2])][key] = w
+                        layer[key] = w
                 else:
                     logger.warning("Skipping unknown weight %s", name)
 
@@ -218,12 +250,16 @@ def load_params(
         raise ValueError(f"{model_path}: packed modules with missing parts: {sorted(pending)[:4]}")
     if cfg.tie_word_embeddings:
         params.pop("lm_head", None)
-    want = layer_keys(cfg)
-    missing = [i for i, layer in enumerate(params["layers"]) if set(layer) != want]
+    missing = [
+        i for i, layer in enumerate(params["layers"])
+        if set(layer) != layer_keys(cfg, i)
+        or any(set(e) != {"w1", "w2", "w3"} for e in layer.get("experts", []))
+    ]
     if missing or "embed_tokens" not in params or "norm" not in params:
         raise ValueError(
             f"Checkpoint at {model_path} is incomplete or does not match its config "
-            f"(embed/norm, or layers {missing[:4]} against {sorted(want)})"
+            f"(embed/norm, or layers {missing[:4]} against "
+            f"{sorted(layer_keys(cfg, missing[0] if missing else 0))})"
         )
     if not cfg.tie_word_embeddings and "lm_head" not in params:
         raise ValueError(f"Checkpoint at {model_path} has no lm_head.weight")

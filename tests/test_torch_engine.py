@@ -144,8 +144,8 @@ def test_load_params_quantizes_projections_on_host(tmp_path):
 
 
 def test_unported_families_raise():
-    with pytest.raises(NotImplementedError, match="mixtral"):
-        tllama.ModelConfig.from_hf_config({**HF_CONFIG, "model_type": "mixtral"})
+    with pytest.raises(NotImplementedError, match="gpt_oss"):
+        tllama.ModelConfig.from_hf_config({**HF_CONFIG, "model_type": "gpt_oss"})
     dynamic = {**HF_CONFIG, "rope_scaling": {"rope_type": "dynamic", "factor": 4.0}}
     with pytest.raises(NotImplementedError, match="dynamic"):
         tllama.rope_tables(tllama.ModelConfig.from_hf_config(dynamic), 8)
@@ -252,7 +252,9 @@ def _save_tiny_checkpoint(path):
 
 def test_cli_generate_reads_tokenizer_json(tmp_path, capsys):
     """``generate`` on the host with int4 weights; the tokenizer comes from
-    tokenizer.json, and its absence is reported by name."""
+    tokenizer.json (its class from tokenizer_config.json, as the JAX
+    engine's AutoTokenizer reads it), and its absence is reported by
+    name."""
     from tokenizers import Tokenizer, models, pre_tokenizers
 
     from shardmerge_tpu_torch.cli import main
@@ -265,6 +267,7 @@ def test_cli_generate_reads_tokenizer_json(tmp_path, capsys):
     tok = Tokenizer(models.WordLevel({f"w{i}": i for i in range(128)}, unk_token="w0"))
     tok.pre_tokenizer = pre_tokenizers.Whitespace()
     tok.save(str(tmp_path / "m" / "tokenizer.json"))
+    (tmp_path / "m" / "tokenizer_config.json").write_text('{"tokenizer_class": "PreTrainedTokenizerFast"}')
     assert main(argv) == 0
     out = capsys.readouterr().out.split()
     assert len(out) == 4 and all(w.startswith("w") for w in out)

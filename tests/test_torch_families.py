@@ -288,10 +288,32 @@ def test_params_from_jax_carries_every_leaf_bit_for_bit():
     assert set(ported["layers"][0]) == tllama.layer_keys(tllama.ModelConfig.from_hf_config(hf_config("gemma3")))
 
 
-@pytest.mark.parametrize("model_type", ["mixtral", "qwen3_moe", "deepseek_v2", "deepseek_v3", "gpt_oss", "llama4"])
+@pytest.mark.parametrize("model_type", ["gpt_oss", "llama4"])
 def test_expert_latent_sink_and_chunked_families_are_refused_by_name(model_type):
     with pytest.raises(NotImplementedError, match=model_type):
         tllama.ModelConfig.from_hf_config({**BASE, "model_type": model_type})
+
+
+# the expert and latent-attention families this test refused before they
+# were ported: each config now builds a model that decodes
+ONCE_REFUSED_FAMILIES = {
+    "mixtral": {"num_local_experts": 4},
+    "qwen3_moe": {"num_experts": 4, "head_dim": 16, "moe_intermediate_size": 32},
+    "deepseek_v2": {"n_routed_experts": 4, "kv_lora_rank": 16, "qk_nope_head_dim": 8, "qk_rope_head_dim": 8,
+                    "v_head_dim": 8, "moe_intermediate_size": 32, "n_shared_experts": 1, "first_k_dense_replace": 1},
+    "deepseek_v3": {"n_routed_experts": 4, "q_lora_rank": 16, "kv_lora_rank": 16, "qk_nope_head_dim": 8,
+                    "qk_rope_head_dim": 8, "v_head_dim": 8, "moe_intermediate_size": 32, "n_group": 2,
+                    "topk_group": 1},
+}
+
+
+@pytest.mark.parametrize("model_type", sorted(ONCE_REFUSED_FAMILIES))
+def test_expert_and_latent_families_build_and_decode(model_type):
+    cfg = tllama.ModelConfig.from_hf_config({**BASE, "model_type": model_type, **ONCE_REFUSED_FAMILIES[model_type]})
+    assert cfg.num_local_experts == 4 and cfg.is_mla == model_type.startswith("deepseek")
+    engine = InferenceEngine(cfg, tllama.LlamaModel(cfg, tllama.init_params(cfg, seed=1, dtype=torch.float32)),
+                             StubTokenizer())
+    assert len("".join(engine.stream_generation("route me", max_new_tokens=4, greedy=True))) > 0
 
 
 def test_softcap_and_wide_heads_take_the_counted_einsum_path():

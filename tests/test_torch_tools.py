@@ -65,11 +65,11 @@ def _cfg(tmp_path, base, fts, out, **extra):
 # JAX options the port accepts but refuses by name, with the queue item of
 # ROADMAP.md section A that ports each
 REFUSED = {
-    ("generate", "--shard"): "A.10", ("generate", "--decode-chunk"): "A.4",
+    ("generate", "--shard"): "A.10",
     ("serve", "--shard"): "A.10",
 }
 # options once refused that now reach the engine: speculative decoding and
-# the prefix cache
+# the prefix cache (generate --decode-chunk: its own test below)
 ACCEPTED = {
     ("generate", "--draft-model"), ("generate", "--speculation-k"), ("serve", "--draft-model"),
     ("serve", "--speculation-k"), ("serve", "--prefix-cache"),
@@ -128,6 +128,8 @@ def test_speculation_and_prefix_cache_options_reach_the_engine(tmp_path, capsys,
     tok = Tokenizer(models.WordLevel({f"w{i}": i for i in range(128)}, unk_token="w0"))
     tok.pre_tokenizer = pre_tokenizers.Whitespace()
     tok.save(str(model / "tokenizer.json"))
+    # the tokenizer's class (else transformers takes config.json's llama)
+    (model / "tokenizer_config.json").write_text(json.dumps({"tokenizer_class": "PreTrainedTokenizerFast"}))
     built = []
     real = InferenceEngine.from_pretrained.__func__
 
@@ -445,6 +447,20 @@ def test_cli_generate_end_to_end_real_tokenizer(tmp_path, capsys):
     assert torch_cli(["generate", str(tmp_path / "m"), "hello there", "--max-tokens", "6", "--greedy",
                       "--device", "cpu"]) == 0
     assert capsys.readouterr().out.strip()
+
+
+@pytest.mark.parametrize("chunk", ["4", "5"])
+def test_generate_decode_chunk_gives_the_tokens_of_single_steps(tmp_path, capsys, chunk):
+    """generate --decode-chunk S (once refused) runs S decode steps a call
+    and prints the tokens of S = 1, a budget that S does not divide too."""
+    _hf_llama(tmp_path / "m", seed=17, layers=1)
+    (tmp_path / "m/tokenizer_config.json").write_text(json.dumps(
+        {"tokenizer_class": "PreTrainedTokenizerFast", "unk_token": "<unk>"}))  # no EOS: the whole budget
+    argv = ["generate", str(tmp_path / "m"), "hello there", "--max-tokens", "9", "--greedy", "--device", "cpu"]
+    assert torch_cli(argv) == 0
+    single = capsys.readouterr().out
+    assert torch_cli(argv + ["--decode-chunk", chunk]) == 0
+    assert capsys.readouterr().out == single and len(single.split()) == 9
 
 
 def test_generate_serves_the_quantized_artifact(tmp_path):

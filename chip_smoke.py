@@ -161,7 +161,25 @@ Phases (each prints one line or a few; any failure exits non-zero):
    version, the library call and the bound; Phi-3 also through ``generate
    -4 --greedy`` from a checkpoint with fused qkv_proj/gate_up_proj, its
    tokens equal to the in-memory model's;
-15. the kernel summary line (all five kernels), the card line, and the result line.
+15. experts: Mixtral-8x7B, Qwen3-30B-A3B, DeepSeek-V2-Lite and DeepSeek-V3
+   at published widths, 2 layers, int4 made on the card: the launches of a
+   decode step, one step held to the plain route, pools of Mixtral and
+   V2-Lite, V2-Lite's prefix cache and its generate CLI;
+16. sinks-chunked: GPT-OSS-20B and Llama-4-Scout at published widths, 2
+   layers. GPT-OSS written as a shipped-format MXFP4 checkpoint (layer 0's
+   blocks and scales in two shards) and loaded at 4 bits (the card's MXFP4
+   decode and int4 stack bit for bit the host's on layer 0's first 64
+   channels); 8 greedy tokens after 300 (past the 128-token window), its
+   sink attention on the counted einsum path (2 a step). Scout built on the
+   card with int4 stacks; 8 greedy tokens after 8190, so decode crosses the
+   8192 chunk boundary on flash (2 launches and one chunked and one full
+   slot list a step; every flash call within 1e-5 of its plain version);
+   GEMVs a step 8 and 14; one decode step each against the plain route
+   (2e-2), the GEMV at every new (N, K) (4e-3), card memory and peak,
+   prefill and decode-step walls; Scout's pool of 4 slots whose second long
+   request joins with a gap and decodes across 8192: every completion its
+   solo stream's or a near-tie;
+17. the kernel summary line (all five kernels), the card line, and the result line.
 
 It imports nothing of JAX. With no CUDA device it exits 1 and prints no
 result.
@@ -3357,6 +3375,311 @@ def phase_experts(torch, root: Path, card: str):
     say(f"[experts] phase wall {time.perf_counter() - t_phase:.1f} s")
 
 
+# [sinks-chunked]: GPT-OSS and Llama-4 from their public configs at
+# published widths, num_hidden_layers cut to 2.
+# openai/gpt-oss-20b config.json (24 layers; layer_types kept for the two
+# left: one sliding, one full). transformers' GptOssConfig() defaults are
+# the 120B's: the same widths with 36 layers and 128 experts.
+GPTOSS_20B_HF = {
+    "model_type": "gpt_oss", "architectures": ["GptOssForCausalLM"], "attention_bias": True, "head_dim": 64,
+    "hidden_act": "silu", "hidden_size": 2880, "intermediate_size": 2880, "max_position_embeddings": 131072,
+    "num_attention_heads": 64, "num_experts_per_tok": 4, "num_key_value_heads": 8, "num_local_experts": 32,
+    "rms_norm_eps": 1e-05, "rope_theta": 150000, "rope_scaling": {
+        "beta_fast": 32.0, "beta_slow": 1.0, "factor": 32.0, "original_max_position_embeddings": 4096,
+        "rope_type": "yarn", "truncate": False},
+    "sliding_window": 128, "swiglu_limit": 7.0, "tie_word_embeddings": False, "vocab_size": 201088,
+    "layer_types": ["sliding_attention", "full_attention"], "quantization_config": {"quant_method": "mxfp4"}}
+# the text_config of meta-llama/Llama-4-Scout-17B-16E as transformers'
+# Llama4TextConfig() defaults carry it (48 layers; rope_theta 500000, no
+# rope_scaling: the repo holds no copy of the published file's), cut to one
+# chunked rope layer and one NoPE full-attention layer (no_rope_layers
+# [1, 0]); interleave_moe_layer_step 1 keeps both layers MoE
+SCOUT_HF = {
+    "model_type": "llama4_text", "attention_bias": False, "attention_chunk_size": 8192, "attn_scale": 0.1,
+    "attn_temperature_tuning": True, "floor_scale": 8192, "head_dim": 128, "hidden_act": "silu",
+    "hidden_size": 5120, "intermediate_size": 8192, "intermediate_size_mlp": 16384, "interleave_moe_layer_step": 1,
+    "max_position_embeddings": 131072, "no_rope_layers": [1, 0], "num_attention_heads": 40,
+    "num_experts_per_tok": 1, "num_key_value_heads": 8, "num_local_experts": 16, "rms_norm_eps": 1e-05,
+    "rope_scaling": None, "rope_theta": 500000, "tie_word_embeddings": False, "use_qk_norm": True,
+    "vocab_size": 202048}
+GPTOSS_PROMPT = 300  # past the 128-token window
+SCOUT_PROMPT = 8190  # decode crosses the 8192-token chunk boundary at its third step
+# int4 GEMVs a decode step: the four attention projections a layer, and
+# Llama-4's shared expert's three (the fused stacks are dequantized at use)
+SINK_CHUNK_GEMVS = {"gpt-oss-20b": LAYERS * 4, "llama-4-scout": LAYERS * (4 + 3)}
+# Scout's pool: 4 slots over 8704 cache slots, (prompt tokens, max_tokens,
+# pool steps before the next submit): the second long prompt joins while
+# the frontier is past its end, so it carries a join gap, and decodes across
+# position 8192, where key_positions decides its chunked mask
+SCOUT_POOL_CACHE = 8704
+SCOUT_POOL = [(8150, 48, 4), (8120, 90, 3), (200, 40, 2), (100, 50, 0)]
+
+
+def gptoss_checkpoint(torch, root: Path, cfg, seed: int) -> Path:
+    """GPT-OSS-20B's two layers written in the shipped MXFP4 format: seeded
+    random bf16 attention, router, norms, biases and sinks (the sinks
+    N(0, 1)), and per layer ``gate_up_proj_blocks`` (32, 5760, 90, 16) /
+    ``down_proj_blocks`` (32, 2880, 90, 16) with their e8m0 ``_scales``
+    (bytes 119-122: fp4 values times 2^-8 to 2^-5); layer 0's gate_up
+    blocks and scales sit in different shards."""
+    from shardmerge_tpu_torch.io.safetensors_io import save_file
+    from shardmerge_tpu_torch.models import llama
+
+    dev = torch.device(CARD)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = llama.init_params(cfg, seed=seed, dtype=torch.bfloat16, device=dev, project_stacked=lambda w: None)
+    names = {"q_proj": "self_attn.q_proj.weight", "k_proj": "self_attn.k_proj.weight",
+             "v_proj": "self_attn.v_proj.weight", "o_proj": "self_attn.o_proj.weight",
+             "q_bias": "self_attn.q_proj.bias", "k_bias": "self_attn.k_proj.bias", "v_bias": "self_attn.v_proj.bias",
+             "o_bias": "self_attn.o_proj.bias", "sinks": "self_attn.sinks", "moe_gate": "mlp.router.weight",
+             "moe_gate_bias": "mlp.router.bias", "input_layernorm": "input_layernorm.weight",
+             "post_attention_layernorm": "post_attention_layernorm.weight"}
+    shards = [{"model.embed_tokens.weight": params["embed_tokens"]},
+              {"model.norm.weight": params["norm"], "lm_head.weight": params["lm_head"]}]
+    h, inter, n_exp = cfg.hidden_size, cfg.intermediate_size, cfg.num_local_experts
+    for i, layer in enumerate(params["layers"]):
+        p, out = f"model.layers.{i}.", shards[i]
+        layer["sinks"] = torch.randn(layer["sinks"].shape, generator=gen, device=dev).to(torch.bfloat16)
+        for key, name in names.items():
+            out[p + name] = layer[key]
+        e = layer["gptoss_experts"]
+        out[p + "mlp.experts.gate_up_proj_bias"] = e["gate_up_bias"]
+        out[p + "mlp.experts.down_proj_bias"] = e["down_bias"]
+        for stem, rows, cols in (("gate_up_proj", 2 * inter, h), ("down_proj", h, inter)):
+            out[p + f"mlp.experts.{stem}_blocks"] = torch.randint(
+                0, 256, (n_exp, rows, cols // 32, 16), generator=gen, device=dev, dtype=torch.uint8)
+            scales = torch.randint(119, 123, (n_exp, rows, cols // 32), generator=gen, device=dev, dtype=torch.uint8)
+            # layer 0's gate_up scales in the other shard than its blocks
+            (shards[1] if (i, stem) == (0, "gate_up_proj") else out)[p + f"mlp.experts.{stem}_scales"] = scales
+    path = root / "gpt-oss-20b"
+    path.mkdir()
+    weight_map = {}
+    for n, part in enumerate(shards):
+        name = f"model-{n + 1:05d}-of-{len(shards):05d}.safetensors"
+        save_file({k: v.contiguous().cpu() for k, v in part.items()}, path / name)
+        weight_map.update({k: name for k in part})
+    (path / "model.safetensors.index.json").write_text(json.dumps({"weight_map": weight_map}))
+    (path / "config.json").write_text(json.dumps({**GPTOSS_20B_HF, "num_hidden_layers": LAYERS}))
+    return path
+
+
+def mxfp4_card_check(torch, path: Path, loaded) -> str:
+    """Layer 0's gate_up: the card's MXFP4 decode of its first 64 output
+    rows bit for bit the host's, and the loaded int4 stack's q3 / scale on
+    those channels the host quantizer's of the host decode."""
+    from shardmerge_tpu_torch.io.safetensors_io import SafeTensorsReader
+    from shardmerge_tpu_torch.models.quant import dequant_mxfp4, quantize_stacked
+
+    part = {}
+    for f in sorted(path.glob("*.safetensors")):
+        with SafeTensorsReader(f) as r:
+            for k in r.keys():
+                if k.startswith("model.layers.0.mlp.experts.gate_up_proj_"):
+                    part[k.rsplit("_", 1)[-1]] = r.get_tensor(k)[:, :64].clone()
+    host = dequant_mxfp4(part["blocks"], part["scales"])
+    card = dequant_mxfp4(part["blocks"].to(CARD), part["scales"].to(CARD)).cpu()
+    decode_equal = torch.equal(host.view(torch.int32), card.view(torch.int32))
+    want = quantize_stacked(host, 4)
+    stack = loaded.gate_up
+    quant_equal = (torch.equal(stack.q3[:, :, :64].cpu(), want["q3"])
+                   and torch.equal(stack.scale[:, :, :64].cpu(), want["scale"]))
+    if not (decode_equal and quant_equal):
+        raise SystemExit(f"[sinks-chunked] gpt-oss MXFP4: card decode equal to the host's {decode_equal}, "
+                         f"the loaded int4 stack the host quantizer's {quant_equal}")
+    return f"{host.numel()} decoded values bit-equal card vs host, the int4 q3/scale on them equal"
+
+
+def sink_chunk_stream(torch, qk, ak, engine, name: str, prompt: str, route: str):
+    """FAMILY_NEW greedy tokens after ``prompt``: the launches of a decode
+    step checked against the route (GPT-OSS: every attention on the counted
+    einsum path; Llama-4: both layers on flash, one chunked and one full
+    slot list compacted a step), every flash call held to its plain version
+    on its own inputs; returns (text, counts, (the prefill's seconds, the
+    decode steps' seconds sorted), flash relL2, valid slots of the chunked
+    and full masks at each step)."""
+    steps = FAMILY_NEW
+    gemvs = SINK_CHUNK_GEMVS[name]
+    seen = []
+    kernel = ak.flash_decode
+
+    def recording(*args, **kw):
+        out = kernel(*args, **kw)
+        seen.append((args, kw))
+        return out
+
+    reset_counts(qk, ak)
+    t0 = time.perf_counter()
+    stamps = []  # each token reaches the host after its forward's argmax: a sync a token
+    with mock.patch.object(ak, "flash_decode", recording):
+        text = "".join(stamps.append(time.perf_counter()) or piece
+                       for piece in engine.stream_generation(prompt, max_new_tokens=FAMILY_NEW, greedy=True))
+    torch.cuda.synchronize()
+    seconds = (stamps[0] - t0, sorted(b - a for a, b in zip(stamps, stamps[1:])))
+    counts = {k: ak.launch_counts.get(k, 0) for k in ("flash_decode", "flash_compact", "decode_einsum")}
+    counts["int4_gemv"] = qk.launch_counts["int4_gemv"]
+    want = ({"flash_decode": 0, "flash_compact": 0, "decode_einsum": LAYERS * steps} if route == "einsum"
+            else {"flash_decode": LAYERS * steps, "flash_compact": 2 * steps, "decode_einsum": 0})
+    if len(text) != FAMILY_NEW or counts["int4_gemv"] != gemvs * steps or any(counts[k] != v for k, v in want.items()):
+        raise SystemExit(f"[sinks-chunked] {name}: {len(text)} tokens, launches {counts} (want {want}, "
+                         f"int4_gemv {gemvs * steps})")
+    with torch.inference_mode():
+        flash = max((rel_l2(kernel(*a, **kw), ak.flash_decode_plain(*a)) for a, kw in seen), default=None)
+    valid = [int((a[3] > -1e8).sum()) for a, _ in seen]
+    if flash is not None and flash > 1e-5:
+        raise SystemExit(f"[sinks-chunked] {name}: flash leaves 1e-5 of its plain version ({flash:.2e})")
+    return text, counts, seconds, flash, valid
+
+
+def scout_pool(torch, engine):
+    """SCOUT_POOL through a 4-slot pool: every completion equals its solo
+    stream, or first differs at a near-tie of the plain route; the second
+    long request joins with a gap and decodes across position 8192; the
+    flash kernel runs in both layers each decode step with one chunked and
+    one full slot list."""
+    from shardmerge_tpu_torch.batching import ContinuousEngine
+    from shardmerge_tpu_torch.models import attn_kernels as ak
+    from shardmerge_tpu_torch.models import quant_kernels as qk
+
+    pool = ContinuousEngine(engine, slots=4, cache_len=SCOUT_POOL_CACHE, greedy=True, use_template=False)
+    reqs = [(text_of(n, 900 + i), m) for i, (n, m, _) in enumerate(SCOUT_POOL)]
+    reset_counts(qk, ak)
+    t0 = time.perf_counter()
+    handles, gaps = [], []
+
+    def admit():  # noting the long second request's join gap
+        pool._admit_pending()
+        row = next((b for b, h in enumerate(pool._rows) if len(handles) > 1 and h is handles[1]), None)
+        if row is not None and not gaps:
+            gaps.append(int(pool._pad[row]))
+
+    for (p, m), (_, _, after) in zip(reqs, SCOUT_POOL):
+        handles.append(pool.submit(p, max_new_tokens=m, repetition_penalty=1.0))
+        admit()
+        for _ in range(after):
+            if pool._active():
+                pool._step()
+            admit()
+    while True:  # run_until_idle
+        admit()
+        if not pool._active():
+            if not pool._queue and pool._admitting is None:
+                break
+            raise SystemExit("[sinks-chunked] llama-4-scout pool: a queued request cannot be admitted")
+        pool._step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: ak.launch_counts.get(k, 0) for k in ("flash_decode", "flash_compact", "decode_einsum")}
+    counts["int4_gemv"] = qk.launch_counts["int4_gemv"]
+    steps = pool.stats["decode_dispatches"]
+    if counts["flash_decode"] != LAYERS * steps or counts["flash_compact"] != 2 * steps or counts["decode_einsum"]:
+        raise SystemExit(f"[sinks-chunked] llama-4-scout pool: launches {counts} over {steps} steps")
+    gap, (start, new) = (gaps or [0])[0], SCOUT_POOL[1][:2]
+    if not gap or start + new <= SCOUT_HF["attention_chunk_size"]:
+        raise SystemExit(f"[sinks-chunked] llama-4-scout pool: the long joiner's gap {gap}")
+    notes = []
+    for (p, m), h in zip(reqs, handles):
+        solo = token_ids("".join(engine.stream_generation(p, max_new_tokens=m, greedy=True, repetition_penalty=1.0)))
+        got = token_ids(h.result())
+        if got != solo:
+            steps_logits, _, gap_v, _ = replay(torch, engine, IdTokenizer().encode(p), solo)
+            notes.append(near_tie_check("[sinks-chunked] llama-4-scout pool completion", got, solo, steps_logits, [],
+                                        gap_v)[1])
+    return (f"pool, 4 slots x {SCOUT_POOL_CACHE} cache slots, {len(reqs)} staggered greedy requests in {wall:.2f} s: "
+            f"joins {pool.stats['joins']}, frontier jumps {pool.stats['frontier_jumps']}, compactions "
+            f"{pool.stats['compactions']}, decode dispatches {steps}; the second request joined with a "
+            f"{gap}-slot gap at position {start} and decoded to position {start + new - 1}; launches "
+            f"{counts}; completions vs their solo streams: {len(reqs) - len(notes)} of {len(reqs)} equal"
+            + (f" ({'; '.join(notes)})" if notes else ""))
+
+
+def phase_sinks_chunked(torch, root: Path, card: str):
+    """GPT-OSS-20B (attention sinks on the counted einsum path, the
+    clamped-SwiGLU stacks from a shipped-format MXFP4 checkpoint loaded at
+    4 bits) and Llama-4-Scout (chunked attention across the 8192 boundary
+    on flash, the L2 q/k norm, the NoPE temperature, input-scaled f32
+    experts) at published widths, 2 layers: the stream's launches, one
+    decode step against the plain route, flash against its plain version,
+    the GEMV at each new (N, K), card memory; Scout's pool."""
+    from shardmerge_tpu_torch.inference import InferenceEngine
+    from shardmerge_tpu_torch.models import attn_kernels as ak
+    from shardmerge_tpu_torch.models import llama
+    from shardmerge_tpu_torch.models import quant_kernels as qk
+    from shardmerge_tpu_torch.models.loader import load_params
+    from shardmerge_tpu_torch.models.quant import quantize_stacked
+
+    t_phase = time.perf_counter()
+    dev = torch.device(CARD)
+    torch.empty(0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    gemv_checked = set()
+    for seed, name in enumerate(("gpt-oss-20b", "llama-4-scout")):
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats(dev)
+        note = ""
+        if name == "gpt-oss-20b":
+            cfg = llama.ModelConfig.from_hf_config({**GPTOSS_20B_HF, "num_hidden_layers": LAYERS})
+            path = gptoss_checkpoint(torch, root, cfg, 60 + seed)
+            written = time.perf_counter() - t0
+            params = load_params(path, cfg, quant_bits=4, device=dev)
+            model = llama.LlamaModel(cfg, params)
+            note = (f"checkpoint written in {written:.1f} s, loaded at 4 bits in "
+                    f"{time.perf_counter() - t0 - written:.1f} s; " + mxfp4_card_check(torch, path, model.layers[0].mlp)
+                    + "; ")
+            shutil.rmtree(path)
+            prompt, route = text_of(GPTOSS_PROMPT, 70), "einsum"
+        else:
+            cfg = llama.ModelConfig.from_hf_config({**SCOUT_HF, "num_hidden_layers": LAYERS})
+            params = llama.init_params(cfg, seed=60 + seed, dtype=torch.bfloat16, device=dev,
+                                       project=lambda w: card_quantize(torch, w),
+                                       project_stacked=lambda w: quantize_stacked(w, 4))
+            model = llama.LlamaModel(cfg, params)
+            prompt, route = text_of(SCOUT_PROMPT, 71), "flash"
+        engine = InferenceEngine(cfg, model, StubTokenizer())
+        torch.cuda.synchronize()
+        built = time.perf_counter() - t0
+        memory = torch.cuda.memory_allocated(dev)
+        text, counts, (prefill_s, step_s), flash, valid = sink_chunk_stream(torch, qk, ak, engine, name, prompt,
+                                                                            route)
+        # one decode step against the plain route; Scout's after the boundary
+        step_prompt = prompt if route == "einsum" else text_of(SCOUT_PROMPT + 4, 72)
+        rel, attn, _, gap = family_step_check(torch, qk, ak, engine, step_prompt, f"[sinks-chunked] {name}", route,
+                                              SINK_CHUNK_GEMVS[name])
+        worst, new = 0.0, []
+        for proj in path_projections(engine.model):
+            n, kh = proj.q.shape
+            if (n, 2 * kh) in gemv_checked:
+                continue
+            gemv_checked.add((n, 2 * kh))
+            new.append((n, 2 * kh))
+            for b in (1, 4):
+                x = torch.randn((b, 2 * kh), device=dev, generator=gen).to(torch.bfloat16)
+                worst = max(worst, rel_l2(qk.int4_matmul(x, proj.q, proj.scale).float(),
+                                          qk.int4_matmul_plain(x, proj.q, proj.scale).float()))
+        if worst > 4e-3:
+            raise SystemExit(f"[sinks-chunked] {name}: the GEMV leaves 4e-3 of its plain version ({worst:.2e})")
+        say(f"[sinks-chunked] {name} ({LAYERS} layers, int4): {FAMILY_NEW} greedy tokens after a {len(prompt)}-token "
+            f"prompt: prefill to the first token {prefill_s:.3f} s, decode steps (host wall, a sync a token) "
+            f"{step_s[0] * 1e3:.2f}-{step_s[-1] * 1e3:.2f} ms, median {step_s[len(step_s) // 2] * 1e3:.2f} ms; "
+            f"launches {counts} ({SINK_CHUNK_GEMVS[name]} GEMVs a decode step)"
+            + (f"; flash vs plain over the stream's calls relL2 <= {flash:.2e} (tol 1e-5), valid slots a call "
+               f"{valid}" if flash is not None else "; attention on the counted einsum path (sinks)")
+            + f"; decode step vs plain route (at position {len(step_prompt)}): logits relL2 {rel:.2e} (tol 2e-2, "
+            f"max-abs {gap:.3e})" + (f", attention relL2 {attn:.2e} (tol 1e-5)" if attn is not None else "")
+            + f"; GEMV at {len(new)} new (N, K) {new} relL2 <= {worst:.2e} (tol 4e-3); card memory "
+            f"{memory / 2**30:.2f} GiB (peak {torch.cuda.max_memory_allocated(dev) / 2**30:.2f}), built in "
+            f"{built:.1f} s; {note}{time.perf_counter() - t0:.1f} s ({card})")
+        if route == "flash":
+            chunked = valid[0::2]  # layer 0's calls: its chunked mask, a step
+            if not (chunked and min(chunked) <= FAMILY_NEW and max(chunked) >= SCOUT_HF["attention_chunk_size"] - 8):
+                raise SystemExit(f"[sinks-chunked] {name}: the stream's chunked mask did not cross a chunk boundary "
+                                 f"({chunked})")
+            engine.tokenizer = IdTokenizer()
+            say(f"[sinks-chunked] {name} " + scout_pool(torch, engine))
+        del engine, model, params
+        torch.cuda.empty_cache()
+    say(f"[sinks-chunked] phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
 def write_word_tokenizer(path: Path, vocab: int, **config):
     """A word-level tokenizer.json (word ``w{i}`` is token i) and its
     tokenizer_config.json, which fixes the class (without it transformers
@@ -3431,6 +3754,8 @@ def main() -> int:
         lap("families")
         phase_experts(torch, root, card)
         lap("experts")
+        phase_sinks_chunked(torch, root, card)
+        lap("sinks-chunked")
     finally:
         shutil.rmtree(root, ignore_errors=True)
 

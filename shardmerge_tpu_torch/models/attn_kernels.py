@@ -11,8 +11,9 @@ pool's join gaps ride through unchanged. It returns (B, KVH, G, D) f32.
 The kernel reads only each row's valid slots, from a slot list that
 :func:`compact` builds once per decode step and mask kind (the mask is the
 same in every layer of a kind; ``LlamaModel.forward`` hands one
-:class:`Slots` for the full mask and one for the sliding window to the
-layers of each kind, and a list is compacted at its first use), and splits them into blocks of
+:class:`Slots` for the full mask, one for the sliding window and one for
+Llama-4's chunked mask to the layers of each kind, and a list is compacted
+at its first use), and splits them into blocks of
 ``SPLIT`` in slot order, merged in split order. So a row's result does not
 depend on the batch, the cache length or where its gaps fall: a request
 decoded in the pool gets the same bits as decoded alone, and its greedy
@@ -25,11 +26,12 @@ on a CPU tensor it runs :func:`flash_decode_plain`.
 Unlike the JAX package, where the kernel is opt-in, the port routes every
 T=1 decode attention on the card whose geometry the kernel takes (head_dim
 64 or 128, 1 to 64 query heads per KV head: :func:`supported`) and whose
-config has no logit softcap through it (:func:`use_flash_decode`): the einsum path casts the whole cache layer to
+config has no logit softcap and no attention sinks through it
+(:func:`use_flash_decode`): the einsum path casts the whole cache layer to
 f32 twice per step and runs several launches where the kernel reads the
 bf16 cache once. Every other geometry (head_dim 96 or 256, more than 64
-query heads per KV head) and every softcapped config takes the einsum path
-on the card, the JAX model's default route. The route is chosen by shape alone, never by a
+query heads per KV head), every softcapped config and GPT-OSS's sinks take
+the einsum path on the card, the JAX model's default route. The route is chosen by shape alone, never by a
 failure: a call to the kernel with inputs it cannot take raises.
 
 Each attention launch adds one to ``launch_counts["flash_decode"]``, each
@@ -103,16 +105,17 @@ def head_chunks(g: int) -> Tuple[int, int]:
 def use_flash_decode(cfg, t: int, q: torch.Tensor) -> bool:
     """Route one attention call: True for a single query token (T = 1) on a
     CUDA tensor whose geometry the kernel takes (:func:`supported`) and
-    whose config has no attention logit softcap (Gemma-2), which the kernel
-    does not compute (the JAX route's rule, shardmerge_tpu/models/
-    attn_kernels.py:89; ModelConfig refuses sinks). A T=1 call on the card
-    that the route sends to the einsum path is counted under
-    ``launch_counts["decode_einsum"]``. Prefill (T > 1) and CPU tensors take
-    the einsum path."""
+    whose layers carry neither an attention logit softcap (Gemma-2) nor
+    sinks (GPT-OSS: ``cfg.has_sinks``, a sink logit in every layer), which
+    the kernel does not compute (the JAX route's rule, shardmerge_tpu/
+    models/attn_kernels.py:89). A T=1 call on the card that the route sends
+    to the einsum path is counted under ``launch_counts["decode_einsum"]``.
+    Prefill (T > 1) and CPU tensors take the einsum path."""
     if t != 1 or not q.is_cuda:
         return False
     group = cfg.num_attention_heads // cfg.num_key_value_heads
-    if not cfg.attn_logit_softcapping and supported((1, cfg.num_key_value_heads, group, cfg.head_dim), 1):
+    if not (cfg.attn_logit_softcapping or cfg.has_sinks) and supported(
+            (1, cfg.num_key_value_heads, group, cfg.head_dim), 1):
         return True
     launch_counts["decode_einsum"] += 1
     return False

@@ -3,7 +3,10 @@
 ``params_from_jax`` takes the JAX param pytree with every leaf already a
 numpy array (``jax.tree_util.tree_map(np.asarray, params)`` on the JAX side:
 raw arrays, and ``{"q", "scale"}`` dicts for quantized weights; a MoE
-layer's ``experts`` list of ``{"w1", "w3", "w2"}`` dicts) and returns the
+layer's ``experts`` list of ``{"w1", "w3", "w2"}`` dicts; GPT-OSS's
+``sinks``, ``o_bias``, ``moe_gate_bias`` and ``gptoss_experts`` and
+Llama-4's ``llama4_experts`` dicts, their stacks raw or ``{"q3", "scale"}``)
+and returns the
 port's params dict on ``device``, ready for ``LlamaModel``. bfloat16 arrays
 (ml_dtypes) come across bit for bit.
 """

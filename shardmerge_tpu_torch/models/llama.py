@@ -1,7 +1,7 @@
 """The decoder families' forward pass in PyTorch (counterpart of
 shardmerge_tpu/models/llama.py): Llama 2/3, Qwen2, Qwen3, Mistral, Gemma
-1/2/3, Phi-3, OLMo-2, SmolLM3 and GLM-4, and the expert and latent-attention
-families Mixtral, Qwen3-MoE and DeepSeek V2/V3.
+1/2/3, Phi-3, OLMo-2, SmolLM3 and GLM-4, the expert and latent-attention
+families Mixtral, Qwen3-MoE and DeepSeek V2/V3, GPT-OSS and Llama-4.
 
 - RMSNorm in f32 (Gemma's zero-centred ``(1 + w)`` form too), RoPE with
   llama3, linear, longrope (Phi-3) or yarn scaling, Gemma-3's dual tables,
@@ -10,13 +10,22 @@ families Mixtral, Qwen3-MoE and DeepSeek V2/V3.
   for the geometries the kernel does not take; the CUDA flash-decode kernel,
   models/attn_kernels.py, for T=1 decode on the card) with q/k/v biases,
   per-head or full-vector q/k norms, Gemma-2's score scale and logit
-  softcaps, and sliding windows beside full attention; SwiGLU or GeGLU MLP;
+  softcaps, GPT-OSS's attention sinks and o_proj bias, sliding windows and
+  Llama-4's chunk-aligned windows beside full attention, Llama-4's
+  weightless L2 q/k norm (rope layers) and query temperature (NoPE
+  layers); SwiGLU or GeGLU MLP;
   the post-norm blocks of Gemma-2/3, OLMo-2 and GLM-4; untied or tied
   lm_head;
 - experts (:class:`MoE`): Mixtral / Qwen3-MoE softmax top-k routing and
   DeepSeek's (V2 greedy and group-limited, V3 ``noaux_tc``) with shared
   experts and dense first layers, every expert computed and masked
   (dense-and-mask, the JAX route of quantized experts); top-k breaks exact ties toward the lower index, as ``jax.lax.top_k`` does;
+- the fused expert stacks ``(E, in, out)``: GPT-OSS's (:class:`GptOssMoE`:
+  a biased top-k-then-softmax router, interleaved gate/up columns, the
+  clamped SwiGLU, biases) and Llama-4's (:class:`Llama4MoE`: sigmoid of the
+  selected logits scaling each expert's input, contiguous gate/up halves,
+  f32 experts, a shared expert), raw or int8 / packed-int4 ``{"q3",
+  "scale"}`` stacks dequantized at use (models/quant.dequant_stacked);
 - DeepSeek's multi-head latent attention (:class:`LatentAttention`) over a
   compressed cache ``{"ckv": (L, B, S, kv_lora_rank), "kpe": (L, B, S,
   qk_rope_head_dim)}`` with ``kv_b_proj`` absorbed into the einsums (on the
@@ -28,9 +37,6 @@ families Mixtral, Qwen3-MoE and DeepSeek V2/V3.
   stacked KV cache ``(L, B, KVH, S, D)`` (or the compressed one) that is
   updated IN PLACE (the JAX version donates the buffer to get the same
   effect).
-
-The families with sinks or chunked attention (GPT-OSS, Llama-4) are not
-ported yet: their configs raise ``NotImplementedError`` naming the feature.
 """
 
 from __future__ import annotations
@@ -46,7 +52,7 @@ import torch
 from torch import nn
 
 from . import attn_kernels
-from .quant import dequant, dequant_matmul
+from .quant import dequant, dequant_matmul, dequant_stacked
 
 __all__ = [
     "ModelConfig",
@@ -60,17 +66,18 @@ __all__ = [
     "layer_keys",
     "topk",
     "deepseek_topk",
+    "gptoss_router_scores",
+    "gptoss_expert_math",
+    "llama4_router_scores",
+    "l2_qk",
+    "nope_temp_q",
 ]
 
-# model types whose forward is ported, and those refused by name with the
-# feature each needs
+# model types whose forward is ported (llama4 and gemma3 as multimodal
+# wrappers around their text_config too)
 FAMILIES = ("llama", "qwen2", "qwen3", "mistral", "gemma", "gemma2", "gemma3_text", "phi3", "olmo2",
-            "smollm3", "glm4", "mixtral", "qwen3_moe", "deepseek_v2", "deepseek_v3")
-NOT_PORTED = {
-    "gpt_oss": "attention sinks and MXFP4 experts",
-    "llama4": "chunked attention, L2 q/k norms and experts",
-    "llama4_text": "chunked attention, L2 q/k norms and experts",
-}
+            "smollm3", "glm4", "mixtral", "qwen3_moe", "deepseek_v2", "deepseek_v3", "gpt_oss", "llama4_text")
+_WRAPPERS = {"llama4": "llama4_text", "gemma3": "gemma3_text"}
 _GELU = ("gelu_pytorch_tanh", "gelu_tanh", "gelu")
 
 
@@ -133,6 +140,18 @@ class ModelConfig:
     n_group: Optional[int] = None
     topk_group: Optional[int] = None
     topk_method: str = "greedy"
+    # llama4: interleaved dense / MoE layers (the MoE layers' indices),
+    # chunk-aligned windows on the rope layers, temperature-scaled queries
+    # on the NoPE layers, a weightless L2 q/k norm after rope; its dense
+    # layers' MLP width (intermediate_size is the experts' and the shared
+    # expert's)
+    moe_layers: Optional[tuple] = None
+    attention_chunk_size: Optional[int] = None
+    attn_temperature_tuning: bool = False
+    floor_scale: float = 8192.0
+    attn_scale: float = 0.1
+    qk_norm_l2: bool = False
+    intermediate_size_mlp: Optional[int] = None
 
     @property
     def head_dim(self) -> int:
@@ -169,11 +188,19 @@ class ModelConfig:
                 scale = scale * mscale * mscale
         return scale
 
+    @property
+    def has_sinks(self) -> bool:
+        """GPT-OSS: every layer carries a per-head sink logit (``sinks``,
+        which :func:`layer_keys` requires)."""
+        return self.model_type == "gpt_oss"
+
     def layer_is_moe(self, layer_idx: int) -> bool:
-        """The JAX per-layer MoE table: every layer follows
-        num_local_experts (DeepSeek's dense first layers are
-        :meth:`layer_has_experts`'s rule)."""
-        return self.num_local_experts > 0
+        """The JAX per-layer MoE table: Llama-4's explicit ``moe_layers``,
+        else every layer follows num_local_experts (DeepSeek's dense first
+        layers are :meth:`layer_has_experts`'s rule)."""
+        if self.moe_layers is None:
+            return self.num_local_experts > 0
+        return layer_idx in self.moe_layers
 
     def layer_has_experts(self, layer_idx: int) -> bool:
         """Experts in this layer's params: MoE layers past DeepSeek's
@@ -212,20 +239,27 @@ class ModelConfig:
             return True
         return bool(self.no_rope_layers[layer_idx])
 
+    def layer_is_chunked(self, layer_idx: int) -> bool:
+        """Llama-4's rope layers attend within attention_chunk_size-aligned
+        chunks ("chunked_attention" in layer_types); NoPE layers globally."""
+        return bool(
+            self.attention_chunk_size
+            and self.layer_types is not None
+            and self.layer_types[layer_idx] == "chunked_attention"
+        )
+
     @classmethod
     def from_hf_config(cls, config: dict) -> "ModelConfig":
         model_type = config.get("model_type", "llama")
-        if model_type in NOT_PORTED:
-            raise NotImplementedError(
-                f"model_type {model_type!r} needs {NOT_PORTED[model_type]}, not ported yet"
-            )
-        if model_type == "gemma3" and isinstance(config.get("text_config"), dict):
-            # multimodal wrapper (Gemma3ForConditionalGeneration)
+        if model_type in _WRAPPERS and isinstance(config.get("text_config"), dict):
+            # multimodal wrappers (Llama4ForConditionalGeneration,
+            # Gemma3ForConditionalGeneration): the decoder's geometry sits
+            # in text_config
             config = config["text_config"]
-            model_type = config.get("model_type", "gemma3_text")
+            model_type = config.get("model_type", _WRAPPERS[model_type])
         if model_type not in FAMILIES:
             raise NotImplementedError(
-                f"model_type {model_type!r} is not ported (dense families: {', '.join(FAMILIES)})"
+                f"model_type {model_type!r} is not ported (families: {', '.join(FAMILIES)})"
             )
         if config.get("mlp_bias"):
             raise NotImplementedError("mlp_bias is not ported")
@@ -235,6 +269,20 @@ class ModelConfig:
         n_layers = config["num_hidden_layers"]
         no_rope = config.get("no_rope_layers")
         layer_types = config.get("layer_types")
+        moe_layers = config.get("moe_layers")
+        if model_type == "llama4_text":
+            # HF's derived tables where config.json omits them: NoPE every
+            # no_rope_layer_interval-th layer, MoE every
+            # interleave_moe_layer_step-th, chunked attention exactly on the
+            # rope layers
+            if not no_rope:
+                interval = config.get("no_rope_layer_interval", 4)
+                no_rope = [int((i + 1) % interval != 0) for i in range(n_layers)]
+            if moe_layers is None:
+                step = config.get("interleave_moe_layer_step", 1)
+                moe_layers = list(range(step - 1, n_layers, step))
+            if layer_types is None:
+                layer_types = ["chunked_attention" if uses_rope else "full_attention" for uses_rope in no_rope]
         if model_type == "gemma3_text" and layer_types is None:
             # HF's 5-local:1-global default (sliding unless (i+1) % pattern == 0)
             p = config.get("sliding_window_pattern", 6)
@@ -249,7 +297,8 @@ class ModelConfig:
                 layer_types = [
                     "sliding_attention" if (sw and not no_rope[i]) else "full_attention" for i in range(n_layers)
                 ]
-        windowed = model_type in ("gemma2", "gemma3_text", "mistral") or (
+        llama4 = model_type == "llama4_text"
+        windowed = model_type in ("gemma2", "gemma3_text", "mistral", "gpt_oss") or (
             model_type == "smollm3" and config.get("use_sliding_window")
         )
         return cls(
@@ -281,7 +330,7 @@ class ModelConfig:
             original_max_position_embeddings=config.get("original_max_position_embeddings"),
             # deepseek_v2 always ropes interleaved pairs, deepseek_v3 unless
             # its config says otherwise
-            rope_interleave=model_type in ("glm4", "deepseek_v2")
+            rope_interleave=model_type in ("glm4", "deepseek_v2", "llama4_text")
             or (model_type == "deepseek_v3" and config.get("rope_interleave", True)),
             partial_rotary_factor=config.get("partial_rotary_factor", 0.5 if model_type == "glm4" else 1.0),
             no_rope_layers=tuple(no_rope) if no_rope is not None else None,
@@ -307,6 +356,13 @@ class ModelConfig:
             n_group=config.get("n_group"),
             topk_group=config.get("topk_group"),
             topk_method="noaux_tc" if model_type == "deepseek_v3" else config.get("topk_method", "greedy"),
+            moe_layers=tuple(moe_layers) if llama4 and moe_layers is not None else None,
+            attention_chunk_size=config.get("attention_chunk_size", 8192) if llama4 else None,
+            attn_temperature_tuning=llama4 and bool(config.get("attn_temperature_tuning", True)),
+            floor_scale=float(config.get("floor_scale", 8192)),
+            attn_scale=float(config.get("attn_scale", 0.1)),
+            qk_norm_l2=llama4 and bool(config.get("use_qk_norm", True)),
+            intermediate_size_mlp=config.get("intermediate_size_mlp") if llama4 else None,
         )
 
     @classmethod
@@ -468,6 +524,32 @@ def apply_rope_cfg(cfg: ModelConfig, q, k, cos, sin, positions):
     return torch.cat([q_rot, q_pass], dim=-1), torch.cat([k_rot, k_pass], dim=-1)
 
 
+def _l2_norm(x: torch.Tensor, eps: float) -> torch.Tensor:
+    """Weightless RMS normalization in f32, returned in x.dtype (HF's
+    Llama4TextL2Norm)."""
+    x32 = x.to(torch.float32)
+    return (x32 * torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + eps)).to(x.dtype)
+
+
+def l2_qk(cfg: ModelConfig, q, k):
+    """Llama-4's weightless L2 q/k norm, applied after rope on the rope
+    layers only (a permutation-invariant norm: the un-interleaved rope
+    layout does not change it)."""
+    if not cfg.qk_norm_l2:
+        return q, k
+    return _l2_norm(q, cfg.rms_norm_eps), _l2_norm(k, cfg.rms_norm_eps)
+
+
+def nope_temp_q(cfg: ModelConfig, q: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """Llama-4's NoPE layers scale the queries (B, H, T, D) by
+    ``log1p(floor((pos + 1) / floor_scale)) * attn_scale + 1`` in f32."""
+    if not cfg.attn_temperature_tuning:
+        return q
+    scales = torch.log1p(torch.floor((positions.to(torch.float32) + 1.0) / cfg.floor_scale))
+    scales = scales * float(np.float32(cfg.attn_scale)) + 1.0
+    return (q.to(torch.float32) * scales[:, None, :, None]).to(q.dtype)
+
+
 def matmul(x: torch.Tensor, w) -> torch.Tensor:
     """``x @ W.T`` in x.dtype; ``w`` is an (out, in) tensor or a quantized
     ``{"q", "scale"}`` dict."""
@@ -509,9 +591,15 @@ QUANTIZABLE = {"q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "
                "q_b_proj", "kv_a_proj", "kv_b_proj", "shared_gate_proj", "shared_up_proj", "shared_down_proj"}
 
 
+# the keys of the fused expert stacks' dicts
+STACK_KEYS = {"gptoss_experts": {"gate_up", "gate_up_bias", "down", "down_bias"},
+              "llama4_experts": {"gate_up", "down"}}
+
+
 def layer_keys(cfg: ModelConfig, layer_idx: int = 0) -> set:
     """The leaves layer ``layer_idx`` of ``cfg``'s params holds (``experts``
-    is a list of ``{"w1", "w3", "w2"}`` dicts)."""
+    is a list of ``{"w1", "w3", "w2"}`` dicts; ``gptoss_experts`` and
+    ``llama4_experts`` dicts of :data:`STACK_KEYS`)."""
     if cfg.is_mla:
         keys = {"kv_a_proj", "kv_a_layernorm", "kv_b_proj", "o_proj", "input_layernorm",
                 "post_attention_layernorm"}
@@ -520,7 +608,13 @@ def layer_keys(cfg: ModelConfig, layer_idx: int = 0) -> set:
         keys = {"q_proj", "k_proj", "v_proj", "o_proj", "post_attention_layernorm"}
         if not cfg.is_olmo2:
             keys.add("input_layernorm")
-    if cfg.layer_has_experts(layer_idx):
+    if cfg.model_type == "gpt_oss":
+        keys |= {"sinks", "moe_gate", "moe_gate_bias", "gptoss_experts"}
+        if cfg.attention_bias:
+            keys.add("o_bias")
+    elif cfg.model_type == "llama4_text" and cfg.layer_is_moe(layer_idx):
+        keys |= {"moe_gate", "llama4_experts", "shared_gate_proj", "shared_up_proj", "shared_down_proj"}
+    elif cfg.layer_has_experts(layer_idx):
         keys |= {"moe_gate", "experts"}
         if cfg.topk_method == "noaux_tc":
             keys.add("gate_bias")
@@ -539,18 +633,24 @@ def layer_keys(cfg: ModelConfig, layer_idx: int = 0) -> set:
     return keys
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16, device=None, project=None) -> dict:
-    """Random params with ``cfg``'s leaves (the JAX ``init_params`` layout):
-    matrices and biases N(0, 0.02) from a seeded generator on ``device``,
-    norms ones (zeros for Gemma's (1 + w) form), V3's selection bias f32
-    zeros. ``project(w)``, when given, replaces each per-layer projection
-    and expert matrix as soon as it is drawn (a quantizer: a model whose
-    bf16 experts would not fit never holds them all)."""
+def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16, device=None, project=None,
+                project_stacked=None) -> dict:
+    """Random params with ``cfg``'s leaves (the JAX ``init_params`` layout;
+    Llama-4's, which that init does not build, in the loader's): matrices,
+    biases and GPT-OSS's sinks N(0, 0.02) from a seeded generator on
+    ``device``, norms ones (zeros for Gemma's (1 + w) form), V3's
+    selection bias f32 zeros. ``project(w)``, when given, replaces
+    each per-layer projection and expert matrix as soon as it is drawn (a
+    quantizer: a model whose bf16 experts would not fit never holds them
+    all); ``project_stacked(w)`` each fused (E, in, out) expert stack."""
     gen = torch.Generator(device=device).manual_seed(seed)
     h, q_dim, kv_dim = cfg.hidden_size, cfg.num_attention_heads * cfg.head_dim, cfg.num_key_value_heads * cfg.head_dim
     H = cfg.num_attention_heads
-    moe_inter = cfg.moe_intermediate_size or cfg.intermediate_size
-    shared = moe_inter * cfg.n_shared_experts
+    n_exp, moe_inter = cfg.num_local_experts, cfg.moe_intermediate_size or cfg.intermediate_size
+    shared, inter = moe_inter * cfg.n_shared_experts, cfg.intermediate_size
+    if cfg.model_type == "llama4_text":
+        # one shared expert of the experts' width; the dense layers' MLP is the wider one
+        shared, inter = cfg.intermediate_size, cfg.intermediate_size_mlp or cfg.intermediate_size
 
     def dense(*shape):
         return (torch.randn(shape, generator=gen, device=device) * 0.02).to(dtype)
@@ -562,19 +662,23 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16, device=No
     def norm(n):
         return (torch.zeros if cfg.is_gemma else torch.ones)(n, dtype=dtype, device=device)
 
+    def stack(*shape):
+        w = dense(*shape)
+        return w if project_stacked is None else project_stacked(w)
+
     shapes = {
         "q_proj": (H * cfg.qk_head_dim if cfg.is_mla else q_dim, h), "k_proj": (kv_dim, h),
         "v_proj": (kv_dim, h), "o_proj": (h, H * cfg.v_head_dim if cfg.is_mla else q_dim),
-        "gate_proj": (cfg.intermediate_size, h), "up_proj": (cfg.intermediate_size, h),
-        "down_proj": (h, cfg.intermediate_size), "q_bias": (q_dim,), "k_bias": (kv_dim,), "v_bias": (kv_dim,),
+        "gate_proj": (inter, h), "up_proj": (inter, h),
+        "down_proj": (h, inter), "q_bias": (q_dim,), "k_bias": (kv_dim,), "v_bias": (kv_dim,),
         "q_norm": (q_dim if cfg.qk_norm_full else cfg.head_dim,),
         "k_norm": (kv_dim if cfg.qk_norm_full else cfg.head_dim,),
         "q_a_proj": (cfg.q_lora_rank, h), "q_a_layernorm": (cfg.q_lora_rank,),
         "q_b_proj": (H * cfg.qk_head_dim, cfg.q_lora_rank),
         "kv_a_proj": ((cfg.kv_lora_rank or 0) + cfg.qk_rope_head_dim, h), "kv_a_layernorm": (cfg.kv_lora_rank,),
         "kv_b_proj": (H * (cfg.qk_nope_head_dim + (cfg.v_head_dim or 0)), cfg.kv_lora_rank),
-        "moe_gate": (cfg.num_local_experts, h), "shared_gate_proj": (shared, h), "shared_up_proj": (shared, h),
-        "shared_down_proj": (h, shared),
+        "moe_gate": (n_exp, h), "shared_gate_proj": (shared, h), "shared_up_proj": (shared, h),
+        "shared_down_proj": (h, shared), "sinks": (H,), "moe_gate_bias": (n_exp,), "o_bias": (h,),
     }
     params = {"embed_tokens": dense(cfg.vocab_size, h), "norm": norm(h), "layers": []}
     if not cfg.tie_word_embeddings:
@@ -585,6 +689,11 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16, device=No
             if key == "experts":
                 layer[key] = [{"w1": matrix(moe_inter, h), "w3": matrix(moe_inter, h), "w2": matrix(h, moe_inter)}
                               for _ in range(cfg.num_local_experts)]
+            elif key == "gptoss_experts":
+                layer[key] = {"gate_up": stack(n_exp, h, 2 * moe_inter), "gate_up_bias": dense(n_exp, 2 * moe_inter),
+                              "down": stack(n_exp, moe_inter, h), "down_bias": dense(n_exp, h)}
+            elif key == "llama4_experts":
+                layer[key] = {"gate_up": stack(n_exp, h, 2 * moe_inter), "down": stack(n_exp, moe_inter, h)}
             elif key == "gate_bias":
                 layer[key] = torch.zeros(cfg.num_local_experts, dtype=torch.float32, device=device)
             elif key in ("q_a_layernorm", "kv_a_layernorm"):
@@ -656,6 +765,43 @@ def deepseek_topk(cfg: ModelConfig, gate_w, gate_bias, x):
     return topk_idx, topk_w * float(np.float32(cfg.routed_scaling_factor))
 
 
+def gptoss_router_scores(cfg: ModelConfig, gate_w, gate_b, x) -> torch.Tensor:
+    """GPT-OSS's dense router scores (..., n_exp) f32: the biased f32
+    logits, the top-k of the RAW logits, a softmax over those k values,
+    zero elsewhere."""
+    logits = torch.einsum("...e,ne->...n", x.to(torch.float32), gate_w.to(torch.float32))
+    top_v, top_i = topk(logits + gate_b.to(torch.float32), cfg.num_experts_per_tok)
+    return _dense_weights(top_i, torch.softmax(top_v, dim=-1), cfg.num_local_experts)
+
+
+def gptoss_expert_math(x, gate_up_w, gate_up_bias, down_w, down_bias, scores) -> torch.Tensor:
+    """GPT-OSS's fused experts, every one on every token, in x.dtype:
+    ``gate_up`` (E, hidden, 2I) with INTERLEAVED gate/up columns plus its
+    bias, gate clamped to <= 7 and up to [-7, 7], ``glu = g sigmoid(1.702
+    g)`` in f32 cast back, ``(up + 1) glu @ down + down_bias``; the
+    score-weighted sum over experts in f32. Returns f32 (B, T, hidden)."""
+    B, T, D = x.shape
+    n_exp = gate_up_w.shape[0]
+    # (E, B*T, 2I): one batched product over the experts, x broadcast
+    gu = torch.matmul(x.reshape(1, B * T, D), gate_up_w).permute(1, 0, 2).reshape(B, T, n_exp, -1) + gate_up_bias
+    gate = gu[..., ::2].clamp(max=7.0)
+    up = gu[..., 1::2].clamp(-7.0, 7.0)
+    g32 = gate.to(torch.float32)
+    glu = (g32 * torch.sigmoid(g32 * 1.702)).to(gu.dtype)
+    h = ((up + 1.0) * glu).reshape(B * T, n_exp, -1).permute(1, 0, 2)  # (E, B*T, I)
+    out = torch.matmul(h, down_w).permute(1, 0, 2).reshape(B, T, n_exp, D) + down_bias
+    return (out.to(torch.float32) * scores[..., None]).sum(dim=2)
+
+
+def llama4_router_scores(cfg: ModelConfig, gate_w, xf) -> torch.Tensor:
+    """Llama-4's router on f32 tokens (N, hidden): the f32 logits' top-k,
+    the SIGMOID of the selected logits, zero elsewhere -> (N, n_exp)."""
+    logits = xf @ gate_w.to(torch.float32).T
+    _, top_i = topk(logits, cfg.num_experts_per_tok)
+    sel = torch.zeros_like(logits).scatter_(-1, top_i, 1.0)
+    return torch.sigmoid(logits) * sel
+
+
 # ---------------------------------------------------------------------------
 # Modules
 # ---------------------------------------------------------------------------
@@ -687,6 +833,27 @@ class Projection(nn.Module):
         return self.weight.to(dtype)
 
 
+class Stack(nn.Module):
+    """A fused (E, in, out) expert stack: a dense tensor or a quantized
+    ``{"q3", "scale"}`` pair (models/quant.quantize_stacked) as buffers."""
+
+    def __init__(self, w):
+        super().__init__()
+        if isinstance(w, dict):
+            self.register_buffer("q3", w["q3"])
+            self.register_buffer("scale", w["scale"])
+            self.weight = None
+        else:
+            self.register_buffer("weight", w)
+            self.q3 = self.scale = None
+
+    def dense(self, dtype: torch.dtype) -> torch.Tensor:
+        """The stack in ``dtype``, dequantized when quantized."""
+        if self.weight is None:
+            return dequant_stacked({"q3": self.q3, "scale": self.scale}, dtype)
+        return self.weight.to(dtype)
+
+
 class Attention(nn.Module):
     def __init__(self, cfg: ModelConfig, layer: dict, use_rope: bool = True):
         super().__init__()
@@ -694,8 +861,13 @@ class Attention(nn.Module):
         self.use_rope = use_rope
         for name in ("q_proj", "k_proj", "v_proj", "o_proj"):
             setattr(self, name, Projection(layer[name]))
-        for name in ("q_bias", "k_bias", "v_bias", "q_norm", "k_norm"):
+        for name in ("q_bias", "k_bias", "v_bias", "q_norm", "k_norm", "o_bias", "sinks"):
             self.register_buffer(name, layer.get(name))
+
+    def _out(self, out: torch.Tensor) -> torch.Tensor:
+        """o_proj, plus GPT-OSS's o_proj bias."""
+        out = self.o_proj(out)
+        return out if self.o_bias is None else out + self.o_bias
 
     def forward(self, x, cos, sin, positions, kv_cache, layer_idx, cache_pos, mask, slots=None):
         cfg = self.cfg
@@ -714,8 +886,11 @@ class Attention(nn.Module):
             # qwen3 / gemma3 (its zero-centred weights: the (1 + w) form)
             q = rms_norm(q, self.q_norm, cfg.rms_norm_eps, cfg.is_gemma)
             k = rms_norm(k, self.k_norm, cfg.rms_norm_eps, cfg.is_gemma)
-        if self.use_rope:  # smollm3's NoPE layers skip rotary
+        if self.use_rope:  # smollm3's and llama4's NoPE layers skip rotary
             q, k = apply_rope_cfg(cfg, q, k, cos, sin, positions)
+            q, k = l2_qk(cfg, q, k)
+        else:
+            q = nope_temp_q(cfg, q, positions)
 
         k_buf, v_buf = kv_cache["k"], kv_cache["v"]
         k_buf[layer_idx, :, :, cache_pos : cache_pos + T] = k.to(k_buf.dtype)
@@ -732,7 +907,7 @@ class Attention(nn.Module):
             # and shared by every layer of that kind
             qs = qg[:, :, :, 0, :].to(torch.float32) / scale
             ctx = attn_kernels.flash_decode(qs, k_cache, v_cache, mask[:, 0, :], slots=slots)
-            return self.o_proj(ctx.reshape(B, T, H * D).to(x.dtype))
+            return self._out(ctx.reshape(B, T, H * D).to(x.dtype))
         # the mask covers the first attn_len slots; the rest are masked
         sm = mask.shape[-1]
         scores = torch.einsum(
@@ -742,10 +917,19 @@ class Attention(nn.Module):
             cap = float(np.float32(cfg.attn_logit_softcapping))
             scores = cap * torch.tanh(scores / cap)
         scores = scores + mask[:, None, None, :, :]  # mask: (B, T, attn_len)
-        probs = torch.softmax(scores, dim=-1)
+        if self.sinks is not None:
+            # GPT-OSS: each head's sink logit joins the softmax's
+            # normalization and its probability is dropped, without
+            # materializing the extra column
+            sinks = self.sinks.to(torch.float32).reshape(1, KVH, group, 1, 1)
+            mx = torch.maximum(scores.amax(dim=-1, keepdim=True), sinks)
+            e = torch.exp(scores - mx)
+            probs = e / (e.sum(dim=-1, keepdim=True) + torch.exp(sinks - mx))
+        else:
+            probs = torch.softmax(scores, dim=-1)
         out = torch.einsum("bkgts,bksd->bkgtd", probs, v_cache[:, :, :sm].to(torch.float32))
         out = out.reshape(B, H, T, D).transpose(1, 2).reshape(B, T, H * D)
-        return self.o_proj(out.to(x.dtype))
+        return self._out(out.to(x.dtype))
 
 
 class LatentAttention(nn.Module):
@@ -861,6 +1045,59 @@ class MoE(nn.Module):
         return out.to(x.dtype)
 
 
+class GptOssMoE(nn.Module):
+    """GPT-OSS's expert block: :func:`gptoss_router_scores` (a biased
+    router) and :func:`gptoss_expert_math` over the fused stacks, int8 /
+    int4 stacks dequantized to x.dtype at use."""
+
+    def __init__(self, cfg: ModelConfig, layer: dict):
+        super().__init__()
+        self.cfg = cfg
+        e = layer["gptoss_experts"]
+        self.register_buffer("moe_gate", layer["moe_gate"])
+        self.register_buffer("moe_gate_bias", layer["moe_gate_bias"])
+        self.register_buffer("gate_up_bias", e["gate_up_bias"])
+        self.register_buffer("down_bias", e["down_bias"])
+        self.gate_up, self.down = Stack(e["gate_up"]), Stack(e["down"])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        scores = gptoss_router_scores(self.cfg, self.moe_gate, self.moe_gate_bias, x)
+        out = gptoss_expert_math(x, self.gate_up.dense(x.dtype), self.gate_up_bias, self.down.dense(x.dtype),
+                                 self.down_bias, scores)
+        return out.to(x.dtype)
+
+
+class Llama4MoE(nn.Module):
+    """Llama-4's expert block: :func:`llama4_router_scores`; each expert's
+    INPUT scaled by its score (zero off the chosen experts, so their
+    bias-free SwiGLU gives exactly 0); ``gate_up`` (E, hidden, 2I) split
+    into contiguous halves; every product in f32 over stacks dequantized to
+    f32 (the JAX semantics: each MoE layer holds the f32 stacks only while
+    it runs); plus the always-on shared expert."""
+
+    def __init__(self, cfg: ModelConfig, layer: dict):
+        super().__init__()
+        self.cfg = cfg
+        e = layer["llama4_experts"]
+        self.register_buffer("moe_gate", layer["moe_gate"])
+        self.gate_up, self.down = Stack(e["gate_up"]), Stack(e["down"])
+        self.shared = MLP({k: layer["shared_" + k] for k in ("gate_proj", "up_proj", "down_proj")}, cfg.hidden_act)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, T, D = x.shape
+        xf = x.reshape(B * T, D).to(torch.float32)
+        scores = llama4_router_scores(self.cfg, self.moe_gate, xf)
+        scaled = xf[None] * scores.T[:, :, None]  # (E, N, hidden)
+        gu = torch.matmul(scaled, self.gate_up.dense(torch.float32))
+        del scaled
+        gate, up = gu.chunk(2, dim=-1)
+        h = _act(gate, self.cfg.hidden_act) * up
+        del gu, gate, up
+        routed = torch.einsum("eni,eih->nh", h, self.down.dense(torch.float32))
+        out = routed.reshape(B, T, D) + self.shared(x).to(torch.float32)
+        return out.to(x.dtype)
+
+
 class DecoderLayer(nn.Module):
     def __init__(self, cfg: ModelConfig, layer: dict, layer_idx: int):
         super().__init__()
@@ -874,7 +1111,11 @@ class DecoderLayer(nn.Module):
             self.self_attn = LatentAttention(cfg, layer)
         else:
             self.self_attn = Attention(cfg, layer, cfg.layer_uses_rope(layer_idx))
-        if "experts" in layer:
+        if "gptoss_experts" in layer:
+            self.mlp = GptOssMoE(cfg, layer)
+        elif "llama4_experts" in layer:
+            self.mlp = Llama4MoE(cfg, layer)
+        elif "experts" in layer:
             self.mlp = MoE(cfg, layer)
         else:
             self.mlp = MLP(layer, cfg.hidden_act)
@@ -909,7 +1150,9 @@ class LlamaModel(nn.Module):
         self.layers = nn.ModuleList(DecoderLayer(cfg, layer, i) for i, layer in enumerate(params["layers"]))
         head = params.get("lm_head")
         self.lm_head = Projection(head if head is not None else params["embed_tokens"])
-        self.sliding = [cfg.layer_is_sliding(i) for i in range(len(self.layers))]
+        # each layer's mask kind
+        self.kinds = ["chunked" if cfg.layer_is_chunked(i) else "sliding" if cfg.layer_is_sliding(i) else "full"
+                      for i in range(len(self.layers))]
 
     @property
     def dtype(self) -> torch.dtype:
@@ -939,12 +1182,16 @@ class LlamaModel(nn.Module):
         ``key_positions`` (the continuous pool's slot -> position map) makes
         the sliding window compare true positions across a row's join gap;
         without it the window compares slots, which left pads shift alike on
-        both sides. The additive masks cover only the first ``attn_len``
+        both sides. Llama-4's chunked mask (key j visible to query i iff j
+        >= floor(i / C) * C) always compares positions: floor division does
+        not commute with a pad shift, so without ``key_positions`` a key's
+        position is its slot minus the row's pad (mask slot minus rope
+        position). The additive masks cover only the first ``attn_len``
         slots (every later slot is masked), so a row's attention does not
         depend on the cache length: a request prefilled into a short
         admission cache gets the bits of the same prefill into a longer
         one. A decode step builds one slot list per mask kind (full,
-        sliding), each compacted at its first use.
+        sliding, chunked), each compacted at its first use.
         Returns (f32 logits (B, T, V), kv_cache), the cache updated in
         place."""
         cfg = self.cfg
@@ -967,16 +1214,23 @@ class LlamaModel(nn.Module):
             else:
                 recent = key_positions[:, None, :attn_len] > positions[:, :, None] - cfg.sliding_window
             mask_sliding = torch.where(valid & recent, zero, masked)
+        mask_chunked = None
+        if cfg.attention_chunk_size is not None:
+            C = cfg.attention_chunk_size
+            if key_positions is None:
+                kpos = slot - (mpos - positions)[:, :, None]
+            else:
+                kpos = key_positions[:, None, :attn_len]
+            chunk_start = torch.div(positions, C, rounding_mode="floor")[:, :, None] * C
+            mask_chunked = torch.where(valid & (kpos >= chunk_start), zero, masked)
+        masks = {"full": mask, "sliding": mask_sliding, "chunked": mask_chunked}
         # the flash kernel's slot lists: the K/V route's decode only
         decode = input_ids.shape[1] == 1 and not cfg.is_mla
-        slots = attn_kernels.Slots(mask[:, 0, :]) if decode else None
-        slots_sliding = attn_kernels.Slots(mask_sliding[:, 0, :]) if decode and mask_sliding is not None else None
+        slots = {kind: attn_kernels.Slots(m[:, 0, :]) for kind, m in masks.items() if decode and m is not None}
         for i, layer in enumerate(self.layers):
             cos, sin = layer_rope(cfg, rope, i)
-            if self.sliding[i]:
-                x = layer(x, cos, sin, positions, kv_cache, i, cache_pos, mask_sliding, slots_sliding)
-            else:
-                x = layer(x, cos, sin, positions, kv_cache, i, cache_pos, mask, slots)
+            kind = self.kinds[i]
+            x = layer(x, cos, sin, positions, kv_cache, i, cache_pos, masks[kind], slots.get(kind))
         x = rms_norm(x, self.norm, cfg.rms_norm_eps, cfg.is_gemma)
         logits = self.lm_head(x).to(torch.float32)
         if cfg.final_logit_softcapping:

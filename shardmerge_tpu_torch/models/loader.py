@@ -1,6 +1,5 @@
 """Load an HF safetensors checkpoint into the port's params dict
-(counterpart of shardmerge_tpu/models/loader.py, without GPT-OSS's and
-Llama-4's weights).
+(counterpart of shardmerge_tpu/models/loader.py).
 
 Each tensor is read as a view of its shard file and copied to the device
 once. With ``quant_bits`` the per-layer projections (``llama.QUANTIZABLE``:
@@ -13,7 +12,17 @@ routers and lm_head stay in ``dtype``. Mixtral's
 ``mlp.experts.E.{gate,up,down}_proj`` fill the ``experts`` list. Phi-3's fused
 ``qkv_proj`` and ``gate_up_proj`` split by head geometry before that (each
 part quantized on its own), and GLM-4's sandwich norms land in the Gemma-2
-slots, as the JAX loader maps them.
+slots, as the JAX loader maps them. GPT-OSS's and Llama-4's fused expert
+stacks (``mlp.experts.gate_up_proj`` / ``down_proj`` with GPT-OSS's biases;
+``feed_forward.experts.*``) fill ``gptoss_experts`` / ``llama4_experts``,
+quantized per (expert, output channel) with ``quant_bits``
+(``quant.quantize_stacked``); Llama-4's ``feed_forward.*`` MLP and
+``shared_expert`` take the dense and shared-expert slots, its multimodal
+checkpoints' ``language_model.`` prefix is dropped, and the MoE layers
+found must be the config's ``moe_layers``. GPT-OSS's shipped MXFP4 stacks
+(``*_blocks`` / ``*_scales``, the halves possibly in different shards) are
+staged until both halves are in, then decoded to f32 on ``device``
+(``quant.dequant_mxfp4``) and, with ``quant_bits``, quantized there.
 
 A PEFT LoRA adapter directory loads as its base checkpoint with the pairs
 fused per tensor as they are read (``resolve_checkpoint_dir``; the fuse is
@@ -34,8 +43,8 @@ from typing import Optional
 import torch
 
 from ..io.safetensors_io import SafeTensorsReader
-from .llama import QUANTIZABLE, ModelConfig, layer_keys
-from .quant import quantize
+from .llama import QUANTIZABLE, STACK_KEYS, ModelConfig, layer_keys
+from .quant import dequant_mxfp4, quantize, quantize_stacked
 
 logger = logging.getLogger(__name__)
 
@@ -81,7 +90,7 @@ def _packed_format(model_path: Path) -> Optional[dict]:
     if info is None and qc.get("quant_method") not in (None, "mxfp4"):
         raise ValueError(
             f"{model_path} uses quant_method {qc.get('quant_method')!r}; supported quantized "
-            "formats are GPTQ and AWQ (gemm) — dequantize to bf16 first"
+            "formats are GPTQ, AWQ (gemm) and MXFP4 (gpt-oss) — dequantize to bf16 first"
         )
     if info is not None:
         logger.info("%s checkpoint (bits=%d): decoding packed tensors at load", info["fmt"].upper(), info["bits"])
@@ -122,6 +131,29 @@ _LAYER_WEIGHTS = {
     "mlp.shared_experts.up_proj.weight": "shared_up_proj",
     "mlp.shared_experts.down_proj.weight": "shared_down_proj",
     "mlp.gate.e_score_correction_bias": "gate_bias",
+    # gpt-oss's biased router, sinks and o_proj bias; llama4's router, its
+    # feed_forward MLP (dense layers) and shared expert
+    "mlp.router.weight": "moe_gate",
+    "mlp.router.bias": "moe_gate_bias",
+    "self_attn.sinks": "sinks",
+    "self_attn.o_proj.bias": "o_bias",
+    "feed_forward.router.weight": "moe_gate",
+    "feed_forward.gate_proj.weight": "gate_proj",
+    "feed_forward.up_proj.weight": "up_proj",
+    "feed_forward.down_proj.weight": "down_proj",
+    "feed_forward.shared_expert.gate_proj.weight": "shared_gate_proj",
+    "feed_forward.shared_expert.up_proj.weight": "shared_up_proj",
+    "feed_forward.shared_expert.down_proj.weight": "shared_down_proj",
+}
+# the fused expert stacks: (params key, stack key); gpt-oss's biases stay
+# in the dtype, its stacks and llama4's quantize
+_STACKS = {
+    "mlp.experts.gate_up_proj": ("gptoss_experts", "gate_up"),
+    "mlp.experts.gate_up_proj_bias": ("gptoss_experts", "gate_up_bias"),
+    "mlp.experts.down_proj": ("gptoss_experts", "down"),
+    "mlp.experts.down_proj_bias": ("gptoss_experts", "down_bias"),
+    "feed_forward.experts.gate_up_proj": ("llama4_experts", "gate_up"),
+    "feed_forward.experts.down_proj": ("llama4_experts", "down"),
 }
 # qwen3-moe / deepseek expert weights use the MLP names; the params keep
 # mixtral's w1/w3/w2
@@ -180,11 +212,22 @@ def load_params(
     def place(t):
         return t.to(device=device, dtype=dtype)
 
+    def place_stack(w, key):
+        if quant_bits and key in ("gate_up", "down"):
+            return {k: v.to(device) for k, v in quantize_stacked(w, quant_bits).items()}
+        return place(w)
+
+    mxfp4_pending: dict = {}  # (layer, gate_up_proj | down_proj) -> its blocks / scales so far
+
     params: dict = {"layers": [dict() for _ in range(cfg.num_hidden_layers)]}
     for shard in shards:
         with SafeTensorsReader(model_path / shard) as reader:
             for name in reader.keys():
                 arr = reader.get_tensor(name)
+                if name.startswith("language_model."):
+                    # llama4's multimodal checkpoints nest the decoder; the
+                    # vision tensors fall through to the warning below
+                    name = name[len("language_model."):]
                 root, _, part = name.rpartition(".")
                 if part in packed_parts:
                     # stage the module's parts (copied: they may span
@@ -216,6 +259,23 @@ def load_params(
                     parts = name.split(".")
                     suffix = ".".join(parts[3:])
                     layer = params["layers"][int(parts[2])]
+                    if suffix in _STACKS:
+                        group, key = _STACKS[suffix]
+                        layer.setdefault(group, {})[key] = place_stack(arr, key)
+                        continue
+                    if suffix.startswith("mlp.experts.") and suffix.endswith(("_blocks", "_scales")):
+                        # gpt-oss's MXFP4 stacks: stage each half (copied:
+                        # the halves may sit in different shards), decode
+                        # once both are in
+                        stem, _, half = suffix[len("mlp.experts."):].rpartition("_")
+                        pend = mxfp4_pending.setdefault((int(parts[2]), stem), {})
+                        pend[half] = arr.clone()
+                        if len(pend) == 2:
+                            del mxfp4_pending[(int(parts[2]), stem)]
+                            w = dequant_mxfp4(pend["blocks"].to(device), pend["scales"].to(device))
+                            group, key = _STACKS["mlp.experts." + stem]
+                            layer.setdefault(group, {})[key] = place_stack(w, key)
+                        continue
                     if suffix.startswith(("block_sparse_moe.experts.", "mlp.experts.")) and parts[5].isdigit():
                         # model.layers.N.block_sparse_moe.experts.E.w{1,2,3}.weight (mixtral)
                         # model.layers.N.mlp.experts.E.{gate,up,down}_proj.weight (qwen3-moe, deepseek)
@@ -248,12 +308,27 @@ def load_params(
 
     if pending:
         raise ValueError(f"{model_path}: packed modules with missing parts: {sorted(pending)[:4]}")
+    if mxfp4_pending:
+        raise ValueError(
+            f"Checkpoint at {model_path} has incomplete MXFP4 expert tensors (blocks without scales or "
+            f"vice versa): {sorted(mxfp4_pending)[:4]}"
+        )
     if cfg.tie_word_embeddings:
         params.pop("lm_head", None)
+    if cfg.moe_layers is not None:
+        # llama4: the expert stacks found must sit exactly on the config's
+        # MoE layers (a missing stack would serve that layer dense)
+        wrong = [i for i, layer in enumerate(params["layers"]) if ("llama4_experts" in layer) != cfg.layer_is_moe(i)]
+        if wrong:
+            raise ValueError(
+                f"Checkpoint at {model_path} disagrees with the config's moe_layers table at layers {wrong[:4]}: "
+                "expert stacks present where the config says dense (or vice versa)"
+            )
     missing = [
         i for i, layer in enumerate(params["layers"])
         if set(layer) != layer_keys(cfg, i)
         or any(set(e) != {"w1", "w2", "w3"} for e in layer.get("experts", []))
+        or any(set(layer[g]) != keys for g, keys in STACK_KEYS.items() if g in layer)
     ]
     if missing or "embed_tokens" not in params or "norm" not in params:
         raise ValueError(

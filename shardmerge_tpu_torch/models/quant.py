@@ -7,6 +7,12 @@ stored in the SPLIT-HALF layout: for an (N, K) weight the packed (N, K/2)
 uint8 byte j holds column j in its low nibble and column j + K/2 in its
 high nibble, each as value + 8 in [1, 15]; the scale is an (N, 1) f32.
 
+The fused expert stacks of GPT-OSS and Llama-4, (E, in, out) used as
+``x @ W``, quantize per (expert, output channel) (:func:`quantize_stacked`:
+the reduction axis is the middle one, so the int4 bytes pack it split-half
+and the dict's key is ``q3``), and GPT-OSS's shipped MXFP4 stacks decode to
+f32 (:func:`dequant_mxfp4`).
+
 ``dequant_matmul`` routes a packed-int4 product with at most 64 rows on a
 CUDA tensor to the hand-written GEMV (quant_kernels.int4_matmul). Every other
 product takes the plain path, which stands for the JAX package's XLA
@@ -21,11 +27,13 @@ from typing import Dict
 import numpy as np
 import torch
 
-__all__ = ["quantize", "dequant", "dequant_matmul", "dequant_gptq", "dequant_awq"]
+__all__ = ["quantize", "dequant", "dequant_matmul", "quantize_stacked", "dequant_stacked", "dequant_mxfp4",
+           "dequant_gptq", "dequant_awq"]
 
 
 def _pack4(q):
-    """Split-half nibble pack along axis 1 (int8 in [-7, 7]; numpy or torch)."""
+    """Split-half nibble pack along axis 1 (int8 in [-7, 7]; numpy or torch,
+    2-D or a 3-D stack)."""
     if q.shape[1] % 2:
         raise ValueError("int4 requires an even reduction dim")
     h = q.shape[1] // 2
@@ -65,6 +73,75 @@ def dequant(wq: Dict[str, torch.Tensor], dtype=torch.bfloat16) -> torch.Tensor:
     if q.dtype == torch.uint8:
         q = _unpack4(q)
     return (q.to(torch.float32) * wq["scale"]).to(dtype)
+
+
+def quantize_stacked(w, bits: int = 4) -> Dict[str, torch.Tensor]:
+    """Quantize an (E, in, out) expert stack per (expert, output channel),
+    on the device ``w`` lies on (the loader passes host tensors, and
+    GPT-OSS's MXFP4 stacks decoded where they are placed).
+
+    Returns {"q3": int8 (E, in, out) or split-half packed uint8
+    (E, in/2, out), "scale": f32 (E, 1, out)}: :func:`quantize`'s
+    arithmetic over the middle axis. The divisor qmax is a tensor on the
+    stack's device: PyTorch's CUDA division by a Python scalar multiplies
+    by its reciprocal, which rounds some scales one ulp off the host's."""
+    if bits not in (4, 8):
+        raise ValueError(f"bits must be 4 or 8, got {bits}")
+    w32 = torch.as_tensor(w).detach().to(torch.float32)
+    absmax = w32.abs().amax(dim=1, keepdim=True)
+    qmax = 127.0 if bits == 8 else 7.0
+    scale = (absmax / absmax.new_full((), qmax)).clamp_min_(1e-12)
+    q = torch.round(w32 / scale).clamp_(-qmax, qmax).to(torch.int8)
+    del w32
+    if bits == 4:
+        q = _pack4(q)
+    return {"q3": q, "scale": scale}
+
+
+def dequant_stacked(wq: Dict[str, torch.Tensor], dtype=torch.bfloat16) -> torch.Tensor:
+    q = wq["q3"]
+    if q.dtype == torch.uint8:  # split-half packed on the middle (reduction) axis
+        q = _unpack4(q)
+    return (q.to(torch.float32) * wq["scale"]).to(dtype)
+
+
+# the FP4 e2m1 values by nibble (sign in bit 3), as OpenAI's MXFP4 releases
+# decode (transformers' integrations/mxfp4.py FP4_VALUES)
+_FP4_VALUES = (0.0, 0.5, 1.0, 1.5, 2.0, 3.0, 4.0, 6.0, -0.0, -0.5, -1.0, -1.5, -2.0, -3.0, -4.0, -6.0)
+
+
+def _pow2(e: torch.Tensor) -> torch.Tensor:
+    """2**e as f32 for integer e in [-126, 127], built from its exponent bits."""
+    return ((e.to(torch.int32) + 127) << 23).view(torch.float32)
+
+
+def dequant_mxfp4(blocks, scales) -> torch.Tensor:
+    """Decode MXFP4 expert stacks to f32 on their device.
+
+    ``blocks``: (..., OUT, G, 16) uint8, 32 fp4 values a 16-byte block,
+    LOW nibble first; ``scales``: (..., OUT, G) uint8 e8m0 exponents, bias
+    127, one a block. Returns (..., IN, OUT), IN = 32 G: the last two axes
+    swapped into the bf16 checkpoint's orientation. Each value is
+    ``ldexp(fp4, scale - 127)``, taken as two exact power-of-two products
+    (each factor within f32's normal range), so the result is the exact
+    one, or inf where that overflows, bit for bit numpy's ``ldexp``."""
+    blocks, scales = torch.as_tensor(blocks), torch.as_tensor(scales)
+    if blocks.shape[:-1] != scales.shape or blocks.shape[-1] != 16:
+        raise ValueError(
+            f"MXFP4 shape mismatch: blocks {tuple(blocks.shape)} vs scales {tuple(scales.shape)} "
+            "(want blocks = scales + (16,))"
+        )
+    table = torch.tensor(_FP4_VALUES, dtype=torch.float32, device=blocks.device)
+    lo = table[(blocks & 0x0F).to(torch.int64)]
+    hi = table[(blocks >> 4).to(torch.int64)]
+    vals = torch.stack([lo, hi], dim=-1).reshape(*blocks.shape[:-1], 32)  # byte b -> [lo_b, hi_b]
+    del lo, hi
+    e = scales.to(torch.int32) - 127  # [-127, 128]
+    half = torch.div(e, 2, rounding_mode="floor")  # [-64, 64]; e - half in [-63, 64]
+    vals = vals * _pow2(half)[..., None]
+    vals = vals * _pow2(e - half)[..., None]
+    *prefix, out_dim, g, _ = vals.shape
+    return vals.reshape(*prefix, out_dim, g * 32).transpose(-1, -2).contiguous()
 
 
 def dequant_matmul(x: torch.Tensor, wq: Dict[str, torch.Tensor]) -> torch.Tensor:

@@ -144,8 +144,15 @@ def test_load_params_quantizes_projections_on_host(tmp_path):
 
 
 def test_unported_families_raise():
-    with pytest.raises(NotImplementedError, match="gpt_oss"):
-        tllama.ModelConfig.from_hf_config({**HF_CONFIG, "model_type": "gpt_oss"})
+    # gpt_oss, refused here until it was ported, now builds a model that decodes
+    gpt_oss = tllama.ModelConfig.from_hf_config({**HF_CONFIG, "model_type": "gpt_oss", "num_local_experts": 4,
+                                                 "num_experts_per_tok": 2, "attention_bias": True})
+    engine = InferenceEngine(gpt_oss, tllama.LlamaModel(gpt_oss, tllama.init_params(gpt_oss, seed=3,
+                                                                                    dtype=torch.float32)),
+                             StubTokenizer())
+    assert len("".join(engine.stream_generation("hi", max_new_tokens=3, greedy=True))) > 0
+    with pytest.raises(NotImplementedError, match="model_type 'falcon'"):
+        tllama.ModelConfig.from_hf_config({**HF_CONFIG, "model_type": "falcon"})
     dynamic = {**HF_CONFIG, "rope_scaling": {"rope_type": "dynamic", "factor": 4.0}}
     with pytest.raises(NotImplementedError, match="dynamic"):
         tllama.rope_tables(tllama.ModelConfig.from_hf_config(dynamic), 8)

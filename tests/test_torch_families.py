@@ -288,10 +288,26 @@ def test_params_from_jax_carries_every_leaf_bit_for_bit():
     assert set(ported["layers"][0]) == tllama.layer_keys(tllama.ModelConfig.from_hf_config(hf_config("gemma3")))
 
 
+# the sink and chunked families this test refused before they were
+# ported: each config (Llama-4 as its multimodal wrapper) now builds a
+# model that decodes
+SINK_AND_CHUNKED = {
+    "gpt_oss": {**BASE, "model_type": "gpt_oss", "num_local_experts": 4, "num_experts_per_tok": 2,
+                "head_dim": 16, "attention_bias": True, "sliding_window": 3,
+                "layer_types": ["sliding_attention", "full_attention"]},
+    "llama4": {"model_type": "llama4", "text_config": {
+        **BASE, "model_type": "llama4_text", "num_local_experts": 4, "num_experts_per_tok": 1, "head_dim": 16,
+        "intermediate_size": 32, "no_rope_layers": [1, 0], "attention_chunk_size": 4, "floor_scale": 2.0}},
+}
+
+
 @pytest.mark.parametrize("model_type", ["gpt_oss", "llama4"])
 def test_expert_latent_sink_and_chunked_families_are_refused_by_name(model_type):
-    with pytest.raises(NotImplementedError, match=model_type):
-        tllama.ModelConfig.from_hf_config({**BASE, "model_type": model_type})
+    cfg = tllama.ModelConfig.from_hf_config(SINK_AND_CHUNKED[model_type])
+    assert cfg.has_sinks == (model_type == "gpt_oss") and cfg.layer_is_chunked(0) == (model_type == "llama4")
+    engine = InferenceEngine(cfg, tllama.LlamaModel(cfg, tllama.init_params(cfg, seed=1, dtype=torch.float32)),
+                             StubTokenizer())
+    assert len("".join(engine.stream_generation("sinks and chunks", max_new_tokens=6, greedy=True))) > 0
 
 
 # the expert and latent-attention families this test refused before they

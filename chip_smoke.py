@@ -68,7 +68,22 @@ Phases (each prints one line or a few; any failure exits non-zero):
    must give the default run's bits, and the default the CLI's bits
    (batch_rounds' whole outputs are printed beside them); the 4-finetune
    merge's spans, sequential and pipelined, as in 7;
-9. engines: the ten other merge methods, each merged in process on a
+9. shard: the fourier merge across ranks. Two ranks share the card
+   (``torchrun``'s env:// variables, started by this script; gloo with
+   collectives staged through host memory) and run the port's merge CLI on
+   7's base + 2 finetunes with every projection split over them: the index
+   mirrors the base, every tensor finite bf16 and more than 97% within 2e-2
+   of 7's single-device output. In process, each (14336, 4096) and (4096,
+   14336) projection's round-1 pair merges of 8's 4-finetune inputs split
+   over the ranks must lie within relL2 6e-3 and max-abs 0.2 rms of the
+   single-device pair merge, each rank's collectives must send the bytes
+   the shapes give, and the cutoff and cull thresholds of every slerp pair
+   on identical spectra must be the single device's bit for bit; the
+   all-to-all is timed alone. A world-1 NCCL group then runs
+   ``sharded_pair_slerp`` on CUDA tensors with nothing staged, held to the
+   same pair class. Printed: each rank's transport and collectives (calls,
+   bytes, host seconds), the wall per tensor against 7's;
+10. engines: the ten other merge methods, each merged in process on a
    3-tensor subset of [stack]'s models (4 finetunes, slerp 2; dare, della
    and breadcrumbs with both combine values), timed per tensor, then
    through the CLI (four at a time): index mirrored, finite bf16, the
@@ -82,7 +97,7 @@ Phases (each prints one line or a few; any failure exits non-zero):
    whole model (the 128256 x 4096 input/output layers).
    Then the masks alone at (14336, 4096): DARE's Bernoulli draw, DELLA's
    keep probabilities and drop-and-rescale, device ms;
-10. inputs: every checkpoint input through the port's CLI on the card. A
+11. inputs: every checkpoint input through the port's CLI on the card. A
    localhost "Hub" (a standard-library HTTP server) serves [stack]'s ft3;
    ``extract-lora`` makes a rank-16 adapter of ft1 on the attention
    projections (the card's B@A on layer 0's k_proj held to the host's
@@ -101,12 +116,12 @@ Phases (each prints one line or a few; any failure exits non-zero):
    loopback download rate, host ms a tensor of the adapter fuse and the
    GPTQ decode, each (14336, 4096) tensor's wall beside [stack]'s
    3-finetune merge, and io/native.py's copy and cast against torch's;
-11. generate: load the merge with int4 weights, ``generate_batch`` on 4
+12. generate: load the merge with int4 weights, ``generate_batch`` on 4
    prompts and one ``stream_generation``; both kernels' launch counts must
    show the decode went through them, and one decode step's logits must
    agree with the same step on the plain int4 product; an A/B of the decode
    step against the einsum attention path;
-12. serve: the HTTP server on that engine with a continuous pool of 8 slots
+13. serve: the HTTP server on that engine with a continuous pool of 8 slots
    and a 4096-slot cache; staggered greedy requests (prompts of 30-3000
    tokens, one with a stop string), one SSE stream and one 4-prompt
    lockstep request; every pool completion must equal the solo stream, both
@@ -119,8 +134,8 @@ Phases (each prints one line or a few; any failure exits non-zero):
    (flash launches = layers x compactions); an A/B of that pool step
    against the einsum path, and, over profiled pool steps, the device's
    busy share, its launches per step and the flash kernels' share;
-13. spec: speculative decoding and the prefix cache on the int4 merge of
-   11 (the target) with a Llama-3.2-1B-width draft (2 layers, bf16, random
+14. spec: speculative decoding and the prefix cache on the int4 merge of
+   12 (the target) with a Llama-3.2-1B-width draft (2 layers, bf16, random
    weights built on the card), k = 4. Solo streams with the draft, with the
    target as its own draft, with the target proposing its runner-up at a
    seeded 20% of positions (the planted-miss draft) and without one: each
@@ -146,7 +161,7 @@ Phases (each prints one line or a few; any failure exits non-zero):
    alone: the prefill split at the hit without the cache, or the verify's);
    /v1/stats showing the slab's bytes. Reports: B=1 decode tokens/s plain
    and with each draft, and TTFT of a hit against a miss;
-14. families: one model per dense family (Qwen2.5-7B, Qwen3-8B,
+15. families: one model per dense family (Qwen2.5-7B, Qwen3-8B,
    Mistral-7B-v0.1, Gemma-2-9B, Gemma-3-1B, Phi-3-mini-128k, OLMo-2-7B,
    SmolLM3-3B, GLM-4-9B-0414) from its public config at its published
    widths, 2 layers, random weights built on the card, int4: 8 greedy
@@ -161,11 +176,11 @@ Phases (each prints one line or a few; any failure exits non-zero):
    version, the library call and the bound; Phi-3 also through ``generate
    -4 --greedy`` from a checkpoint with fused qkv_proj/gate_up_proj, its
    tokens equal to the in-memory model's;
-15. experts: Mixtral-8x7B, Qwen3-30B-A3B, DeepSeek-V2-Lite and DeepSeek-V3
+16. experts: Mixtral-8x7B, Qwen3-30B-A3B, DeepSeek-V2-Lite and DeepSeek-V3
    at published widths, 2 layers, int4 made on the card: the launches of a
    decode step, one step held to the plain route, pools of Mixtral and
    V2-Lite, V2-Lite's prefix cache and its generate CLI;
-16. sinks-chunked: GPT-OSS-20B and Llama-4-Scout at published widths, 2
+17. sinks-chunked: GPT-OSS-20B and Llama-4-Scout at published widths, 2
    layers. GPT-OSS written as a shipped-format MXFP4 checkpoint (layer 0's
    blocks and scales in two shards) and loaded at 4 bits (the card's MXFP4
    decode and int4 stack bit for bit the host's on layer 0's first 64
@@ -179,7 +194,7 @@ Phases (each prints one line or a few; any failure exits non-zero):
    prefill and decode-step walls; Scout's pool of 4 slots whose second long
    request joins with a gap and decodes across 8192: every completion its
    solo stream's or a near-tie;
-17. the kernel summary line (all five kernels), the card line, and the result line.
+18. the kernel summary line (all five kernels), the card line, and the result line.
 
 It imports nothing of JAX. With no CUDA device it exits 1 and prints no
 result.
@@ -1297,6 +1312,319 @@ def phase_stack(torch, root: Path, dirs, card: str):
             raise SystemExit(f"[stack] variant {tag} disagrees with the default run")
     shutil.rmtree(root / "subset")
     return dirs, stack3
+
+
+# --- [shard]: the fourier merge across ranks -----------------------------------
+
+SHARD_RANKS = 2  # two ranks share the one card over gloo, collectives staged through the host
+SHARD_MIN_BYTES = 1 << 20  # below every projection's bytes (k_proj: 8 MiB in bf16)
+SHARD_PROJECTIONS = [f"model.layers.{l}.mlp.{p}_proj.weight" for l in range(LAYERS) for p in ("gate", "up", "down")]
+SHARD_TIMEOUT_S = 600
+
+
+def pair_bytes(regime: str, m: int, n: int, ranks: int) -> int:
+    """Bytes one rank sends in the collectives of one sharded pair merge of
+    an (m, n) tensor on the half-spectrum path (N % 2P == 0), from the
+    shapes: two forward all-to-alls of its (m/P, n/2) complex64 rows and one
+    inverse of its (m, n/2/P) columns, two all-gathers of its (m/P, 1)
+    Nyquist rows; for a slerp also the all-reduces: 16 bisection rounds of
+    3 int64 counts for each of the cutoff and the cull, the SLERP's 3 + 1 f32
+    sums, the cull's int64 count and the scrub's 2 int64 flags."""
+    a2a = 3 * (m // ranks) * (n // 2) * 8
+    nyquist = 2 * (m // ranks) * 8
+    reduces = 2 * 16 * 3 * 8 + 4 * 4 + 8 + 2 * 8 if regime == "slerp" else 0
+    return a2a + nyquist + reduces
+
+
+def _sent(comm) -> int:
+    return sum(b for _, b, _ in comm.stats.values())
+
+
+def shard_rank(root: Path) -> int:
+    """One rank of [shard] (``python3 chip_smoke.py --shard-rank ROOT``, with
+    torchrun's rendezvous variables): the port's merge CLI in process, then,
+    on the card, every (14336, 4096) and (4096, 14336) projection's round-1
+    pair merges of the [stack] 4-finetune inputs sharded over the ranks
+    (gathered to rank 0 and held there to the single-device pair merge),
+    the thresholds on identical spectra, and the all-to-all's time. Writes
+    its findings to ROOT/shard_rank{R}.json."""
+    import numpy as np
+    import torch
+
+    from shardmerge_tpu_torch.cli import main as cli_main
+    from shardmerge_tpu_torch.config import MergeConfig, MergeModel
+    from shardmerge_tpu_torch.io.safetensors_io import SafeTensorsReader
+    from shardmerge_tpu_torch.merge import fourier
+    from shardmerge_tpu_torch.merge.base import Placement
+    from shardmerge_tpu_torch.ops import blend, select
+    from shardmerge_tpu_torch.parallel import fft2d
+    from shardmerge_tpu_torch.parallel.multihost import merge_mesh
+
+    code = cli_main(["merge", str(root / "shard.json")])
+    sys.stdout.flush()
+    if code:
+        return code
+    dev = torch.device("cuda:0")
+    comm = merge_mesh(dev)
+    dirs = json.loads((root / "shard_dirs.json").read_text())
+    names = list(STACK_FOUR)
+    cfg = MergeConfig(finetune_merge=[MergeModel(model=dirs[m], base=dirs["base"], alpha=STACK_ALPHAS[m])
+                                      for m in names],
+                      output_base_model=dirs["base"], output_dir=str(root / "unused"))
+    sharded = fourier.FourierMerge(cfg, device=dev, comm=comm)
+    single = fourier.FourierMerge(cfg, device=dev)
+    weight_map = json.loads((Path(dirs["base"]) / "model.safetensors.index.json").read_text())["weight_map"]
+    found = {"rank": comm.rank, "position": comm.position, "transport": comm.transport, "pairs": [],
+             "thresholds": [], "a2a_ms": []}
+
+    def read(m, name):
+        with SafeTensorsReader(Path(dirs[m]) / weight_map[name]) as r:
+            return r.get_tensor(name).to(dev).float()
+
+    for name in SHARD_PROJECTIONS:
+        base = read("base", name)
+        deltas = {m: read(m, name) - base for m in names}
+        norms = fourier._batched_norms(list(deltas.values()))
+        target = float(np.mean(np.asarray(norms, dtype=np.float32))) + 1e-10
+        jobs, _, _ = fourier._plan_round(names, [STACK_ALPHAS[m] for m in names], norms, norms, target)
+        placement = Placement(comm, "rows", tuple(base.shape))
+        for job in jobs:
+            a, b = deltas[job[1]], deltas[job[2]]
+            before = _sent(comm)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            merged, _ = sharded.merge_pair(job, placement.local(a), placement.local(b), target, 0.2, placement)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            sent = _sent(comm) - before
+            whole = comm.gather_rows(merged, 256 << 20)
+            row = {"tensor": name, "regime": job[0], "shape": list(base.shape), "ms": wall * 1e3,
+                   "sent": sent, "expected": pair_bytes(job[0], *base.shape, comm.size)}
+            if whole is not None:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ref, _ = single.merge_pair(job, a, b, target, 0.2)
+                torch.cuda.synchronize()
+                row["single_ms"] = (time.perf_counter() - t0) * 1e3
+                got = whole.to(dev)
+                rms = float(ref.double().square().mean().sqrt())
+                row["rel_l2"] = rel_l2(got, ref)
+                row["max_abs_over_rms"] = float((got - ref).abs().max()) / rms
+            found["pairs"].append(row)
+            if job[0] != "slerp":
+                continue
+            # thresholds on identical spectra: this rank's unified block of
+            # the single device's half spectra against the whole
+            na, nb = fourier._batched_norms([a, b])
+            h0, h1 = torch.fft.rfftn(a / na, dim=(-2, -1)), torch.fft.rfftn(b / nb, dim=(-2, -1))
+            n = base.shape[-1]
+            nbody = n // 2 // comm.size
+            mine = [torch.cat([h[:, comm.position * nbody:(comm.position + 1) * nbody], h[:, -1:]], 1)
+                    for h in (h0, h1)]
+            w_all = blend.hermitian_col_weights(n, device=dev)
+            w_mine = fft2d.half_col_weights(n, nbody, comm)
+            numel = a.numel()
+            for label, k, pair in (("cutoff", blend.cutoff_rank(numel, 0.08), True),
+                                   ("cull", blend.cull_rank(numel, 0.2), False)):
+                whole_thr = select.kth_smallest_weighted(h0.real.abs(), k, w_all, y=h1.real.abs() if pair else None)
+                dist_thr = select.kth_smallest_weighted(mine[0].real.abs(), k, w_mine,
+                                                        y=mine[1].real.abs() if pair else None, group=comm)
+                found["thresholds"].append({
+                    "tensor": name, "which": label,
+                    "bits": [int(whole_thr.view(torch.int32)), int(dist_thr.view(torch.int32))]})
+            del h0, h1, mine
+            if name not in SHARD_PROJECTIONS[:2]:
+                continue
+            # the all-to-all of rfft2_rs_half's body rows, alone (layer 0's
+            # gate and up projections)
+            body = torch.fft.rfft(placement.local(a), dim=-1)[:, :-1].contiguous()
+            for _ in range(6):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                comm.a2a_rs_to_cs(body)
+                torch.cuda.synchronize()
+                found["a2a_ms"].append(((time.perf_counter() - t0) * 1e3, list(body.shape)))
+            del body
+        del base, deltas
+        torch.cuda.empty_cache()
+    (root / f"shard_rank{comm.rank}.json").write_text(json.dumps(found))
+    return 0
+
+
+def launch_shard_ranks(root: Path):
+    """Start the [shard] ranks as ``torchrun --nproc-per-node 2`` would
+    (the env:// variables), wait for them: each rank's (code, stdout,
+    stderr). A rank still running at SHARD_TIMEOUT_S is killed."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for rank in range(SHARD_RANKS):
+        env = {**os.environ, "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+               "WORLD_SIZE": str(SHARD_RANKS), "RANK": str(rank), "LOCAL_RANK": str(rank),
+               "LOCAL_WORLD_SIZE": str(SHARD_RANKS)}
+        out, err = open(root / f"shard{rank}.out", "w+"), open(root / f"shard{rank}.err", "w+")
+        procs.append((subprocess.Popen([sys.executable, str(REPO / "chip_smoke.py"), "--shard-rank", str(root)],
+                                       cwd=REPO, env=env, stdout=out, stderr=err), out, err))
+    deadline = time.perf_counter() + SHARD_TIMEOUT_S
+    results = []
+    try:
+        for proc, out, err in procs:
+            try:
+                code = proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                code = None
+            out.seek(0)
+            err.seek(0)
+            results.append((code, out.read(), err.read()))
+    finally:
+        for proc, out, err in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.close()
+            err.close()
+    return results
+
+
+def shard_nccl_world1(torch, dirs: dict, card: str) -> str:
+    """A world-1 NCCL group in this process: ``sharded_pair_slerp`` on CUDA
+    tensors with nothing staged, held to the single-device pair merge."""
+    import socket
+
+    import torch.distributed as dist
+
+    from shardmerge_tpu_torch.io.safetensors_io import SafeTensorsReader
+    from shardmerge_tpu_torch.merge import fourier
+    from shardmerge_tpu_torch.ops import blend
+    from shardmerge_tpu_torch.parallel.comm import Comm, transport_for
+    from shardmerge_tpu_torch.parallel.merge import sharded_pair_slerp
+
+    dev = torch.device("cuda:0")
+    name = SHARD_PROJECTIONS[0]
+    weight_map = json.loads((dirs["base"] / "model.safetensors.index.json").read_text())["weight_map"]
+
+    def read(m):
+        with SafeTensorsReader(dirs[m] / weight_map[name]) as r:
+            return r.get_tensor(name).to(dev).float()
+
+    base = read("base")
+    a, b = read("ft4") - base, read("ft3") - base  # a slerp pair of [stack]: norms 5 : 2
+    na, nb = fourier._batched_norms([a, b])
+    target = (na + nb) / 2 + 1e-10
+    numel = a.numel()
+    ranks = (blend.cutoff_rank(numel, 0.08), blend.cull_rank(numel, 0.2), blend.cull_limit(numel, 0.2))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    backend, staged = transport_for("cuda", 1)
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0)
+    try:
+        comm = Comm(dev)
+        if comm.backend != "nccl" or comm.staged:
+            raise SystemExit(f"[shard] world-1 group took {comm.transport}, not NCCL unstaged")
+        args = (na, nb, 0.6, *ranks, target)
+        sharded_pair_slerp(comm, a, b, *args, use_cull=True)  # NCCL sets its communicator up at the first call
+        comm.stats.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, nan, inf = sharded_pair_slerp(comm, a, b, *args, use_cull=True)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        dist.destroy_process_group()
+    scalars = [torch.tensor(v, dtype=torch.float32, device=dev) for v in (na, nb, 0.6)]
+    ref, rnan, rinf = fourier._pair("slerp", a, b, scalars, ranks, torch.tensor(target, device=dev), True,
+                                    use_cull=True)
+    rel = rel_l2(got, ref)
+    worst = float((got - ref).abs().max()) / float(ref.double().square().mean().sqrt())
+    if rel > 6e-3 or worst > 0.2 or int(nan) != int(rnan) or bool(inf) != bool(rinf):
+        raise SystemExit(f"[shard] world-1 NCCL pair merge leaves the single-device one: relL2 {rel:.2e}, "
+                         f"max-abs/rms {worst:.3f}, NaNs {int(nan)} vs {int(rnan)}")
+    sent = {k: v[:2] for k, v in comm.stats.items()}
+    return (f"[shard] world-1 NCCL group ({comm.transport}, nothing staged; {card}): sharded_pair_slerp of "
+            f"{name} {tuple(a.shape)} on CUDA tensors in {wall:.1f} ms (host wall, synchronized; the second "
+            f"call, after the communicator's set-up); vs the "
+            f"single-device pair merge relL2 {rel:.2e} (tol 6e-3), max-abs {worst:.3f} rms (tol 0.2); "
+            f"collectives [calls, bytes] {sent}")
+
+
+def phase_shard(torch, root: Path, dirs: dict, merged: Path, merge_tensor_s: float, card: str):
+    """Two ranks share the card over gloo (host-staged), launched with
+    torchrun's variables: the port's merge CLI on [merge]'s base + 2
+    finetunes with every projection split, held to [merge]'s output; the
+    ranks' in-process pair merges and thresholds; a world-1 NCCL group."""
+    from shardmerge_tpu_torch.io.safetensors_io import load_file
+
+    t_phase = time.perf_counter()
+    cfg_file = merge_config(root, "shard", dirs["base"], [(dirs["ft1"], 0.8), (dirs["ft2"], 0.4)],
+                            shard_min_bytes=SHARD_MIN_BYTES)
+    (root / "shard_dirs.json").write_text(json.dumps({k: str(v) for k, v in dirs.items()}))
+    results = launch_shard_ranks(root)
+    wall = time.perf_counter() - t_phase
+    for rank, (code, _, err) in enumerate(results):
+        if code != 0:
+            say(err[-4000:])
+            raise SystemExit(f"[shard] rank {rank} exited {code}" + (" (killed: a hang)" if code is None else ""))
+    stats = [json.loads(next(line for line in out.splitlines() if line.startswith("{"))) for _, out, _ in results]
+    found = [json.loads((root / f"shard_rank{r}.json").read_text()) for r in range(SHARD_RANKS)]
+    for rank, s in enumerate(stats):
+        r = s["ranks"]
+        say(f"[shard] rank {rank}: position {r['position']} of {r['size']}, transport {r['transport']} "
+            f"({card}); tensors split {s['tensors_sharded']}; merged {s['tensors_merged']} "
+            f"({s['tensors_passthrough']} passthrough); regimes {s['pair_merges']}; collectives "
+            + ", ".join(f"{k} {v['calls']} calls {v['bytes'] / 2**20:.1f} MiB {v['seconds']:.2f} s"
+                        for k, v in r["collectives"].items()))
+        if r["transport"] != "gloo (host-staged)" or r["size"] != SHARD_RANKS:
+            raise SystemExit(f"[shard] rank {rank} took {r['transport']} over {r['size']} ranks")
+        if s["tensors_sharded"] != 7 * LAYERS * 3:
+            raise SystemExit(f"[shard] rank {rank} split {s['tensors_sharded']} inputs, expected every projection's")
+    out = root / "shard"
+    weight_map = check_output(torch, out, dirs["base"], "[shard]")
+    agree = []
+    for shard in sorted(set(weight_map.values())):
+        ours, theirs = load_file(out / shard), load_file(merged / shard)
+        for name, t in ours.items():
+            close = torch.isclose(t.cuda().float(), theirs[name].cuda().float(), rtol=2e-2, atol=1e-6)
+            agree.append((close.double().mean().item(), name))
+    worst = min(agree)
+    if worst[0] <= 0.97:
+        raise SystemExit(f"[shard] {worst[1]}: {worst[0]:.2%} within 2e-2 of the single-device merge (gate 97%)")
+    spans = {k: v["wall_s"] for k, v in stats[0]["tensor_spans"].items() if k.startswith("model.layers.")}
+    big = [v for k, v in spans.items() if k.endswith(("gate_proj.weight", "up_proj.weight", "down_proj.weight"))]
+    say(f"[shard] the CLI on {SHARD_RANKS} ranks sharing the card ({card}): index mirrors the base, all finite "
+        f"bf16, every tensor within 2e-2 of [merge]'s single-device output at >= {worst[0]:.4%} (gate 97%, "
+        f"lowest {worst[1]}); ranks' phase wall {wall:.1f} s (two processes, incl. startup); per merged tensor "
+        f"mean {sum(spans.values()) / len(spans) * 1e3:.1f} ms (the 14336-wide projections "
+        f"{min(big) * 1e3:.1f}-{max(big) * 1e3:.1f} ms) against [merge]'s {merge_tensor_s * 1e3:.1f} ms on one rank")
+    for row in found[0]["pairs"]:
+        if row["rel_l2"] > 6e-3 or row["max_abs_over_rms"] > 0.2:
+            raise SystemExit(f"[shard] {row['tensor']} {row['regime']}: sharded round-1 pair merge leaves the "
+                             f"single-device one (relL2 {row['rel_l2']:.2e}, max-abs {row['max_abs_over_rms']:.3f} rms)")
+        sent = [f["pairs"][found[0]["pairs"].index(row)]["sent"] for f in found]
+        if any(s != row["expected"] for s in sent):
+            raise SystemExit(f"[shard] {row['tensor']} {row['regime']}: collectives sent {sent} bytes, "
+                             f"the shapes give {row['expected']}")
+        say(f"[shard] {row['tensor']} {tuple(row['shape'])} round-1 {row['regime']} across {SHARD_RANKS} ranks "
+            f"({card}): {row['ms']:.1f} ms (single device {row['single_ms']:.1f} ms); vs the single-device pair "
+            f"merge relL2 {row['rel_l2']:.2e} (tol 6e-3), max-abs {row['max_abs_over_rms']:.3f} rms (tol 0.2); "
+            f"collectives sent {row['sent'] / 2**20:.2f} MiB a rank = {row['expected'] / 2**20:.2f} MiB from "
+            f"the shapes")
+    thresholds = [t for f in found for t in f["thresholds"]]
+    unequal = [t for t in thresholds if t["bits"][0] != t["bits"][1]]
+    if unequal or not thresholds:
+        raise SystemExit(f"[shard] distributed thresholds differ from the single device's: {unequal}")
+    a2a = sorted(ms for f in found for ms, _ in f["a2a_ms"])
+    shape = found[0]["a2a_ms"][0][1]
+    say(f"[shard] {len(thresholds)} thresholds (cutoff and cull, every slerp pair, both ranks) bit-equal to the "
+        f"single device's on identical spectra; all-to-all of a rank's {shape} complex64 rows "
+        f"({shape[0] * shape[1] * 8 / 2**20:.0f} MiB, {found[0]['transport']}): median {a2a[len(a2a) // 2]:.1f} ms "
+        f"({a2a[0]:.1f}-{a2a[-1]:.1f}) over {len(a2a)} calls")
+    say(shard_nccl_world1(torch, dirs, card))
+    shutil.rmtree(out)
+    say(f"[shard] phase wall {time.perf_counter() - t_phase:.1f} s")
 
 
 def engine_tag(method: str, options: dict) -> str:
@@ -3732,11 +4060,13 @@ def main() -> int:
         dirs, shapes = write_checkpoints(torch, root)
         say(f"[checkpoints] base + 2 finetunes, {len(shapes)} tensors each, Llama-3.1-8B widths, "
             f"{LAYERS} layers, bf16, written in {time.perf_counter() - t0:.1f} s")
-        merged, _ = phase_merge(torch, root, dirs)
+        merged, merge_tensor_s = phase_merge(torch, root, dirs)
         pipeline_profile(torch, "merge 2-ft", root / "merged.json", card)
         lap("checkpoints, merge")
         stack_dirs, stack3_spans = phase_stack(torch, root, dirs, card)
         lap("stack")
+        phase_shard(torch, root, {**stack_dirs, "ft2": dirs[2]}, merged, merge_tensor_s, card)
+        lap("shard")
         phase_engines(torch, root, stack_dirs, card)
         mask_times(torch, card)
         lap("engines")
@@ -3815,4 +4145,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--shard-rank"]:
+        sys.exit(shard_rank(Path(sys.argv[2])))
     sys.exit(main())

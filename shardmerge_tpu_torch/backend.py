@@ -20,7 +20,10 @@ class BackendError(RuntimeError):
 def resolve_device(requested: Optional[str] = None) -> torch.device:
     """``cpu``/``host`` -> the CPU; anything else (None, ``cuda``,
     ``cuda:N``, a config's legacy ``tpu``) -> a CUDA device, which must
-    exist."""
+    exist. Under a process group of merge ranks (parallel/multihost.py) a
+    card request without an index takes ``cuda:LOCAL_RANK % count``, so the
+    ranks of a host spread over its GPUs (and share them when there are
+    more ranks than GPUs)."""
     req = (requested or "").strip().lower()
     if req in ("cpu", "host"):
         return torch.device("cpu")
@@ -30,6 +33,12 @@ def resolve_device(requested: Optional[str] = None) -> torch.device:
         )
     if req.startswith("cuda:"):
         return torch.device(req)
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        from .parallel.comm import local_rank
+
+        return torch.device(f"cuda:{local_rank() % torch.cuda.device_count()}")
     return torch.device("cuda:0")
 
 

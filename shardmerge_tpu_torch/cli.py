@@ -24,9 +24,19 @@ address), each a checkpoint, a PEFT LoRA adapter or a GPTQ/AWQ checkpoint.
 when it finishes. The device is a CUDA card unless ``--device cpu`` is
 given (or the config's ``device`` is ``cpu``); with no card and no such
 request the command fails instead of running on the host. Errors print
-``error: ...`` and exit 2. The mesh-sharded merge (config fields
-``shard_tensors``, ``distributed``) and tensor-parallel decoding
-(``--shard``) are refused by name.
+``error: ...`` and exit 2.
+
+``merge`` shards across the ranks a launcher started::
+
+    torchrun --nproc-per-node N -m shardmerge_tpu_torch merge cfg.yaml
+
+(or any launcher that sets the ``env://`` variables; config ``distributed:
+true`` forces the attempt). The fourier engine splits tensors of
+``shard_min_bytes`` or more over the ranks; only rank 0 writes. A plain
+``merge`` merges on one device, whatever the host's GPU count
+(``shard_tensors: false`` keeps a launched merge unsharded).
+Tensor-parallel decoding (``generate``/``serve --shard``) is not ported
+(ROADMAP A.10b) and is refused by name.
 """
 
 from __future__ import annotations
@@ -77,21 +87,6 @@ def _all_local(config: MergeConfig) -> bool:
     return local == refs
 
 
-def _check_ported(config: MergeConfig) -> None:
-    """Raise, by name, for configuration features this port does not carry
-    yet (the mesh-sharded merge)."""
-    unported = [
-        name
-        for name, on in (
-            ("shard_tensors", config.shard_tensors),
-            ("distributed", config.distributed),
-        )
-        if on
-    ]
-    if unported:
-        raise NotImplementedError(f"config fields not ported yet: {unported}")
-
-
 def merge_class(config: MergeConfig):
     """The engine class of ``config.merge_method``, its ``method_options``
     checked against the engine's OPTIONS (ConfigError otherwise)."""
@@ -113,10 +108,13 @@ def merge_class(config: MergeConfig):
     return merge_cls
 
 
-def _index_for(config: MergeConfig, clean_cache: bool, token: Optional[str]):
+def _index_for(config: MergeConfig, clean_cache: bool, token: Optional[str], ranks: bool = False):
     """(index, download manager or None): the offline index when every
     reference is a local directory, else the Hub index (which takes local
-    directories too)."""
+    directories too). Under merge ranks (``ranks``) the storage directory
+    is the host's: its local rank 0 downloads each file and the host's
+    other ranks wait for it, and ``clean_cache`` is refused (a rank must
+    not delete a shard another rank has yet to read)."""
     from .io.index import HFMultiModelIndex, OfflineMultiModelIndex
 
     if _all_local(config):
@@ -124,13 +122,30 @@ def _index_for(config: MergeConfig, clean_cache: bool, token: Optional[str]):
         return OfflineMultiModelIndex(), None
     from .io.download import DownloadManager
 
+    role = "alone"
+    if ranks:
+        from .parallel.comm import local_rank
+
+        if clean_cache:
+            raise ConfigError(
+                "clean_cache is not supported with several merge ranks: the ranks of a host read every "
+                "downloaded shard from one storage_dir, and none may delete a shard another has yet to "
+                "read; drop --clean_cache/clean_cache and delete storage_dir after the merge"
+            )
+        role = "follow" if local_rank() != 0 else "lead"
     manager = DownloadManager(storage_path=config.storage_path, clean_cache=clean_cache,
-                              max_retries=3, token=token)
+                              max_retries=3, token=token, role=role)
+    if ranks:
+        import torch.distributed as dist
+
+        if role == "lead":
+            manager.clear_failure_notes()
+        dist.barrier()  # no rank waits on a download before its host's notes are cleared
     manager.add_progress_callback(progress_callback)
     return HFMultiModelIndex(download_manager=manager, cache_path=config.cache_path, token=token), manager
 
 
-def _print_plan(merger, config: MergeConfig):
+def _print_plan(merger, config: MergeConfig, comm=None):
     """Resolve the indexes and print the merge plan; the planning writer is
     read-only, so nothing is created in the output location."""
     from .io.writer import ModelWriter
@@ -147,6 +162,9 @@ def _print_plan(merger, config: MergeConfig):
     print(f"  output: {config.output_path} ({shards} shards, {len(layers)} tensors, dtype {config.output_dtype})")
     if done:
         print(f"  resume: {done}/{len(layers)} tensors already written (will be skipped)")
+    if comm is not None:
+        print(f"  mesh: {comm.size} ranks over {comm.transport}; tensors >= {config.shard_min_bytes} bytes "
+              "row-shard (pad if needed)")
     print("  models: " + ", ".join(f"{m.model} (base {m.base}, alpha {m.alpha})" for m in config.finetune_merge))
     print("  gates: " + (", ".join(
         f"{m.model}[{m.start_layer}:{m.end_layer}]"
@@ -168,20 +186,42 @@ def run_merge(config: MergeConfig, device: Optional[str] = None, clean_cache: bo
     and every download at the end."""
     from .merge import FourierMerge
 
-    _check_ported(config)
     merge_cls = merge_class(config)
-    dev = resolve_device(device or config.device)
+    request = device or config.device
+    ranks = False
+    if config.shard_tensors is not False:
+        from .parallel.multihost import initialize_distributed
+
+        # ranks a launcher started join here (a no-op for a plain run), so
+        # the device below is this rank's
+        ranks = initialize_distributed(force=config.distributed, device=request)
+    dev = resolve_device(request)
     logger.info("merge device: %s", dev)
+    comm = None
     if merge_cls is FourierMerge:
+        if ranks:
+            from .parallel.multihost import merge_mesh
+
+            comm = merge_mesh(dev)
+            logger.info("Sharding tensors >= %d bytes over %d ranks on %d host(s) over %s",
+                        config.shard_min_bytes, comm.size, comm.hosts, comm.transport)
+        elif config.shard_tensors:
+            logger.info("shard_tensors requested but only one rank is running; every tensor merges on %s "
+                        "(launch with torchrun --nproc-per-node N to shard)", dev)
         engine_options.update(
             exact_imag=config.exact_imag,
             hbm_budget_bytes=(
                 int(config.hbm_budget_gb * 2**30) if config.hbm_budget_gb is not None else None
             ),
+            comm=comm,
+            shard_min_bytes=config.shard_min_bytes,
         )
+    elif ranks:
+        logger.info("merge_method %r does not shard: every rank merges every tensor, rank 0 writes",
+                    config.merge_method)
     elif config.exact_imag or config.hbm_budget_gb is not None:
         logger.warning("exact_imag and hbm_budget_gb apply to merge_method 'fourier' only")
-    index, manager = _index_for(config, clean_cache, token)
+    index, manager = _index_for(config, clean_cache, token, ranks)
     try:
         try:
             merger = merge_cls(config, index_manager=index, device=dev,
@@ -189,7 +229,7 @@ def run_merge(config: MergeConfig, device: Optional[str] = None, clean_cache: bo
         except ValueError as e:  # ConfigError included
             raise ConfigError(str(e)) from e
         if dry_run:
-            _print_plan(merger, config)
+            _print_plan(merger, config, comm)
         else:
             merger.merge()
     finally:
@@ -223,7 +263,10 @@ def _merge(args) -> int:
     if args.dry_run:
         return 0
     quantized = None
-    if args.output_quant:
+    from .merge.base import is_primary
+
+    # under merge ranks only rank 0 writes, the quantized artifact too
+    if args.output_quant and is_primary():
         from .tools.quantize_checkpoint import quantize_checkpoint
 
         bits = int(args.output_quant.removeprefix("int"))
@@ -247,6 +290,7 @@ def _merge(args) -> int:
                 "h2d_bytes": s.h2d_bytes,
                 "prefetch_device_hits": s.prefetch_device_hits,
                 "prefetch_failures": s.prefetch_failures,
+                "tensors_sharded": s.tensors_sharded,
                 "span_fetch_s": s.span_fetch_s,
                 "span_h2d_s": s.span_h2d_s,
                 "span_merge_s": s.span_merge_s,
@@ -254,11 +298,22 @@ def _merge(args) -> int:
                 "host_work": {k: {"tensors": n, "seconds": t} for k, (n, t) in index.host_work.items()},
                 "downloads": {"bytes": s.download_bytes, "wall_s": s.download_wall_s},
                 "output_quant": quantized,
+                "ranks": _ranks_summary(getattr(merger, "comm", None)),
                 "tensor_spans": merger.tensor_spans,
             }
         )
     )
     return 0
+
+
+def _ranks_summary(comm):
+    """The merge ranks of a sharded run: their count, position, transport
+    and per-collective [calls, bytes this rank sent, host seconds]; None
+    for a run on one rank."""
+    if comm is None:
+        return None
+    return {"size": comm.size, "position": comm.position, "hosts": comm.hosts, "transport": comm.transport,
+            "collectives": {k: {"calls": c, "bytes": b, "seconds": t} for k, (c, b, t) in comm.stats.items()}}
 
 
 def _copy_model(args) -> int:
@@ -277,7 +332,7 @@ def _refuse(**options) -> None:
     """Raise, by name, for options whose features are not ported yet."""
     unported = [name for name, on in options.items() if on]
     if unported:
-        raise NotImplementedError(f"options not ported yet: {', '.join(unported)}")
+        raise NotImplementedError(f"options not ported yet (ROADMAP A.10b): {', '.join(unported)}")
 
 
 def _generate(args) -> int:
@@ -478,7 +533,8 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--draft-model", type=_existing, default=None,
                    help="smaller same-vocab checkpoint for speculative decoding (greedy only; same tokens)")
     g.add_argument("--speculation-k", type=int, default=4, help="speculative tokens per round")
-    g.add_argument("--shard", action="store_true", help="not ported yet")
+    g.add_argument("--shard", action="store_true",
+                   help="tensor-parallel decoding: not ported yet (ROADMAP A.10b), refused")
     g.add_argument("--decode-chunk", type=_int_range(1, 64), default=1,
                    help="decode steps per engine call (the same tokens; S-token emission)")
     g.add_argument("--verbose", action="store_true")
@@ -516,7 +572,8 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--draft-model", type=_existing, default=None,
                    help="speculative-decoding draft checkpoint (greedy requests)")
     s.add_argument("--speculation-k", type=int, default=4, help="speculative tokens per round")
-    s.add_argument("--shard", action="store_true", help="not ported yet")
+    s.add_argument("--shard", action="store_true",
+                   help="tensor-parallel serving: not ported yet (ROADMAP A.10b), refused")
     s.add_argument(
         "--prefix-cache", type=_int_range(0, 64), default=0,
         help="keep N prompt-prefix KV slabs on the device: single-prompt requests sharing "

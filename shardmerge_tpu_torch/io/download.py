@@ -15,6 +15,13 @@ up is deleted (``release``, or ``get_file`` as in the JAX package), and
 Every request carries the resolved HuggingFace token (``--token``,
 ``HF_TOKEN``/``HUGGING_FACE_HUB_TOKEN``, then the stored
 ``huggingface-cli login``).
+
+Merge ranks that share a host share its storage: one of them (``role``
+"lead", local rank 0) transfers each file and leaves a failure note
+``<name>.failed`` beside a file it could not fetch; the others ("follow")
+transfer nothing and wait for the file to be renamed into place, or for
+the note. A follower deletes nothing, so ``clean_cache`` is refused with
+it.
 """
 
 from __future__ import annotations
@@ -45,6 +52,7 @@ __all__ = [
 ]
 
 _CHUNK_SIZE = 1 << 20  # 1 MiB
+_POLL_S = 0.05  # a follower's look for the leader's file
 
 
 def resolve_hf_token(token: Optional[str] = None) -> Optional[str]:
@@ -142,7 +150,13 @@ class DownloadManager:
         max_concurrent: int = 8,
         token: Optional[str] = None,
         sleep: Callable[[float], None] = time.sleep,
+        role: str = "alone",
     ):
+        if role not in ("alone", "lead", "follow"):
+            raise ValueError(f"role {role!r}: expected 'alone', 'lead' or 'follow'")
+        if role == "follow" and clean_cache:
+            raise ValueError("a following download manager deletes nothing: clean_cache is the leader's alone")
+        self.role = role
         self.storage_path = Path(storage_path)
         self.progress_interval = progress_interval
         self.last_progress_time = 0.0
@@ -195,9 +209,13 @@ class DownloadManager:
         if task.done.is_set():
             self._check_progress(force=True)
             return True
-        logger.info("Starting download of %s to %s", uri, dest)
-        threading.Thread(target=self._download_file, args=(task,), daemon=True,
-                         name=f"download-{dest.name}").start()
+        follow = self.role == "follow"
+        if follow:
+            logger.info("Waiting for the host's downloading rank to fetch %s to %s", uri, dest)
+        else:
+            logger.info("Starting download of %s to %s", uri, dest)
+        threading.Thread(target=self._await_file if follow else self._download_file, args=(task,),
+                         daemon=True, name=f"download-{dest.name}").start()
         return False
 
     def wait(self, partition: str, uri: str, timeout: Optional[float] = None) -> DownloadTask:
@@ -276,7 +294,17 @@ class DownloadManager:
                     logger.info("Removing cache file: %s", task.path)
                     task.path.unlink()
 
+    def clear_failure_notes(self):
+        """Delete the failure notes an earlier run left in storage (the
+        leader does, before any follower waits on a note)."""
+        for note in self.storage_path.rglob("*.failed"):
+            note.unlink(missing_ok=True)
+
     # -- transfer ------------------------------------------------------------
+
+    @staticmethod
+    def _failure_note(path: Path) -> Path:
+        return path.with_suffix(path.suffix + ".failed")
 
     def _transfer(self, task: DownloadTask, temp_path: Path):
         with self._slots, http_get(task.uri, self.headers, self.http_timeout) as response:
@@ -297,6 +325,9 @@ class DownloadManager:
 
     def _download_file(self, task: DownloadTask):
         temp_path = task.path.with_suffix(task.path.suffix + ".tmp")
+        note = self._failure_note(task.path)
+        if self.role == "lead":
+            note.unlink(missing_ok=True)
         with self._lock:
             if self.first_start is None:
                 self.first_start = time.perf_counter()
@@ -329,11 +360,48 @@ class DownloadManager:
             task.error = str(e)
             logger.error("Download failed for %s: %s", task.uri, e)
             temp_path.unlink(missing_ok=True)
+            if self.role == "lead":
+                # followers on this host wait on the file: tell them it is not coming
+                note_tmp = note.with_suffix(".failed.tmp")
+                note_tmp.write_text(str(e))
+                os.replace(note_tmp, note)
         finally:
             try:
                 self._check_progress(force=True)
             finally:
                 task.done.set()
+
+    def _await_file(self, task: DownloadTask):
+        """A follower's transfer: wait until the leader has renamed the file
+        into place whole. Fails on the leader's failure note, or when its
+        transfer shows no progress for ``http_timeout`` seconds (the
+        leader's own socket timeout)."""
+        temp_path = task.path.with_suffix(task.path.suffix + ".tmp")
+        note = self._failure_note(task.path)
+        task.status = DownloadStatus.DOWNLOADING
+        seen, since = None, time.monotonic()
+        try:
+            while not task.path.exists():
+                if note.exists():
+                    raise RuntimeError(f"the host's downloading rank failed: {note.read_text()}")
+                try:
+                    size = temp_path.stat().st_size
+                except OSError:  # not begun, or just renamed
+                    size = None
+                if size != seen:
+                    seen, since = size, time.monotonic()
+                elif time.monotonic() - since > self.http_timeout:
+                    raise TimeoutError(f"the host's downloading rank made no progress on {task.uri} "
+                                       f"in {self.http_timeout:.0f} s")
+                time.sleep(_POLL_S)
+            task.total_size = task.downloaded = task.path.stat().st_size
+            task.status = DownloadStatus.COMPLETED
+        except Exception as e:
+            task.status = DownloadStatus.FAILED
+            task.error = str(e)
+            logger.error("Download failed for %s: %s", task.uri, e)
+        finally:
+            task.done.set()
 
     def _check_progress(self, force: bool = False):
         now = time.time()

@@ -158,6 +158,15 @@ def _single_file_index(model_path: Path) -> dict:
     return _header_index(read_header(model_path / "model.safetensors")[0])
 
 
+def _write_whole(path: Path, data: bytes) -> None:
+    """``data`` into ``path``, which appears whole: written under a name of
+    this process's own, then renamed (the merge ranks of one host may
+    write the same file at once)."""
+    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+    tmp.write_bytes(data)
+    os.replace(tmp, path)
+
+
 class OfflineMultiModelIndex:
     """Index over local model directories; a model is known by its
     directory name and by the path strings used to add it."""
@@ -571,9 +580,7 @@ class HFMultiModelIndex(OfflineMultiModelIndex):
             else:
                 index = json.loads(text)
                 logger.info("Fetched index for model %s", ref)
-            tmp = index_file.with_suffix(".json.tmp")
-            tmp.write_bytes(text)
-            tmp.rename(index_file)
+            _write_whole(index_file, text)
         self._revisions[ref] = revision
         index = self._maybe_register_hub_packed(ref, revision, model_path, index)
         self._register_index(ref, index)
@@ -596,9 +603,7 @@ class HFMultiModelIndex(OfflineMultiModelIndex):
                                "the format; registering it raw", ref)
                 return index
             cfg_doc = json.loads(body)
-            tmp = model_path / "config.json.tmp"
-            tmp.write_text(json.dumps(cfg_doc))
-            tmp.rename(cfg_file)
+            _write_whole(cfg_file, json.dumps(cfg_doc).encode())
         info = packed_quant_info(cfg_doc.get("quantization_config") or {})
         if info is None:
             return index
@@ -645,9 +650,7 @@ class HFMultiModelIndex(OfflineMultiModelIndex):
             data = self._get(self._shard_url(ref, name))
             if data is None:
                 raise FileNotFoundError(f"{ref}: no {name} at revision {revision!r}")
-            tmp = model_path / (name + ".tmp")
-            tmp.write_bytes(data)
-            tmp.rename(model_path / name)
+            _write_whole(model_path / name, data)
         logger.info("Fetched LoRA adapter files for %s", ref)
 
     def _register_hub_adapter(self, ref: str, model_path: Path) -> None:

@@ -10,8 +10,9 @@ resumable.
 ``write_through=True`` rewrites a tensor's shard as soon as the tensor
 arrives, merged with what is already on disk (a cut merge then loses at most
 the tensors in flight, at the cost of rewriting the shard per tensor).
-``read_only=True`` (a dry run's plan) creates nothing: no directory, no
-index. ``background_flush=True`` writes shards on one worker thread, so file IO
+``read_only=True`` (a dry run's plan, a merge rank other than rank 0)
+creates and writes nothing: no directory, no index, no shard; its tensors
+are only marked written. ``background_flush=True`` writes shards on one worker thread, so file IO
 overlaps the merge; ``drain``/``finalize`` wait for it. A save that fails
 drops the file and unmarks its staged tensors, and ``finalize`` reports them
 missing.
@@ -137,6 +138,8 @@ class ModelWriter:
     def _flush_shard(self, shard_name: str):
         with self._state_lock:
             staged = self._pending.pop(shard_name, {})
+        if self.read_only:
+            return
         if self._executor is None:
             self._save(shard_name, staged)
         else:

@@ -40,7 +40,20 @@ the bf16 inputs of this layer and the staged next one 2 (N + 1) halves.
   inputs.
 
 So there is no size routing: a merge that does not fit sets
-``hbm_budget_gb`` (or ``device_prefetch_depth=0``).
+``hbm_budget_gb`` (or ``device_prefetch_depth=0``), or shards over several
+GPUs (below).
+
+Across merge ranks (an engine's ``_sharding_for`` returning a
+:class:`Placement`), each rank copies only its own rows of a split tensor to
+its device, zero-padded where the rows do not divide the ranks: the demand
+fetch and the read-ahead staging alike (every rank reads the input shards
+on its own host, as in the JAX package). A split result is gathered to rank
+0 in row blocks of at most ``SHARDMERGE_GATHER_BLOCK_BYTES`` (default 256
+MiB) at write-back, and the other ranks keep no copy. Only rank 0 writes:
+the others' writers are read_only, and the README is rank 0's. Every
+collective runs on the merge thread in layer order (the merge, then the
+gather); the read-ahead workers and the writer's thread run none. Engines
+that never shard run redundantly on every rank, and rank 0 writes.
 
 A GPTQ or AWQ finetune reaches the merge decoded to f32 (``io/index.py``,
 on a read-ahead worker), twice a bf16 input's bytes, so its inputs term is
@@ -89,10 +102,13 @@ bf16 inputs and the staged next layer 17 GB):
 from __future__ import annotations
 
 import logging
+import math
+import os
 import threading
 import time
 from abc import ABC, abstractmethod
 from concurrent.futures import Future, ThreadPoolExecutor
+from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -118,6 +134,53 @@ def _f32(value, device):
     if device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t
+
+
+@dataclass(frozen=True)
+class Placement:
+    """A tensor split over the merge ranks of ``comm`` (parallel/comm.py):
+    ``"rows"`` (2-D, by rows, zero-padded to a multiple of the ranks) or
+    ``"lead"`` (ndim >= 3, by the leading dim, which divides the ranks).
+    ``shape`` is the whole tensor's true shape."""
+
+    comm: object
+    kind: str
+    shape: tuple
+
+    @property
+    def pad(self) -> int:
+        """Zero rows appended to the whole tensor (rows only)."""
+        return -self.shape[0] % self.comm.size if self.kind == "rows" else 0
+
+    @property
+    def true_m(self) -> Optional[int]:
+        """The true row count when rows were padded, else None."""
+        return self.shape[0] if self.pad else None
+
+    @property
+    def numel(self) -> int:
+        return math.prod(self.shape)
+
+    def local(self, host: torch.Tensor) -> torch.Tensor:
+        """This rank's share of the whole host tensor: a view of its rows,
+        or a zero-padded copy for a rank whose block crosses the end."""
+        m = (self.shape[0] + self.pad) // self.comm.size
+        r0 = self.comm.position * m
+        if r0 + m <= self.shape[0]:
+            return host[r0:r0 + m]
+        out = torch.zeros((m,) + tuple(host.shape[1:]), dtype=host.dtype, device=host.device,
+                          pin_memory=host.is_pinned())
+        if r0 < self.shape[0]:
+            out[:self.shape[0] - r0].copy_(host[r0:])
+        return out
+
+
+def is_primary() -> bool:
+    """Whether this process writes output: rank 0 of a process group, or
+    the only process."""
+    import torch.distributed as dist
+
+    return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
 
 
 class MergeTensorsBase(ABC):
@@ -165,6 +228,9 @@ class MergeTensorsBase(ABC):
         self._pool: Optional[ThreadPoolExecutor] = None
         self._copy_stream = None
         self._stats_lock = threading.Lock()
+        # tensor name -> its Placement over the merge ranks, for the layer
+        # being merged (set by its fetches, taken by the write-back)
+        self._placements: Dict[str, Placement] = {}
 
     @abstractmethod
     def get_readme(self) -> str:
@@ -173,6 +239,12 @@ class MergeTensorsBase(ABC):
     @abstractmethod
     def _merge_layer(self, shard_layer: ShardLayer) -> torch.Tensor:
         """The merged tensor for one layer (on the device or the host)."""
+
+    def _sharding_for(self, host: torch.Tensor) -> Optional[Placement]:
+        """How a host tensor is split over the merge ranks; None: whole on
+        this rank's device. Engines that shard override it (a pure function
+        of the tensor: read-ahead workers call it too)."""
+        return None
 
     # -- tensors onto the device ---------------------------------------------
 
@@ -187,8 +259,8 @@ class MergeTensorsBase(ABC):
             self.stats.h2d_dedup_hits += 1
             return cached
         t0 = time.perf_counter()
-        placed = self._take_staged(key)
-        if placed is None:
+        staged = self._take_staged(key)
+        if staged is None:
             read = self._reads.get(key)
             # a read-ahead in flight is waited for; one that failed or was
             # dropped gave None, and the demand read retries it
@@ -197,17 +269,25 @@ class MergeTensorsBase(ABC):
                 host = self.index_manager.get_tensor(model_uri, tensor_name)
             t1 = time.perf_counter()
             self.stats.span_fetch_s += t1 - t0
+            placement = self._sharding_for(host)
+            if placement is not None:
+                host = placement.local(host)
             placed = host.to(self.device, non_blocking=True)
             self.stats.span_h2d_s += time.perf_counter() - t1
             self.stats.h2d_bytes += host.nbytes
         else:
+            placed, placement = staged
             self.stats.span_fetch_s += time.perf_counter() - t0
+        if placement is not None:
+            self._placements[tensor_name] = placement
+            self.stats.tensors_sharded += 1
         self._placed[key] = placed
         return placed
 
-    def _take_staged(self, key) -> Optional[torch.Tensor]:
-        """A device-staged read-ahead of ``key``, made safe for the merge
-        stream, or None (none issued, dropped, or failed)."""
+    def _take_staged(self, key) -> Optional[Tuple[torch.Tensor, Optional[Placement]]]:
+        """A device-staged read-ahead of ``key`` (with its placement), made
+        safe for the merge stream, or None (none started, dropped, or
+        failed)."""
         staged = self._staged.pop(key, None)
         if staged is None:
             return None
@@ -221,13 +301,13 @@ class MergeTensorsBase(ABC):
             return None
         if got is None:
             return None
-        tensor, copied = got
+        tensor, copied, placement = got
         stream = torch.cuda.current_stream(self.device)
         stream.wait_event(copied)
         tensor.record_stream(stream)
         self.stats.prefetch_device_hits += 1
         self.stats.h2d_bytes += tensor.nbytes
-        return tensor
+        return tensor, placement
 
     def get_base_output_tensor(self, shard_layer: ShardLayer) -> torch.Tensor:
         """Output-base tensor in f32."""
@@ -367,9 +447,9 @@ class MergeTensorsBase(ABC):
         return host
 
     def _stage(self, key, read: Future) -> Future:
-        """A future of (device tensor, copy event), issued on the copy
-        stream once the host read lands (in the reading thread, or here if it
-        already has)."""
+        """A future of (device tensor, copy event, placement), started on the
+        copy stream once the host read lands (in the reading thread, or here
+        if it already has); a split tensor stages this rank's rows only."""
         staged: Future = Future()
 
         def on_read(done: Future):
@@ -381,6 +461,9 @@ class MergeTensorsBase(ABC):
                 staged.set_result(None)
                 return
             try:
+                placement = self._sharding_for(host)
+                if placement is not None:
+                    host = placement.local(host)
                 with torch.cuda.stream(self._copy_stream):
                     tensor = host.to(self.device, non_blocking=True)
                     copied = torch.cuda.Event()
@@ -388,7 +471,7 @@ class MergeTensorsBase(ABC):
             except Exception as e:  # e.g. out of device memory: demand read
                 staged.set_exception(e)
                 return
-            staged.set_result((tensor, copied))
+            staged.set_result((tensor, copied, placement))
 
         read.add_done_callback(on_read)
         return staged
@@ -418,14 +501,7 @@ class MergeTensorsBase(ABC):
         """Run the whole merge; tensors already in the output are skipped."""
         self.initialize()
         layer_order = self.index_manager.get_layer_order(self.config.output_base_model)
-        writer = ModelWriter(
-            base_index=self.index_doc,
-            output_path=self.config.output_path,
-            layer_order=layer_order,
-            output_astype=self.config.output_astype,
-            write_through=self.config.write_through,
-            background_flush=self.background_flush,
-        )
+        writer = self._open_writer(layer_order)
         # one pipeline over every shard's pending tensors: read-ahead
         # crosses shard boundaries (the writer still completes shards in
         # order, as each one's last tensor arrives)
@@ -444,10 +520,41 @@ class MergeTensorsBase(ABC):
                 self._pool = None
             self._reads.clear()
             self._staged.clear()
-        (self.config.output_path / "README.md").write_text(self.get_readme())
+        if is_primary():
+            (self.config.output_path / "README.md").write_text(self.get_readme())
         logger.info("Merge complete. Output saved to %s", self.config.output_path)
         logger.info("Merge stats: %s", self.stats.summary())
         return self.stats
+
+    def _open_writer(self, layer_order: List[str]) -> ModelWriter:
+        """The output writer: rank 0's writes, every other rank's is
+        read_only. Under a process group every rank derives its skip list
+        (the tensors already written) before rank 0 writes anything: rank 0
+        opens first (creating the directory and the index), then the others
+        read the output, then the merge starts (two barriers)."""
+        import torch.distributed as dist
+
+        primary = is_primary()
+
+        def open_():
+            return ModelWriter(
+                base_index=self.index_doc,
+                output_path=self.config.output_path,
+                layer_order=layer_order,
+                output_astype=self.config.output_astype,
+                write_through=self.config.write_through,
+                background_flush=self.background_flush,
+                read_only=not primary,
+            )
+
+        if primary and not (dist.is_available() and dist.is_initialized()):
+            return open_()
+        writer = open_() if primary else None
+        dist.barrier()
+        if not primary:
+            writer = open_()
+        dist.barrier()
+        return writer
 
     def _process_layers(self, writer: ModelWriter, shard_layers: List[ShardLayer]):
         """Merge layer i while layers i+1..i+prefetch_depth are read (the
@@ -469,7 +576,7 @@ class MergeTensorsBase(ABC):
             merge_s = time.perf_counter() - t0
             self.stats.span_merge_s += merge_s
             self._release_placed(name)
-            host, copied = self._to_host(out)
+            host, copied = self._to_host(out, self._placements.pop(name, None))
             spans = {
                 "wall_s": time.perf_counter() - t0,
                 "read_s": self.stats.span_fetch_s - read0,
@@ -482,11 +589,21 @@ class MergeTensorsBase(ABC):
         if pending is not None:
             self._flush(writer, pending)
 
-    def _to_host(self, out: torch.Tensor):
+    def _to_host(self, out: torch.Tensor, placement: Optional[Placement] = None):
         """(host tensor, copy event): a device result is cast to the output
         dtype on the device (the writer's rounding, done before the copy) and
         copied to page-locked memory without blocking; a host one is passed
-        on."""
+        on. A split result (``placement``) is gathered to rank 0 in row
+        blocks (a collective, on the merge thread in layer order); the other
+        ranks get a zero-stride stand-in of its shape (their writer is
+        read_only) and keep no copy."""
+        if placement is not None:
+            out = out.to(self.config.output_astype)
+            limit = int(os.environ.get("SHARDMERGE_GATHER_BLOCK_BYTES", 256 << 20))
+            whole = placement.comm.gather_rows(out, limit)
+            if whole is None:
+                return torch.zeros((), dtype=out.dtype).expand(placement.shape), None
+            return whole[:placement.shape[0]], None
         if out.device.type != "cuda":
             return out, None
         out = out.to(self.config.output_astype)

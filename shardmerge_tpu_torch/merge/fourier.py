@@ -31,6 +31,20 @@ until the tensor's write-back (``_check_deferred``), which still aborts
 before it is written.
 Large 2-D tensors take the rfft half-spectrum path with the analytic
 fast-imag identity (see ``_FAST_IMAG_MIN_NUMEL``).
+
+Across merge ranks (``comm``, parallel/comm.py; the JAX engine's ``mesh``),
+tensors of ``shard_min_bytes`` or more, or of ``huge_tensor_numel``
+elements, are split over the ranks (``_sharding_for``): 2-D tensors by rows
+(zero-padded to a multiple of the ranks) when the columns divide the ranks,
+merged by the distributed-FFT pair merges of parallel/merge.py; ndim >= 3
+stacks by their leading dim when it divides the ranks, merged by the
+single-device pair merges with every FFT rank-local and every reduction
+all-reduced. Every reduction the JAX engine gets from GSPMD is written out:
+the delta norms, the merged entries' norms, the pair merges' NaN counts and
+Inf flags and ``_finalize``'s Inf flag are global, so every rank takes the
+same regimes and raises at the same tensor. On ranks every tensor takes the
+stack path (no fused path, no ``batch_rounds``), as in the JAX engine on a
+mesh.
 """
 
 from __future__ import annotations
@@ -48,7 +62,8 @@ from ..constants import INPUT_LAYER, OUTPUT_LAYER
 from ..io.writer import ShardLayer
 from ..ops import blend
 from ..ops.pairing import correlated_pairs, norm_product_matrix
-from .base import MergeTensorsBase, _f32
+from ..parallel import merge as pmerge
+from .base import MergeTensorsBase, Placement, _f32
 
 logger = logging.getLogger(__name__)
 
@@ -64,8 +79,11 @@ _FAST_IMAG_MIN_NUMEL = 1 << 20
 FUSED_REGIMES = ("add", "arith", "slerp-early", "lowratio", "slerp")
 
 
-def _use_fast_imag(exact_imag: bool, arr: torch.Tensor) -> bool:
-    return (not exact_imag) and arr.ndim >= 2 and arr.numel() >= _FAST_IMAG_MIN_NUMEL
+def _use_fast_imag(exact_imag: bool, arr: torch.Tensor, numel: Optional[int] = None) -> bool:
+    """``numel``: the whole tensor's element count when ``arr`` is one
+    rank's share of it."""
+    numel = arr.numel() if numel is None else numel
+    return (not exact_imag) and arr.ndim >= 2 and numel >= _FAST_IMAG_MIN_NUMEL
 
 
 def _rfft2(x):
@@ -82,12 +100,10 @@ def _fft_stack(x):
     return torch.fft.fft(x, dim=-1) if x.ndim == 2 else torch.fft.fftn(x, dim=(-2, -1))
 
 
-def _scrub(merged, target_norm):
-    """NaN -> 0 (counted), Inf flagged, then rescale to target_norm."""
-    nan = torch.isnan(merged)
-    nan_count = nan.sum()
-    merged = merged.masked_fill(nan, 0.0)
-    has_inf = torch.isinf(merged).any()
+def _scrub(merged, target_norm, group=None):
+    """NaN -> 0 (counted), Inf flagged, then rescale to target_norm; with
+    ``group`` the count and the flag are global."""
+    merged, nan_count, has_inf = blend._scrub_nans(merged, group)
     return merged * target_norm, nan_count, has_inf
 
 
@@ -117,9 +133,11 @@ def _forward(regime, a, b, scalars, fast, batched=False):
     return fft(a / norm_a), fft(b / norm_b)
 
 
-def _inverse(regime, spectra, shape, t, ranks, target_norm, fast, *, use_cull, use_cutoff=True):
+def _inverse(regime, spectra, shape, t, ranks, target_norm, fast, *, use_cull, use_cutoff=True, group=None):
     """The inverse half of ONE pair merge, from its spectra (``_forward``):
-    (merged, nan_count, has_inf), the last two None for arith.
+    (merged, nan_count, has_inf), the last two None for arith. With
+    ``group`` the entries are one rank's leading-dim share of a stack: the
+    reductions (and the NaN count and Inf flag) are global.
 
     - arith: sign-agreement FFT arithmetic at t=1, with the double-FFT
       imaginary recursion on the exact path; on the half spectrum the
@@ -145,23 +163,25 @@ def _inverse(regime, spectra, shape, t, ranks, target_norm, fast, *, use_cull, u
         result = blend.interpolate_half_spectrum(
             h0, h1, t, 1.0, *ranks,
             blend.hermitian_col_weights(shape[-1], device=h0.device),
-            use_cutoff=use_cutoff, use_cull=use_cull,
+            use_cutoff=use_cutoff, use_cull=use_cull, group=group,
         )
         merged = _irfft2(result, shape)
     else:
         f0, f1 = spectra
         result = blend.interpolate_fft_components(
-            f0, f1, t, 1.0, *ranks, use_cutoff=use_cutoff, use_cull=use_cull, interp_imag=True
+            f0, f1, t, 1.0, *ranks, use_cutoff=use_cutoff, use_cull=use_cull, interp_imag=True, group=group
         )
         merged = blend.ifft2_real(result)
-    return _scrub(merged, target_norm)
+    if group is None:
+        return _scrub(merged, target_norm)
+    return _scrub(merged, target_norm, group)
 
 
-def _pair(regime, a, b, scalars, ranks, target_norm, fast, *, use_cull, use_cutoff=True):
+def _pair(regime, a, b, scalars, ranks, target_norm, fast, *, use_cull, use_cutoff=True, group=None):
     """One pair merge of regime arith, lowratio or slerp (``_inverse``)."""
     spectra = _forward(regime, a, b, scalars, fast)
     return _inverse(regime, spectra, a.shape, scalars[-1], ranks, target_norm, fast,
-                    use_cull=use_cull, use_cutoff=use_cutoff)
+                    use_cull=use_cull, use_cutoff=use_cutoff, group=group)
 
 
 def _pair_lowratio(a, b, norm_a, norm_b, t, target_norm):
@@ -192,11 +212,14 @@ def _ranks(numel: int, cull_pct: float):
     )
 
 
-def _finalize(base32, delta):
-    """base + delta, NaN -> 0, Inf flag, bfloat16."""
+def _finalize(base32, delta, group=None):
+    """base + delta, NaN -> 0, Inf flag (over ``group``'s ranks), bfloat16."""
     result = base32 + delta
     result = result.masked_fill(torch.isnan(result), 0.0)
-    return result.to(torch.bfloat16), torch.isinf(result).any()
+    has_inf = torch.isinf(result).any()
+    if group is not None:
+        has_inf = group.all_reduce(has_inf.to(torch.int64)) > 0
+    return result.to(torch.bfloat16), has_inf
 
 
 def _fused_single(out_base, ft_base, ft):
@@ -298,9 +321,14 @@ def clamp(value: float, min_value: float, max_value: float) -> float:
     return max(min_value, min(value, max_value))
 
 
-def _batched_norms(arrays: List[torch.Tensor]) -> List[float]:
-    """f32 norms of same-shaped tensors, read back with one host sync."""
-    return torch.stack([torch.linalg.vector_norm(a.reshape(-1)) for a in arrays]).tolist()
+def _batched_norms(arrays: List[torch.Tensor], group=None) -> List[float]:
+    """f32 norms of same-shaped tensors, read back with one host sync; with
+    ``group`` the arrays are one rank's shares and the norms global (one
+    all-reduce of the squares)."""
+    norms = torch.stack([torch.linalg.vector_norm(a.reshape(-1)) for a in arrays])
+    if group is not None:
+        norms = group.all_reduce(norms.square()).sqrt()
+    return norms.tolist()
 
 
 def _select_regime(norm_a, norm_b, a_weight, b_weight, target_norm):
@@ -360,6 +388,10 @@ def _host_copy(t: torch.Tensor) -> torch.Tensor:
 class FourierMerge(MergeTensorsBase):
     """The default merge engine: base + any number of finetunes."""
 
+    # across ranks, tensors of this many elements split whatever their bytes:
+    # the JAX engine's bound for a tensor too large to merge on one chip
+    huge_tensor_numel = 1 << 29
+
     # same-regime pairs per batched dispatch (batch_rounds): bounds the
     # stacked operands' copy
     _BATCH_CHUNK = 4
@@ -375,6 +407,8 @@ class FourierMerge(MergeTensorsBase):
         exact_imag: bool = False,
         hbm_budget_bytes: Optional[int] = None,
         batch_rounds: bool = False,
+        comm=None,
+        shard_min_bytes: int = 1 << 30,
         **pipeline,
     ):
         super().__init__(config, index_manager, device=device, **pipeline)
@@ -398,9 +432,34 @@ class FourierMerge(MergeTensorsBase):
         # a round's same-regime pairs share their forward FFTs (same bits on
         # the host)
         self.batch_rounds = batch_rounds
+        # the merge ranks (parallel/comm.py) and the sharding trigger in
+        # input bytes (the other is huge_tensor_numel)
+        self.comm = comm
+        self.shard_min_bytes = shard_min_bytes
         # layer name -> ([(nan_count, pair_inf)], final_inf) device scalars,
         # read back once at write time
         self._deferred: Dict[str, tuple] = {}
+
+    def _sharding_for(self, host: torch.Tensor) -> Optional[Placement]:
+        comm = self.comm
+        if comm is None or host.ndim < 2:
+            return None
+        if host.nbytes < self.shard_min_bytes and host.numel() < self.huge_tensor_numel:
+            return None
+        if host.ndim >= 3:
+            # fused expert stacks: the FFT runs over the last two dims per
+            # leading slice, so leading-dim shards keep every FFT rank-local;
+            # a leading dim that does not divide the ranks is not padded
+            # (zero slices would enter the global percentile ranks)
+            if host.shape[0] % comm.size:
+                logger.info("%d-D tensor's leading dim %d does not divide the %d ranks; not sharding",
+                            host.ndim, host.shape[0], comm.size)
+                return None
+            return Placement(comm, "lead", tuple(host.shape))
+        # the all-to-all splits the columns over the ranks; rows are padded
+        if host.shape[-1] % comm.size:
+            return None
+        return Placement(comm, "rows", tuple(host.shape))
 
     def get_readme(self) -> str:
         models = "\n".join(
@@ -429,7 +488,7 @@ class FourierMerge(MergeTensorsBase):
                 shard_layer.layer_name,
             )
             return self.get_base_output_tensor(shard_layer).to(torch.bfloat16)
-        if len(models) <= 2 and self.hbm_budget_bytes is None:
+        if len(models) <= 2 and self.hbm_budget_bytes is None and self.comm is None:
             return self._merge_layer_fused(shard_layer, models)
 
         name = shard_layer.layer_name
@@ -437,8 +496,10 @@ class FourierMerge(MergeTensorsBase):
         for model in models:
             (delta,) = self.get_delta_for_models([model], shard_layer, apply_alpha=False)
             entries.append((model.model, delta, model.alpha))
-        merged, checks = self.reduce_deltas(entries)
-        out, final_inf = _finalize(self.get_base_output_tensor(shard_layer), merged)
+        placement = self._placements.get(name)
+        merged, checks = self.reduce_deltas(entries, placement=placement)
+        out, final_inf = _finalize(self.get_base_output_tensor(shard_layer), merged,
+                                   placement.comm if placement is not None else None)
         self._deferred[name] = (checks, final_inf)
         return out
 
@@ -477,6 +538,7 @@ class FourierMerge(MergeTensorsBase):
         self,
         entries: List[Tuple[str, torch.Tensor, float]],
         trace: Optional[list] = None,
+        placement: Optional[Placement] = None,
     ):
         """Reduce a stack of f32 deltas pairwise to one delta.
 
@@ -484,7 +546,9 @@ class FourierMerge(MergeTensorsBase):
         consumed (emptied), so the deltas free as the reduction merges them.
         A ``trace`` list gets (job, target_norm, cull_pct, a, b, merged) for
         every pair merge, the tensors as the merge saw them (to hold one
-        device's pair merges to another's on the same inputs).
+        device's pair merges to another's on the same inputs). With
+        ``placement`` the deltas are this rank's shares of a tensor split
+        over the merge ranks (``_sharding_for``).
 
         Returns (merged delta, checks): the pair merges' (nan_count,
         inf_flag) device scalars."""
@@ -500,7 +564,8 @@ class FourierMerge(MergeTensorsBase):
         if len(layer_stack) == 1:
             return cache[layer_stack[0]], checks
 
-        layer_norms = _batched_norms([cache[n] for n in layer_stack])
+        comm = placement.comm if placement is not None else None
+        layer_norms = _batched_norms([cache[n] for n in layer_stack], comm)
         self.stats.host_syncs += 1
         if not all(math.isfinite(n) for n in layer_norms):
             # the pairing cannot rank a non-finite norm: a round would pair
@@ -518,9 +583,11 @@ class FourierMerge(MergeTensorsBase):
         def cache_put(name, value, norm=None):
             """Put a device value on the stack; above the budget, move every
             resident entry to host memory."""
-            norms_by_name[name] = (
-                norm if norm is not None else torch.linalg.vector_norm(value.reshape(-1))
-            )
+            if norm is None:
+                norm = torch.linalg.vector_norm(value.reshape(-1))
+                # a rank's share: its square, summed over the ranks at the read
+                norm = norm.square() if comm is not None else norm
+            norms_by_name[name] = norm
             cache[name] = value
             spilled.discard(name)
             if budget is None:
@@ -553,7 +620,7 @@ class FourierMerge(MergeTensorsBase):
             + self.target_norm_offset
         )
         cull_pct = self.cull_start_pct
-        can_batch = self.batch_rounds and budget is None
+        can_batch = self.batch_rounds and budget is None and placement is None
         fast_imag = _use_fast_imag(self.exact_imag, cache[layer_stack[0]])
 
         while len(layer_stack) > 1:
@@ -562,7 +629,10 @@ class FourierMerge(MergeTensorsBase):
             )
             pending = [n for n in layer_stack if not isinstance(norms_by_name[n], float)]
             if pending:
-                fetched = torch.stack([norms_by_name[n] for n in pending]).tolist()
+                fetched = torch.stack([norms_by_name[n] for n in pending])
+                if comm is not None:
+                    fetched = comm.all_reduce(fetched).sqrt()
+                fetched = fetched.tolist()
                 for n, v in zip(pending, fetched):
                     norms_by_name[n] = v
                 self.stats.host_syncs += 1
@@ -589,7 +659,7 @@ class FourierMerge(MergeTensorsBase):
                 else:
                     for job in group:
                         a, b = cache_get(job[1]), cache_get(job[2])
-                        merged, check = self.merge_pair(job, a, b, target_norm, cull_pct)
+                        merged, check = self.merge_pair(job, a, b, target_norm, cull_pct, placement)
                         if check is not None:
                             checks.append(check)
                         if trace is not None:
@@ -611,10 +681,11 @@ class FourierMerge(MergeTensorsBase):
 
         return cache_get(layer_stack[0]), checks
 
-    def merge_pair(self, job, a, b, target_norm, cull_pct):
+    def merge_pair(self, job, a, b, target_norm, cull_pct, placement: Optional[Placement] = None):
         """One pair merge of a planned job (``_plan_round``) on its operands
         ``a`` (the larger norm) and ``b``: (merged, (nan_count, inf_flag) or
-        None for the regimes that flag nothing)."""
+        None for the regimes that flag nothing). With ``placement``, ``a``
+        and ``b`` are this rank's shares."""
         regime, _, _, _, params = job
         if regime == "add":
             return _pair_add(a, b), None
@@ -623,12 +694,34 @@ class FourierMerge(MergeTensorsBase):
             norm_a, target = _f32([params[0], target_norm], dev)
             return (a / norm_a) * target, None
         *scalars, target = _f32([*params, target_norm], dev)
-        # exact order statistics rank over the entry's element count
-        merged, nan_count, has_inf = _pair(
-            regime, a, b, scalars, _ranks(a.numel(), cull_pct), target,
-            _use_fast_imag(self.exact_imag, a), use_cull=cull_pct > 0,
-        )
-        return merged, None if nan_count is None else (nan_count, has_inf)
+        if placement is None:
+            # exact order statistics rank over the entry's element count
+            merged, nan_count, has_inf = _pair(
+                regime, a, b, scalars, _ranks(a.numel(), cull_pct), target,
+                _use_fast_imag(self.exact_imag, a), use_cull=cull_pct > 0,
+            )
+            return merged, None if nan_count is None else (nan_count, has_inf)
+        comm = placement.comm
+        # the fast-imag gate sees the whole (padded) tensor, as the JAX
+        # engine's does; the order statistics rank over the TRUE element
+        # count (padded rows never enter the spectrum)
+        fast = _use_fast_imag(self.exact_imag, a, a.numel() * comm.size)
+        ranks = _ranks(placement.numel, cull_pct)
+        if placement.kind == "lead":
+            # every FFT is rank-local; the reductions are global
+            merged, nan_count, has_inf = _pair(regime, a, b, scalars, ranks, target, fast,
+                                               use_cull=cull_pct > 0, group=comm)
+            return merged, None if nan_count is None else (nan_count, has_inf)
+        true_m = placement.true_m
+        if regime == "arith":
+            return pmerge.sharded_pair_arith(comm, a, b, *scalars, fast_imag=fast, true_m=true_m), None
+        if regime == "lowratio":
+            merged, nan_count, has_inf = pmerge.sharded_pair_lowratio(
+                comm, a, b, *scalars, target, fast_imag=fast, true_m=true_m)
+        else:
+            merged, nan_count, has_inf = pmerge.sharded_pair_slerp(
+                comm, a, b, *scalars, *ranks, target, use_cull=cull_pct > 0, fast_imag=fast, true_m=true_m)
+        return merged, (nan_count, has_inf)
 
     def _dispatch_batch(self, group, cache, cache_put, target_norm, cull_pct,
                         fast_imag, checks, trace):

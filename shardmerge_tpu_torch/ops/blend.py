@@ -10,6 +10,12 @@ The reference tool's quirks are kept, each marked REF-QUIRK:
 
 - both cutoff "small value" masks test ``|Re v1|``, never v0;
 - in ``arithmetic_fft_components`` disagreeing lanes always take v1.
+
+Across ranks (parallel/merge.py), ``group`` (a parallel/comm.py ``Comm``)
+makes every reduction of the blends global: the order-statistic counts, the
+cull's count and the SLERP's dot and norms are summed over the ranks (JAX's
+``axis_name`` psums), and ``fft_fn``/``ifft_fn`` carry the distributed FFTs
+of the imaginary recursion.
 """
 
 from __future__ import annotations
@@ -85,19 +91,33 @@ def _wsum(x: torch.Tensor, col_weights: Optional[torch.Tensor]) -> torch.Tensor:
     return x.sum()
 
 
-def _masked_slerp(v0, v1, t, mask, col_weights=None):
+def _gsum(parts, group=None):
+    """The local sums ``parts`` (0-d tensors), summed over ``group``'s ranks
+    in one all-reduce when given."""
+    if group is None:
+        return parts
+    return group.all_reduce(torch.stack(parts)).unbind(0)
+
+
+def _masked_slerp(v0, v1, t, mask, col_weights=None, group=None):
     """Global-dot SLERP over the masked element subset; ``col_weights``
     weights each column by its Hermitian multiplicity (half spectra). The
     relative vector's norm is clamped at 1e-12 like
-    ``torch.nn.functional.normalize``."""
+    ``torch.nn.functional.normalize``. With ``group`` the dot and the norms
+    are global (two all-reduces: the dot and both norms, then the relative
+    vector's norm)."""
     zero = torch.zeros((), dtype=v0.dtype, device=v0.device)
-    dot_num = _wsum(torch.where(mask, v0 * v1, zero), col_weights)
-    n0 = torch.sqrt(_wsum(torch.where(mask, v0 * v0, zero), col_weights))
-    n1 = torch.sqrt(_wsum(torch.where(mask, v1 * v1, zero), col_weights))
+    dot_num, s0, s1 = _gsum([
+        _wsum(torch.where(mask, v0 * v1, zero), col_weights),
+        _wsum(torch.where(mask, v0 * v0, zero), col_weights),
+        _wsum(torch.where(mask, v1 * v1, zero), col_weights),
+    ], group)
+    n0, n1 = torch.sqrt(s0), torch.sqrt(s1)
     dot = torch.clamp(dot_num / (n0 * n1), -1.0, 1.0)
     theta = torch.arccos(dot) * t
     rel = v1 - v0 * dot
-    rel_norm = torch.sqrt(_wsum(torch.where(mask, rel * rel, zero), col_weights))
+    (rel_sq,) = _gsum([_wsum(torch.where(mask, rel * rel, zero), col_weights)], group)
+    rel_norm = torch.sqrt(rel_sq)
     rel = rel / torch.clamp(rel_norm, min=1e-12)
     return v0 * torch.cos(theta) + rel * torch.sin(theta)
 
@@ -107,7 +127,7 @@ def slerp(v0: torch.Tensor, v1: torch.Tensor, t) -> torch.Tensor:
     return _masked_slerp(v0, v1, t, torch.ones(v0.shape, dtype=torch.bool, device=v0.device))
 
 
-def _blend_real(r0, r1, t, t_sum, cutoff_thr, col_weights=None):
+def _blend_real(r0, r1, t, t_sum, cutoff_thr, col_weights=None, group=None):
     """The shared masked blend of two real planes."""
     a0, a1 = r0.abs(), r1.abs()
     sign_mask = torch.sign(r0) == torch.sign(r1)
@@ -115,7 +135,7 @@ def _blend_real(r0, r1, t, t_sum, cutoff_thr, col_weights=None):
     slerp_mask = sign_mask & ~small
     sum_mask = sign_mask & small
     larger = a0 > a1
-    slerp_vals = _masked_slerp(r0, r1, t, slerp_mask, col_weights)
+    slerp_vals = _masked_slerp(r0, r1, t, slerp_mask, col_weights, group)
     return torch.where(
         slerp_mask,
         slerp_vals,
@@ -141,6 +161,9 @@ def interpolate_fft_components(
     use_cutoff: bool,
     use_cull: bool,
     interp_imag: bool = True,
+    group=None,
+    fft_fn=None,
+    ifft_fn=None,
 ) -> torch.Tensor:
     """Masked spectral blend of two complex FFTs.
 
@@ -148,24 +171,28 @@ def interpolate_fft_components(
     :func:`cull_rank`, ``cull_count_limit`` from :func:`cull_limit`. With
     ``interp_imag`` the imaginary planes are FFT'd again and blended with
     cutoff = cull = 0 (the reference's double-FFT recursion); without it the
-    imaginary part of v0 passes through."""
+    imaginary part of v0 passes through. Across ranks, ``group`` makes the
+    reductions global and ``fft_fn``/``ifft_fn`` are the recursion's
+    distributed transforms (default: :func:`fft2`, :func:`ifft2_real`)."""
+    fft_fn = fft_fn or fft2
+    ifft_fn = ifft_fn or ifft2_real
     r0, r1 = v0_fft.real, v1_fft.real
     if use_cutoff:
-        cutoff_thr = kth_smallest_nonneg2(r0.abs(), r1.abs(), cutoff_k)
+        cutoff_thr = kth_smallest_nonneg2(r0.abs(), r1.abs(), cutoff_k, group)
     else:
         cutoff_thr = torch.zeros((), dtype=torch.float32, device=r0.device)
-    res_real = _blend_real(r0, r1, t, t_sum, cutoff_thr)
+    res_real = _blend_real(r0, r1, t, t_sum, cutoff_thr, group=group)
 
     if use_cull:
         abs_res = res_real.abs()
-        cull_thr = kth_smallest_nonneg(abs_res, cull_k)
-        below = (abs_res < cull_thr).sum()
+        cull_thr = kth_smallest_nonneg(abs_res, cull_k, group)
+        (below,) = _gsum([(abs_res < cull_thr).sum()], group)
         res_real = _cull(res_real, cull_thr, below, cull_count_limit)
 
     if interp_imag:
         inner = interpolate_fft_components(
-            fft2(v0_fft.imag),
-            fft2(v1_fft.imag),
+            fft_fn(v0_fft.imag),
+            fft_fn(v1_fft.imag),
             t,
             t_sum,
             0,
@@ -174,8 +201,9 @@ def interpolate_fft_components(
             use_cutoff=False,
             use_cull=False,
             interp_imag=False,
+            group=group,
         )
-        res_imag = ifft2_real(inner)
+        res_imag = ifft_fn(inner)
     else:
         res_imag = v0_fft.imag
     return torch.complex(res_real, res_imag)
@@ -204,27 +232,29 @@ def interpolate_half_spectrum(
     *,
     use_cutoff: bool,
     use_cull: bool,
+    group=None,
 ) -> torch.Tensor:
     """The fast-imag blend on rfft half spectra (M, N//2+1).
 
     Elementwise steps are mirror-symmetric, so they run on the half as is;
     every reduction weights column j by ``col_weights[j]``, reproducing the
     full-spectrum values (ranks are the full-spectrum ranks). The imaginary
-    part of h0 passes through."""
+    part of h0 passes through. With ``group`` the reductions are global
+    (a rank's columns weighed by its own ``col_weights``)."""
     r0, r1 = h0.real, h1.real
     wrow = col_weights.reshape(1, -1) if r0.ndim >= 2 else col_weights
     if use_cutoff:
-        cutoff_thr = kth_smallest_weighted(r0.abs(), cutoff_k, col_weights, y=r1.abs())
+        cutoff_thr = kth_smallest_weighted(r0.abs(), cutoff_k, col_weights, y=r1.abs(), group=group)
     else:
         cutoff_thr = torch.zeros((), dtype=torch.float32, device=r0.device)
-    res_real = _blend_real(r0, r1, t, t_sum, cutoff_thr, wrow)
+    res_real = _blend_real(r0, r1, t, t_sum, cutoff_thr, wrow, group)
 
     if use_cull:
         abs_res = res_real.abs()
-        cull_thr = kth_smallest_weighted(abs_res, cull_k, col_weights)
+        cull_thr = kth_smallest_weighted(abs_res, cull_k, col_weights, group=group)
         # integer-weighted count: exact beyond 2^24 elements
         per_col = (abs_res < cull_thr).reshape(-1, abs_res.shape[-1]).sum(dim=0)
-        below = (per_col * col_weights.to(torch.int64)).sum()
+        (below,) = _gsum([(per_col * col_weights.to(torch.int64)).sum()], group)
         res_real = _cull(res_real, cull_thr, below, cull_count_limit)
     return torch.complex(res_real, h0.imag)
 
@@ -236,9 +266,14 @@ def arithmetic_fft_components(
     *,
     agreement: bool,
     do_imag: bool = True,
+    fft_fn=None,
+    ifft_fn=None,
 ) -> torch.Tensor:
     """Sign-agreement arithmetic on FFT real parts, with the same imaginary
-    recursion as :func:`interpolate_fft_components`."""
+    recursion as :func:`interpolate_fft_components` (elementwise, so any
+    layout; ``fft_fn``/``ifft_fn`` as there)."""
+    fft_fn = fft_fn or fft2
+    ifft_fn = ifft_fn or ifft2_real
     r0, r1 = v0_fft.real, v1_fft.real
     if agreement:
         sign_mask = torch.sign(r0) == torch.sign(r1)
@@ -249,9 +284,9 @@ def arithmetic_fft_components(
     res_real = torch.where(sign_mask, r0 + t * r1, r1)
     if do_imag:
         inner = arithmetic_fft_components(
-            fft2(v0_fft.imag), fft2(v1_fft.imag), t, agreement=agreement, do_imag=False
+            fft_fn(v0_fft.imag), fft_fn(v1_fft.imag), t, agreement=agreement, do_imag=False
         )
-        res_imag = ifft2_real(inner)
+        res_imag = ifft_fn(inner)
     else:
         res_imag = v0_fft.imag
     return torch.complex(res_real, res_imag)
@@ -273,11 +308,16 @@ def _norms2(v0: torch.Tensor, v1: torch.Tensor):
     return torch.linalg.vector_norm(v0.reshape(-1)), torch.linalg.vector_norm(v1.reshape(-1))
 
 
-def _scrub_nans(merged: torch.Tensor):
-    """(merged with NaN -> 0, NaN count, Inf flag)."""
+def _scrub_nans(merged: torch.Tensor, group=None):
+    """(merged with NaN -> 0, NaN count, Inf flag); with ``group`` the count
+    and the flag are summed over its ranks (one all-reduce)."""
     nan = torch.isnan(merged)
     merged = merged.masked_fill(nan, 0.0)
-    return merged, nan.sum(), torch.isinf(merged).any()
+    nan_count, has_inf = nan.sum(), torch.isinf(merged).any()
+    if group is not None:
+        nan_count, infs = group.all_reduce(torch.stack([nan_count, has_inf.to(torch.int64)])).unbind(0)
+        has_inf = infs > 0
+    return merged, nan_count, has_inf
 
 
 def _slerp_merge_body(v0n, v1n, t, t_sum, cutoff_k, cull_k, cull_count_limit, *, use_cutoff, use_cull):

@@ -135,6 +135,8 @@ class MergeStats:
     # and read-aheads that failed (the merge then read on demand)
     prefetch_device_hits: int = 0
     prefetch_failures: int = 0
+    # input tensors split over the merge ranks (this rank's shares fetched)
+    tensors_sharded: int = 0
     started_at: float = field(default_factory=time.time)
 
     def record_pair(self, regime: str):
@@ -166,6 +168,8 @@ class MergeStats:
             text += f"; {self.host_syncs} host syncs"
         if self.hbm_spills:
             text += f"; {self.hbm_spills} stack entries spilled to host"
+        if self.tensors_sharded:
+            text += f"; sharded {self.tensors_sharded} input tensors over the merge ranks"
         if self.prefetch_failures:
             text += f"; {self.prefetch_failures} read-aheads failed"
         return text

@@ -12,6 +12,11 @@ int32 after flipping the sign bit (``bits ^ 0x80000000``): that maps the
 unsigned order [0, 2^32) onto the signed order [-2^31, 2^31) exactly, so
 round 0's candidates ``1<<30 .. 3<<30`` (negative as plain int32) compare
 correctly while the keys stay 4 bytes wide. Counts are int64 and exact.
+
+With ``group`` (a parallel/comm.py ``Comm``) the array is one rank's share of
+a distributed array: each round's three counts are summed over the ranks in
+one all-reduce, so the threshold is the global order statistic, bit-equal to
+the single-device one on the same elements.
 """
 
 from __future__ import annotations
@@ -32,37 +37,41 @@ def _keys(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.float32).contiguous().view(torch.int32) ^ _SIGN
 
 
-def _bisect(count_below, k, device) -> torch.Tensor:
+def _bisect(count_below, k, device, group=None) -> torch.Tensor:
     """Largest unsigned pattern p with count_below(p) <= k, as f32.
 
     ``count_below(c)`` counts elements whose pattern is strictly below the
     int32 key ``c``; ``k`` may be a Python int (compared as a scalar: no
-    copy to the device, which would wait for its stream) or a 0-d tensor."""
+    copy to the device, which would wait for its stream) or a 0-d tensor.
+    With ``group`` a round's counts are summed over its ranks."""
     prefix = torch.zeros((), dtype=torch.int64, device=device)  # unsigned
     for i in range(_ROUNDS):
         shift = 32 - _BITS_PER_ROUND * (i + 1)
-        step = torch.zeros((), dtype=torch.int64, device=device)
-        for digit in range(1, 2**_BITS_PER_ROUND):
-            cand = (prefix + (digit << shift)) - (1 << 31)  # as signed key
-            step = step + (count_below(cand.to(torch.int32)) <= k).to(torch.int64)
+        counts = torch.stack([
+            count_below(((prefix + (digit << shift)) - (1 << 31)).to(torch.int32))  # as signed key
+            for digit in range(1, 2**_BITS_PER_ROUND)
+        ])
+        if group is not None:
+            counts = group.all_reduce(counts)
+        step = (counts <= k).to(torch.int64).sum()
         prefix = prefix + (step << shift)
     signed = torch.where(prefix >= (1 << 31), prefix - (1 << 32), prefix)
     return signed.to(torch.int32).reshape(1).view(torch.float32)[0]
 
 
-def kth_smallest_nonneg(x: torch.Tensor, k) -> torch.Tensor:
+def kth_smallest_nonneg(x: torch.Tensor, k, group=None) -> torch.Tensor:
     """k-th smallest (0-indexed) element of non-negative f32 ``x``;
     exactly ``torch.sort(x.ravel())[0][k]``, NaNs ranking last."""
     keys = _keys(x).reshape(-1)
-    return _bisect(lambda c: (keys < c).sum(), k, x.device)
+    return _bisect(lambda c: (keys < c).sum(), k, x.device, group)
 
 
-def kth_smallest_nonneg2(x: torch.Tensor, y: torch.Tensor, k) -> torch.Tensor:
+def kth_smallest_nonneg2(x: torch.Tensor, y: torch.Tensor, k, group=None) -> torch.Tensor:
     """k-th smallest of the multiset union of ``x`` and ``y`` without
     materializing the concatenation."""
     kx = _keys(x).reshape(-1)
     ky = _keys(y).reshape(-1)
-    return _bisect(lambda c: (kx < c).sum() + (ky < c).sum(), k, x.device)
+    return _bisect(lambda c: (kx < c).sum() + (ky < c).sum(), k, x.device, group)
 
 
 def kth_smallest_weighted(
@@ -70,6 +79,7 @@ def kth_smallest_weighted(
     k,
     col_weights: torch.Tensor,
     y: Optional[torch.Tensor] = None,
+    group=None,
 ) -> torch.Tensor:
     """k-th smallest of a column-weighted multiset of one or two arrays.
 
@@ -83,4 +93,4 @@ def kth_smallest_weighted(
     def count_below(c):
         return sum(((kk < c).sum(dim=0) * w).sum() for kk in keys)
 
-    return _bisect(count_below, k, x.device)
+    return _bisect(count_below, k, x.device, group)

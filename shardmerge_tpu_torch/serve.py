@@ -841,11 +841,11 @@ def serve(
     continuously batched pool of that many slots (requests join the running
     decode and free their slot the moment they finish; see
     batching.ContinuousEngine). ``shard`` is the JAX server's option that
-    is not ported."""
+    is not ported (ROADMAP A.10b)."""
     from .inference import InferenceEngine
 
     if shard:
-        raise NotImplementedError("serve options not ported yet: tensor-parallel serving (shard)")
+        raise NotImplementedError("serve options not ported yet: tensor-parallel serving (shard; ROADMAP A.10b)")
     engine = InferenceEngine.from_pretrained(
         model_path,
         load_in_4bit=load_in_4bit,

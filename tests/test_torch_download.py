@@ -248,3 +248,33 @@ def test_token_rides_shard_requests_and_401_is_actionable(tmp_path, monkeypatch)
         m1 = _manager(tmp_path / "s1", token="sekret")
         assert m1.fetch("p", uri).read_bytes() == b"s" * 1024
         assert hub.auth["/m/g.bin"] == "Bearer sekret"
+
+
+def test_a_host_ranks_follower_transfers_nothing_and_waits_for_the_leader(tmp_path):
+    """Ranks of one host share its storage: the follower registers first and
+    waits; the leader's one transfer serves both. A file the leader cannot
+    fetch fails the follower too (the leader's failure note), and a note an
+    earlier run left is cleared by the leader."""
+    with LocalHub() as hub:
+        hub.blobs["/m/shard.bin"] = b"z" * 300_000
+        leader, follower = _manager(tmp_path, role="lead"), _manager(tmp_path, role="follow")
+        uri = f"{hub.base}/m/shard.bin"
+        assert follower.cache_file("m", uri) is False
+        assert not follower.downloads[("m", uri)].done.is_set()  # nothing on disk: it waits
+        leader.cache_file("m", uri)
+        assert follower.wait("m", uri, timeout=TIMEOUT).status == DownloadStatus.COMPLETED
+        assert follower.get_file("m", uri).read_bytes() == b"z" * 300_000
+        assert hub.hits_of("/m/shard.bin") == 1
+
+        missing = f"{hub.base}/m/missing.bin"
+        (tmp_path / "m" / "old.bin.failed").write_text("an earlier run")
+        leader.clear_failure_notes()
+        assert not list(tmp_path.rglob("*.failed"))
+        follower.cache_file("m", missing)
+        leader.cache_file("m", missing)
+        assert follower.wait("m", missing, timeout=TIMEOUT).status == DownloadStatus.FAILED
+        with pytest.raises(RuntimeError, match="downloading rank failed.*404"):
+            follower.get_file("m", missing)
+        assert hub.hits_of("/m/missing.bin") == 1
+    with pytest.raises(ValueError, match="deletes nothing"):
+        _manager(tmp_path, role="follow", clean_cache=True)

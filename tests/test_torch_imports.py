@@ -69,3 +69,11 @@ def test_the_guard_covers_every_module_of_the_checkpoint_slice():
     new += [port / "models" / "loader.py", port / "backend.py", port / "cli.py"]
     assert all(p.is_file() for p in new)
     assert set(new) <= set(FILES)
+
+
+def test_the_guard_reads_the_merge_across_ranks():
+    """The modules of the merge across ranks and the script that runs it on
+    several cards are among the files read."""
+    names = {str(p.relative_to(REPO)) for p in FILES}
+    wanted = {f"shardmerge_tpu_torch/parallel/{m}.py" for m in ("__init__", "comm", "fft2d", "merge", "multihost")}
+    assert wanted | {"scripts/merge_ranks_torch.py"} <= names

@@ -2,6 +2,7 @@
 shardmerge_tpu/merge), per pair merge and through both CLIs end to end."""
 
 import json
+import logging
 
 import jax.numpy as jnp
 import numpy as np
@@ -193,23 +194,32 @@ def test_cli_merge_matches_jax_cli_and_resumes(tmp_path, capsys):
     assert _read(tmp_path / "port_out").keys() == ours.keys()
 
 
-def test_cli_rejects_unported_configs(tmp_path, capsys):
-    """The mesh-sharded merge is refused by name and an unknown method with
-    the JAX CLI's message, before anything is written; a model listed twice
-    in a stack of 3 or more is refused with a clear error (the JAX engine
-    loses a stack entry there and raises KeyError on some tensors)."""
+def test_cli_rejects_unported_configs(tmp_path, capsys, caplog):
+    """An unknown method is refused with the JAX CLI's message, before
+    anything is written; a model listed twice in a stack of 3 or more is
+    refused with a clear error (the JAX engine loses a stack entry there and
+    raises KeyError on some tensors). The sharded merge's fields, once
+    refused, are accepted: without a launcher's ranks ``shard_tensors``
+    merges on one device and says so, and ``distributed: true`` degrades to
+    a single process after a failed probe (as the JAX CLI does)."""
     base = tmp_path / "base"
     make_tiny_model(base, seed=1)
     cfg = json.loads(_write_config(tmp_path, base, base, base, tmp_path / "o").read_text())
-    for field, value, message in [
-        ("merge_method", "nope", "Unknown merge_method 'nope'; choose from ["),
-        ("shard_tensors", True, "not ported yet: ['shard_tensors']"),
-        ("distributed", True, "not ported yet: ['distributed']"),
+    f = tmp_path / "merge_method.json"
+    f.write_text(json.dumps({**cfg, "merge_method": "nope"}))
+    assert torch_cli(["merge", str(f), "--device", "cpu"]) == 2
+    assert "Unknown merge_method 'nope'; choose from [" in capsys.readouterr().err
+    for field, message in [
+        ("shard_tensors", "shard_tensors requested but only one rank is running"),
+        ("distributed", "distributed runtime not started"),
     ]:
         f = tmp_path / f"{field}.json"
-        f.write_text(json.dumps({**cfg, field: value}))
-        assert torch_cli(["merge", str(f), "--device", "cpu"]) == 2
-        assert message in capsys.readouterr().err
+        f.write_text(json.dumps({**cfg, field: True}))
+        caplog.clear()
+        with caplog.at_level(logging.INFO):
+            assert torch_cli(["merge", str(f), "--device", "cpu", "--dry-run"]) == 0
+        assert "plan OK" in capsys.readouterr().out
+        assert message in caplog.text, field
     assert not (tmp_path / "o").exists()
     three = dict(cfg, finetune_merge=cfg["finetune_merge"] * 2)
     f = tmp_path / "three.json"

@@ -65,8 +65,8 @@ def _cfg(tmp_path, base, fts, out, **extra):
 # JAX options the port accepts but refuses by name, with the queue item of
 # ROADMAP.md section A that ports each
 REFUSED = {
-    ("generate", "--shard"): "A.10",
-    ("serve", "--shard"): "A.10",
+    ("generate", "--shard"): "A.10b",
+    ("serve", "--shard"): "A.10b",
 }
 # options once refused that now reach the engine: speculative decoding and
 # the prefix cache (generate --decode-chunk: its own test below)

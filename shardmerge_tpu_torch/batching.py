@@ -69,7 +69,8 @@ import numpy as np
 import torch
 
 from .inference import (
-    _CACHE_BUCKET, _KV_SEQ_AXIS, _PROMPT_BUCKET, InferenceEngine, _find_stop, _greedy_verify, _penalized,
+    _CACHE_BUCKET, _KV_SEQ_AXIS, _PROMPT_BUCKET, InferenceEngine, _find_stop, _gather_kv_slots, _greedy_verify,
+    _implant_kv_row, _penalized,
 )
 from .models.llama import rope_tables
 
@@ -136,15 +137,9 @@ def _compact_pool(kv, key_pos, idx):
     place. idx: (B, S) int64, per row the source slot of each destination
     slot in temporal order; entries past a row's live length may point
     anywhere (the caller masks those destinations). ``key_pos`` rides the
-    same gather."""
-    rows = torch.arange(idx.shape[0], device=idx.device)[:, None]
-    for name, buf in kv.items():
-        for layer in buf:
-            if _KV_SEQ_AXIS[name] == 2:  # MLA: (B, S, rank)
-                layer.copy_(layer[rows, idx])
-            else:  # K/V: (B, KVH, S, D)
-                moved = layer.transpose(1, 2)[rows, idx]  # (B, S, KVH, D)
-                layer.copy_(moved.transpose(1, 2))
+    same gather (a tensor-parallel cache's on every rank; the map is rank
+    0's)."""
+    _gather_kv_slots(kv, idx)
     key_pos.copy_(torch.gather(key_pos, 1, idx))
 
 
@@ -152,11 +147,9 @@ def _implant_cache(kv, slab, key_pos, b: int):
     """Install a batch-1 prefill cache into pool row ``b`` at slots
     [0, slab_len), in place, with positions 0..slab_len in the slot ->
     position map (the target's and the draft's pools alike)."""
-    slab_len = 0
-    for name, buf in kv.items():
-        axis = _KV_SEQ_AXIS[name]
-        slab_len = slab[name].shape[axis]
-        buf[:, b : b + 1].narrow(axis, 0, slab_len).copy_(slab[name])
+    _implant_kv_row(kv, slab, b)
+    name, buf = next(iter(slab.items()))
+    slab_len = buf.shape[_KV_SEQ_AXIS[name]]
     key_pos[b, :slab_len] = torch.arange(slab_len, device=key_pos.device)
 
 

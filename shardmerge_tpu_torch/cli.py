@@ -328,17 +328,9 @@ def _copy_model(args) -> int:
     return 0
 
 
-def _refuse(**options) -> None:
-    """Raise, by name, for options whose features are not ported yet."""
-    unported = [name for name, on in options.items() if on]
-    if unported:
-        raise NotImplementedError(f"options not ported yet (ROADMAP A.10b): {', '.join(unported)}")
-
-
 def _generate(args) -> int:
     from .inference import InferenceEngine
 
-    _refuse(**{"--shard": args.shard})
     dev = resolve_device(args.device)
     engine = InferenceEngine.from_pretrained(
         args.model_path,
@@ -347,20 +339,26 @@ def _generate(args) -> int:
         device=dev,
         draft_model=args.draft_model,
         speculation_k=args.speculation_k,
+        shard=args.shard,
     )
-    for chunk in engine.stream_generation(
-        prompt=args.prompt,
-        max_new_tokens=args.max_tokens,
-        temperature=args.temperature,
-        top_p=args.top_p,
-        top_k=args.top_k,
-        repetition_penalty=args.repetition_penalty,
-        greedy=args.greedy,
-        seed=args.seed,
-        decode_chunk=args.decode_chunk,
-    ):
-        print(chunk, end="", flush=True)
-    print()
+    if engine.follower:  # a tensor-parallel rank above 0: rank 0 prints
+        return engine.follow()
+    try:
+        for chunk in engine.stream_generation(
+            prompt=args.prompt,
+            max_new_tokens=args.max_tokens,
+            temperature=args.temperature,
+            top_p=args.top_p,
+            top_k=args.top_k,
+            repetition_penalty=args.repetition_penalty,
+            greedy=args.greedy,
+            seed=args.seed,
+            decode_chunk=args.decode_chunk,
+        ):
+            print(chunk, end="", flush=True)
+        print()
+    finally:
+        engine.stop()
     return 0
 
 
@@ -384,13 +382,20 @@ def _serve(args) -> int:
         warmup=args.warmup,
         device=resolve_device(args.device),
     )
+    if server is None:  # a tensor-parallel rank above 0, released by rank 0
+        return 0
     print(f"Serving {args.model_path} on http://{args.host}:{server.port} (Ctrl-C to stop)", flush=True)
+    tp = server.engine.tp
     try:
-        while True:
-            time.sleep(3600)
+        while tp is None or tp.failed is None:
+            time.sleep(3600 if tp is None else 0.5)
     except KeyboardInterrupt:
         server.stop()
-    return 0
+        return 0
+    # a failed tensor-parallel call leaves the ranks out of step: end now
+    # (the pool's and the server's threads would wait on the group)
+    print(f"error: {tp.failed}", file=sys.stderr, flush=True)
+    os._exit(1)
 
 
 def _quantize(args) -> int:
@@ -534,7 +539,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="smaller same-vocab checkpoint for speculative decoding (greedy only; same tokens)")
     g.add_argument("--speculation-k", type=int, default=4, help="speculative tokens per round")
     g.add_argument("--shard", action="store_true",
-                   help="tensor-parallel decoding: not ported yet (ROADMAP A.10b), refused")
+                   help="tensor-parallel decoding over the ranks a launcher started (torchrun --nproc-per-node P)")
     g.add_argument("--decode-chunk", type=_int_range(1, 64), default=1,
                    help="decode steps per engine call (the same tokens; S-token emission)")
     g.add_argument("--verbose", action="store_true")
@@ -573,7 +578,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="speculative-decoding draft checkpoint (greedy requests)")
     s.add_argument("--speculation-k", type=int, default=4, help="speculative tokens per round")
     s.add_argument("--shard", action="store_true",
-                   help="tensor-parallel serving: not ported yet (ROADMAP A.10b), refused")
+                   help="tensor-parallel serving over the ranks a launcher started (torchrun --nproc-per-node P)")
     s.add_argument(
         "--prefix-cache", type=_int_range(0, 64), default=0,
         help="keep N prompt-prefix KV slabs on the device: single-prompt requests sharing "

@@ -17,7 +17,11 @@ round of up to k tokens, one host sync per round). With
 on the device (LRU over slots and bytes) and a request sharing one prefills
 only the rest.
 
-Not ported yet: the mesh-sharded engine.
+With ``shard=True`` under a launcher's ranks (``torchrun --nproc-per-node
+P``) the engine is tensor parallel (parallel/tp.py): every rank loads its
+slices of the weights, rank 0 runs the engine and every other rank replays
+its model and cache calls (:meth:`InferenceEngine.follow`). The cache helpers
+below take a sharded cache (``tp.TPCache``) to every rank.
 """
 
 from __future__ import annotations
@@ -62,6 +66,8 @@ _KV_SEQ_AXIS = {"k": 3, "v": 3, "ckv": 2, "kpe": 2}
 
 def _slice_kv(kv, length: int) -> dict:
     """A copy of the first ``length`` slots of every cache buffer."""
+    if getattr(kv, "leader", None) is not None:
+        return kv.leader.kv_op("slice", kv, length)
     return {k: v.narrow(_KV_SEQ_AXIS[k], 0, length).clone() for k, v in kv.items()}
 
 
@@ -70,10 +76,39 @@ def _implant_kv(fresh, slab) -> dict:
 
     Valid for any cache at least as long as the slab: causality makes the
     prefix's KV the same whatever follows it."""
+    if getattr(fresh, "leader", None) is not None:
+        return fresh.leader.kv_op("implant", fresh, slab)
     for k, v in slab.items():
         axis = _KV_SEQ_AXIS[k]
         fresh[k].narrow(axis, 0, v.shape[axis]).copy_(v)
     return fresh
+
+
+def _gather_kv_slots(kv, idx: torch.Tensor) -> dict:
+    """Gather every row's slots in place: destination slot j of row b takes
+    source slot ``idx[b, j]`` (the continuous pool's compaction)."""
+    if getattr(kv, "leader", None) is not None:
+        return kv.leader.kv_op("compact", kv, idx)
+    rows = torch.arange(idx.shape[0], device=idx.device)[:, None]
+    for name, buf in kv.items():
+        for layer in buf:
+            if _KV_SEQ_AXIS[name] == 2:  # MLA: (B, S, rank)
+                layer.copy_(layer[rows, idx])
+            else:  # K/V: (B, KVH, S, D)
+                moved = layer.transpose(1, 2)[rows, idx]  # (B, S, KVH, D)
+                layer.copy_(moved.transpose(1, 2))
+    return kv
+
+
+def _implant_kv_row(kv, slab, b: int) -> dict:
+    """Write a batch-1 cache ``slab`` into row ``b`` of ``kv`` at slots
+    [0, slab length), in place."""
+    if getattr(kv, "leader", None) is not None:
+        return kv.leader.kv_op("implant_row", kv, slab, b)
+    for name, buf in kv.items():
+        axis = _KV_SEQ_AXIS[name]
+        buf[:, b : b + 1].narrow(axis, 0, slab[name].shape[axis]).copy_(slab[name])
+    return kv
 
 
 def _penalized(logits: torch.Tensor, rp) -> torch.Tensor:
@@ -197,6 +232,21 @@ def load_tokenizer(model_path, weights_dir):
     return AutoTokenizer.from_pretrained(str(tok_dir))
 
 
+class _ShardedModel:
+    """Rank 0's handle on a tensor-parallel model: a call is broadcast to
+    the followers and then run on rank 0's slices (``tp.Leader.forward``);
+    attributes are the local model's."""
+
+    def __init__(self, leader):
+        self._leader = leader
+
+    def __call__(self, *args, **kwargs):
+        return self._leader.forward(*args, **kwargs)
+
+    def __getattr__(self, name):
+        return getattr(self._leader.model, name)
+
+
 class InferenceEngine:
     def __init__(
         self,
@@ -207,9 +257,13 @@ class InferenceEngine:
         speculation_k: int = 4,
         prefix_cache_slots: int = 0,
         prefix_cache_bytes: int = 2**30,  # device budget for slabs
+        tp=None,
     ):
         self.cfg = cfg
-        self.model = model
+        # a tensor-parallel engine's model calls go through its leader (rank
+        # 0) or are replayed by its follower (parallel/tp.py)
+        self.tp = tp
+        self.model = model if tp is None or not tp.leader else _ShardedModel(tp)
         self.tokenizer = tokenizer
         self.device = model.device
         self.prompt_chunk = _PROMPT_CHUNK
@@ -242,11 +296,17 @@ class InferenceEngine:
         speculation_k: int = 4,
         prefix_cache_slots: int = 0,
         prefix_cache_bytes: int = 2**30,
+        shard: bool = False,
     ) -> "InferenceEngine":
         """``draft_model``: a smaller same-vocab checkpoint for greedy
         speculative decoding, loaded in bf16 and never quantized.
         ``prefix_cache_slots=N`` keeps the KV of up to N bucket-aligned
-        prompt prefixes on the device (LRU)."""
+        prompt prefixes on the device (LRU). ``shard=True``: tensor parallel
+        over the ranks a launcher started (parallel/tp.py); each rank loads
+        its slices onto its own device (NCCL: its GPU; ranks sharing a GPU
+        or ``device="cpu"``: gloo), rank 0 returns the engine that decodes
+        and every other rank an engine whose :meth:`follow` replays rank 0's
+        calls (no tokenizer, no draft). With one rank it only logs."""
         if load_in_4bit and load_in_8bit:
             raise ValueError("Cannot load model in both 4-bit and 8-bit precision")
         quant_bits = 4 if load_in_4bit else 8 if load_in_8bit else None
@@ -254,8 +314,27 @@ class InferenceEngine:
         # own tokenizer files win over the base's
         weights_dir, adapter = resolve_checkpoint_dir(model_path)
         cfg = ModelConfig.from_pretrained(weights_dir)
-        params = load_params(weights_dir, cfg, quant_bits=quant_bits, device=device,
-                             resolved=(weights_dir, adapter))
+        joined = None
+        if shard:
+            from .parallel.tp import join
+
+            joined = join(str(device))
+        if joined is not None:
+            from .parallel.tp import Follower, Leader, TPGroup
+            from .parallel.train import plan
+
+            comm, control, device = joined
+            group = TPGroup(comm, plan(cfg, comm.rank, comm.size, quant_bits), control)
+            params = load_params(weights_dir, cfg, quant_bits=quant_bits, device=device,
+                                 resolved=(weights_dir, adapter), tp=group.plan)
+            model = LlamaModel(cfg, params, tp=group)
+            if comm.rank != 0:
+                return cls(cfg, model, None, tp=Follower(group, model))
+            tp = Leader(group, model)
+        else:
+            params = load_params(weights_dir, cfg, quant_bits=quant_bits, device=device,
+                                 resolved=(weights_dir, adapter))
+            model, tp = LlamaModel(cfg, params), None
         draft = None
         if draft_model is not None:
             d_dir, d_adapter = resolve_checkpoint_dir(draft_model)
@@ -263,8 +342,22 @@ class InferenceEngine:
             draft = LlamaModel(d_cfg, load_params(d_dir, d_cfg, device=device, resolved=(d_dir, d_adapter)))
         if tokenizer is None:
             tokenizer = load_tokenizer(model_path, weights_dir)
-        return cls(cfg, LlamaModel(cfg, params), tokenizer, draft=draft, speculation_k=speculation_k,
-                   prefix_cache_slots=prefix_cache_slots, prefix_cache_bytes=prefix_cache_bytes)
+        return cls(cfg, model, tokenizer, draft=draft, speculation_k=speculation_k,
+                   prefix_cache_slots=prefix_cache_slots, prefix_cache_bytes=prefix_cache_bytes, tp=tp)
+
+    @property
+    def follower(self) -> bool:
+        """True on a tensor-parallel rank above 0 (it only :meth:`follow`s)."""
+        return self.tp is not None and not self.tp.leader
+
+    def follow(self) -> int:
+        """A follower rank: replay rank 0's calls until it stops (returns 0)."""
+        return self.tp.follow()
+
+    def stop(self) -> None:
+        """Rank 0 of a tensor-parallel engine: release the followers."""
+        if self.tp is not None and self.tp.leader:
+            self.tp.stop()
 
     # -- helpers -------------------------------------------------------------
 
@@ -293,6 +386,8 @@ class InferenceEngine:
         return list(self.tokenizer.encode(prompt))
 
     def _init_kv(self, batch: int, cache_len: int):
+        if self.tp is not None:
+            return self.tp.init_kv(batch, cache_len)
         return init_kv_cache(self.cfg, batch, cache_len, self.model.dtype, self.device)
 
     def _init_draft_kv(self, batch: int, cache_len: int):

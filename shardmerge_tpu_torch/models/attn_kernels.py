@@ -110,7 +110,9 @@ def use_flash_decode(cfg, t: int, q: torch.Tensor) -> bool:
     the kernel does not compute (the JAX route's rule, shardmerge_tpu/
     models/attn_kernels.py:89). A T=1 call on the card that the route sends
     to the einsum path is counted under ``launch_counts["decode_einsum"]``.
-    Prefill (T > 1) and CPU tensors take the einsum path."""
+    Prefill (T > 1) and CPU tensors take the einsum path. A tensor-parallel
+    rank's query heads a KV head may be fewer than the model's H / KVH (a
+    divisor of it), which the kernel takes whenever it takes the model's."""
     if t != 1 or not q.is_cuda:
         return False
     group = cfg.num_attention_heads // cfg.num_key_value_heads

@@ -36,7 +36,15 @@ families Mixtral, Qwen3-MoE and DeepSeek V2/V3, GPT-OSS and Llama-4.
 - one ``forward`` serves chunked prefill and single-token decode against a
   stacked KV cache ``(L, B, KVH, S, D)`` (or the compressed one) that is
   updated IN PLACE (the JAX version donates the buffer to get the same
-  effect).
+  effect);
+- tensor parallelism (``LlamaModel(..., tp=TPGroup)``, parallel/tp.py): the
+  params are one rank's slices (parallel/train.py) and the modules run the
+  collectives GSPMD inserts in the JAX package: split attention (its heads,
+  its KV heads in the cache) and MLP / expert blocks end in one all-reduce,
+  with GPT-OSS's o_proj bias and the replicated shared experts added once,
+  after it; the vocab-parallel embedding is a masked local lookup and an
+  all-reduce; the vocab-parallel logits are gathered to the full vocab
+  before the final softcap.
 """
 
 from __future__ import annotations
@@ -566,18 +574,19 @@ def _act(g32: torch.Tensor, hidden_act: str) -> torch.Tensor:
 
 
 def init_kv_cache(
-    cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16, device=None
+    cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16, device=None, kv_heads: Optional[int] = None
 ) -> Dict[str, torch.Tensor]:
     """The stacked cache: ``k``/``v`` (L, B, KVH, S, D), or MLA's compressed
     latent ``ckv`` (L, B, S, kv_lora_rank) and shared roped key ``kpe``
-    (L, B, S, qk_rope_head_dim)."""
+    (L, B, S, qk_rope_head_dim). ``kv_heads``: a tensor-parallel rank's
+    KV heads (default KVH)."""
     L = cfg.num_hidden_layers
     if cfg.is_mla:
         return {
             "ckv": torch.zeros((L, batch, max_len, cfg.kv_lora_rank), dtype=dtype, device=device),
             "kpe": torch.zeros((L, batch, max_len, cfg.qk_rope_head_dim), dtype=dtype, device=device),
         }
-    shape = (L, batch, cfg.num_key_value_heads, max_len, cfg.head_dim)
+    shape = (L, batch, kv_heads or cfg.num_key_value_heads, max_len, cfg.head_dim)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
@@ -855,28 +864,58 @@ class Stack(nn.Module):
 
 
 class Attention(nn.Module):
-    def __init__(self, cfg: ModelConfig, layer: dict, use_rope: bool = True):
+    """GQA attention; with ``tp`` and a head-parallel layer plan ``lp`` over
+    the rank's query heads [h0, h1) and KV heads [k0, k1) (its slices of the
+    projections and of the cache), replicated per-head leaves (sinks,
+    OLMo-2's full-vector norms) cut to them at build, and one all-reduce
+    after o_proj."""
+
+    def __init__(self, cfg: ModelConfig, layer: dict, use_rope: bool = True, tp=None, lp=None):
         super().__init__()
         self.cfg = cfg
         self.use_rope = use_rope
+        self.tp = tp if lp is not None and lp.heads is not None else None
+        H, KVH, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+        (h0, h1), (k0, k1) = (lp.heads, lp.kv_heads) if self.tp is not None else ((0, H), (0, KVH))
+        self.n_heads, self.n_kv = h1 - h0, k1 - k0
         for name in ("q_proj", "k_proj", "v_proj", "o_proj"):
             setattr(self, name, Projection(layer[name]))
-        for name in ("q_bias", "k_bias", "v_bias", "q_norm", "k_norm", "o_bias", "sinks"):
+        for name in ("q_bias", "k_bias", "v_bias", "o_bias"):
             self.register_buffer(name, layer.get(name))
+        sinks, q_norm, k_norm = layer.get("sinks"), layer.get("q_norm"), layer.get("k_norm")
+        if self.tp is not None:
+            sinks = None if sinks is None else sinks[h0:h1]
+            if cfg.qk_norm_full:
+                q_norm, k_norm = q_norm[h0 * D:h1 * D], k_norm[k0 * D:k1 * D]
+        self.register_buffer("sinks", sinks)
+        self.register_buffer("q_norm", q_norm)
+        self.register_buffer("k_norm", k_norm)
 
     def _out(self, out: torch.Tensor) -> torch.Tensor:
-        """o_proj, plus GPT-OSS's o_proj bias."""
+        """o_proj (summed over the ranks), plus GPT-OSS's o_proj bias."""
         out = self.o_proj(out)
+        if self.tp is not None:
+            out = self.tp.all_reduce(out)
         return out if self.o_bias is None else out + self.o_bias
+
+    def _full_norm(self, x: torch.Tensor, weight: torch.Tensor, n: int) -> torch.Tensor:
+        """OLMo-2's RMSNorm over the FULL projected vector of ``n`` entries,
+        of which this rank holds a slice: the sum of squares is all-reduced."""
+        x32 = x.to(torch.float32)
+        ss = self.tp.all_reduce((x32 * x32).sum(dim=-1, keepdim=True))
+        return (x32 * torch.rsqrt(ss / n + self.cfg.rms_norm_eps) * weight.to(torch.float32)).to(x.dtype)
 
     def forward(self, x, cos, sin, positions, kv_cache, layer_idx, cache_pos, mask, slots=None):
         cfg = self.cfg
         B, T, _ = x.shape
-        H, KVH, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+        H, KVH, D = self.n_heads, self.n_kv, cfg.head_dim
         q, k, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)
         if self.q_bias is not None:
             q, k, v = q + self.q_bias, k + self.k_bias, v + self.v_bias
-        if cfg.qk_norm_full:  # olmo2: the FULL vectors, before the head split
+        if cfg.qk_norm_full and self.tp is not None:  # the full vectors span the ranks
+            q = self._full_norm(q, self.q_norm, cfg.num_attention_heads * D)
+            k = self._full_norm(k, self.k_norm, cfg.num_key_value_heads * D)
+        elif cfg.qk_norm_full:  # olmo2: the FULL vectors, before the head split
             q = rms_norm(q, self.q_norm, cfg.rms_norm_eps)
             k = rms_norm(k, self.k_norm, cfg.rms_norm_eps)
         q = q.reshape(B, T, H, D).transpose(1, 2)
@@ -942,9 +981,14 @@ class LatentAttention(nn.Module):
     W_v. The einsum path on every device: a T=1 call on the card counts
     under ``attn_kernels.launch_counts["decode_einsum"]``."""
 
-    def __init__(self, cfg: ModelConfig, layer: dict):
+    def __init__(self, cfg: ModelConfig, layer: dict, tp=None, lp=None):
         super().__init__()
         self.cfg = cfg
+        # head-parallel: the rank's heads [h0, h1) over the replicated latent
+        # cache (q_proj and o_proj are its slices; q_b_proj and kv_b_proj
+        # replicate and are cut to the heads at use), one all-reduce after o_proj
+        self.tp = tp if lp is not None and lp.heads is not None else None
+        self.h0, self.h1 = lp.heads if self.tp is not None else (0, cfg.num_attention_heads)
         for name in ("q_proj", "q_a_proj", "q_b_proj", "kv_a_proj", "kv_b_proj", "o_proj"):
             setattr(self, name, Projection(layer[name]) if name in layer else None)
         for name in ("q_a_layernorm", "kv_a_layernorm"):
@@ -953,12 +997,13 @@ class LatentAttention(nn.Module):
     def forward(self, x, cos, sin, positions, kv_cache, layer_idx, cache_pos, mask, slots=None):
         cfg = self.cfg
         B, T, _ = x.shape
-        H, dn, dr, dc, dv = (cfg.num_attention_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
-                             cfg.kv_lora_rank, cfg.v_head_dim)
+        h0, h1 = self.h0, self.h1
+        H, dn, dr, dc, dv = (h1 - h0, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.kv_lora_rank, cfg.v_head_dim)
         if self.q_proj is not None:  # no q_lora_rank (V2-Lite)
             q = self.q_proj(x)
         else:
             q = self.q_b_proj(rms_norm(self.q_a_proj(x), self.q_a_layernorm, cfg.rms_norm_eps))
+            q = q.reshape(B, T, -1, dn + dr)[:, :, h0:h1]
         q = q.reshape(B, T, H, dn + dr).transpose(1, 2)
         q_nope, q_pe = q[..., :dn], q[..., dn:]
         ckv = self.kv_a_proj(x)  # (B, T, dc + dr)
@@ -974,7 +1019,7 @@ class LatentAttention(nn.Module):
         if T == 1 and x.is_cuda:
             attn_kernels.launch_counts["decode_einsum"] += 1
 
-        wkb = self.kv_b_proj.dense(torch.float32).reshape(H, dn + dv, dc)
+        wkb = self.kv_b_proj.dense(torch.float32).reshape(-1, dn + dv, dc)[h0:h1]
         q_abs = torch.einsum("bhtd,hdc->bhtc", q_nope.to(torch.float32), wkb[:, :dn])
         scores = torch.einsum("bhtc,bsc->bhts", q_abs, c_keys) + torch.einsum(
             "bhtd,bsd->bhts", q_pe.to(torch.float32), pe_keys
@@ -984,19 +1029,25 @@ class LatentAttention(nn.Module):
         ctx = torch.einsum("bhts,bsc->bhtc", probs, c_keys)
         out = torch.einsum("bhtc,hvc->bhtv", ctx, wkb[:, dn:])
         out = out.transpose(1, 2).reshape(B, T, H * dv)
-        return self.o_proj(out.to(x.dtype))
+        out = self.o_proj(out.to(x.dtype))
+        return out if self.tp is None else self.tp.all_reduce(out)
 
 
 class MLP(nn.Module):
-    def __init__(self, layer: dict, hidden_act: str = "silu"):
+    """SwiGLU / GeGLU; with ``tp`` its slices (gate/up rows, down columns)
+    and one all-reduce after down_proj."""
+
+    def __init__(self, layer: dict, hidden_act: str = "silu", tp=None):
         super().__init__()
         self.hidden_act = hidden_act
+        self.tp = tp
         for name in ("gate_proj", "up_proj", "down_proj"):
             setattr(self, name, Projection(layer[name]))
 
     def forward(self, x):
         act = _act(self.gate_proj(x).to(torch.float32), self.hidden_act)
-        return self.down_proj(act.to(x.dtype) * self.up_proj(x))
+        out = self.down_proj(act.to(x.dtype) * self.up_proj(x))
+        return out if self.tp is None else self.tp.all_reduce(out)
 
 
 class MoE(nn.Module):
@@ -1006,11 +1057,14 @@ class MoE(nn.Module):
     Dense-and-mask: every expert runs on every token and its output is
     weighted (zero off its tokens), summed in f32 in expert order; with
     quantized experts each product is a quantized matmul (the int4 GEMV at
-    decode on the card)."""
+    decode on the card). With ``tp`` each expert is its slices (w1/w3 rows,
+    w2 columns): the weighted sum is one all-reduce, and the replicated
+    shared experts are added after it."""
 
-    def __init__(self, cfg: ModelConfig, layer: dict):
+    def __init__(self, cfg: ModelConfig, layer: dict, tp=None):
         super().__init__()
         self.cfg = cfg
+        self.tp = tp
         self.deepseek = cfg.model_type.startswith("deepseek")
         self.register_buffer("moe_gate", layer["moe_gate"])
         self.register_buffer("gate_bias", layer.get("gate_bias"))
@@ -1040,6 +1094,8 @@ class MoE(nn.Module):
         out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
         for e in range(n_exp):
             out = out + self.experts[e](x).to(torch.float32) * weights[..., e : e + 1]
+        if self.tp is not None:
+            out = self.tp.all_reduce(out)
         if self.shared is not None:
             out = out + self.shared(x).to(torch.float32)
         return out.to(x.dtype)
@@ -1048,11 +1104,15 @@ class MoE(nn.Module):
 class GptOssMoE(nn.Module):
     """GPT-OSS's expert block: :func:`gptoss_router_scores` (a biased
     router) and :func:`gptoss_expert_math` over the fused stacks, int8 /
-    int4 stacks dequantized to x.dtype at use."""
+    int4 stacks dequantized to x.dtype at use. With ``tp`` and a stack plan
+    [e0, e1) the rank runs its experts end to end (their per-expert biases
+    with them) and the score-weighted sum is one all-reduce."""
 
-    def __init__(self, cfg: ModelConfig, layer: dict):
+    def __init__(self, cfg: ModelConfig, layer: dict, tp=None, lp=None):
         super().__init__()
         self.cfg = cfg
+        self.tp = tp if lp is not None and lp.stacks is not None else None
+        self.e0, self.e1 = lp.stacks if self.tp is not None else (0, cfg.num_local_experts)
         e = layer["gptoss_experts"]
         self.register_buffer("moe_gate", layer["moe_gate"])
         self.register_buffer("moe_gate_bias", layer["moe_gate_bias"])
@@ -1061,9 +1121,11 @@ class GptOssMoE(nn.Module):
         self.gate_up, self.down = Stack(e["gate_up"]), Stack(e["down"])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        scores = gptoss_router_scores(self.cfg, self.moe_gate, self.moe_gate_bias, x)
+        scores = gptoss_router_scores(self.cfg, self.moe_gate, self.moe_gate_bias, x)[..., self.e0:self.e1]
         out = gptoss_expert_math(x, self.gate_up.dense(x.dtype), self.gate_up_bias, self.down.dense(x.dtype),
                                  self.down_bias, scores)
+        if self.tp is not None:
+            out = self.tp.all_reduce(out)
         return out.to(x.dtype)
 
 
@@ -1073,11 +1135,15 @@ class Llama4MoE(nn.Module):
     bias-free SwiGLU gives exactly 0); ``gate_up`` (E, hidden, 2I) split
     into contiguous halves; every product in f32 over stacks dequantized to
     f32 (the JAX semantics: each MoE layer holds the f32 stacks only while
-    it runs); plus the always-on shared expert."""
+    it runs); plus the always-on shared expert. With ``tp`` and a stack plan
+    [e0, e1) the rank runs its experts, the routed sum is one all-reduce and
+    the replicated shared expert is added after it."""
 
-    def __init__(self, cfg: ModelConfig, layer: dict):
+    def __init__(self, cfg: ModelConfig, layer: dict, tp=None, lp=None):
         super().__init__()
         self.cfg = cfg
+        self.tp = tp if lp is not None and lp.stacks is not None else None
+        self.e0, self.e1 = lp.stacks if self.tp is not None else (0, cfg.num_local_experts)
         e = layer["llama4_experts"]
         self.register_buffer("moe_gate", layer["moe_gate"])
         self.gate_up, self.down = Stack(e["gate_up"]), Stack(e["down"])
@@ -1086,7 +1152,7 @@ class Llama4MoE(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, T, D = x.shape
         xf = x.reshape(B * T, D).to(torch.float32)
-        scores = llama4_router_scores(self.cfg, self.moe_gate, xf)
+        scores = llama4_router_scores(self.cfg, self.moe_gate, xf)[:, self.e0:self.e1]
         scaled = xf[None] * scores.T[:, :, None]  # (E, N, hidden)
         gu = torch.matmul(scaled, self.gate_up.dense(torch.float32))
         del scaled
@@ -1094,12 +1160,14 @@ class Llama4MoE(nn.Module):
         h = _act(gate, self.cfg.hidden_act) * up
         del gu, gate, up
         routed = torch.einsum("eni,eih->nh", h, self.down.dense(torch.float32))
+        if self.tp is not None:
+            routed = self.tp.all_reduce(routed)
         out = routed.reshape(B, T, D) + self.shared(x).to(torch.float32)
         return out.to(x.dtype)
 
 
 class DecoderLayer(nn.Module):
-    def __init__(self, cfg: ModelConfig, layer: dict, layer_idx: int):
+    def __init__(self, cfg: ModelConfig, layer: dict, layer_idx: int, tp=None):
         super().__init__()
         self.eps = cfg.rms_norm_eps
         self.olmo2 = cfg.is_olmo2
@@ -1107,18 +1175,19 @@ class DecoderLayer(nn.Module):
         for name in ("input_layernorm", "post_attention_layernorm", "pre_feedforward_layernorm",
                      "post_feedforward_layernorm"):
             self.register_buffer(name, layer.get(name))
+        lp = tp.plan.layers[layer_idx] if tp is not None else None
         if cfg.is_mla:
-            self.self_attn = LatentAttention(cfg, layer)
+            self.self_attn = LatentAttention(cfg, layer, tp, lp)
         else:
-            self.self_attn = Attention(cfg, layer, cfg.layer_uses_rope(layer_idx))
+            self.self_attn = Attention(cfg, layer, cfg.layer_uses_rope(layer_idx), tp, lp)
         if "gptoss_experts" in layer:
-            self.mlp = GptOssMoE(cfg, layer)
+            self.mlp = GptOssMoE(cfg, layer, tp, lp)
         elif "llama4_experts" in layer:
-            self.mlp = Llama4MoE(cfg, layer)
+            self.mlp = Llama4MoE(cfg, layer, tp, lp)
         elif "experts" in layer:
-            self.mlp = MoE(cfg, layer)
+            self.mlp = MoE(cfg, layer, tp if lp is not None and lp.experts else None)
         else:
-            self.mlp = MLP(layer, cfg.hidden_act)
+            self.mlp = MLP(layer, cfg.hidden_act, tp if lp is not None and lp.mlp else None)
 
     def forward(self, x, cos, sin, positions, kv_cache, layer_idx, cache_pos, mask, slots=None):
         eps, po = self.eps, self.po
@@ -1140,14 +1209,20 @@ class DecoderLayer(nn.Module):
 class LlamaModel(nn.Module):
     """Embedding, decoder stack, final norm and lm_head over a params dict
     ``{"embed_tokens", "norm", "lm_head"?, "layers": [dict, ...]}`` (the
-    JAX param pytree's layout; see models/loader.py and models/convert.py)."""
+    JAX param pytree's layout; see models/loader.py and models/convert.py).
+    With ``tp`` (parallel/tp.TPGroup) the params are the rank's slices
+    (parallel/train.shard_params of ``tp.plan``)."""
 
-    def __init__(self, cfg: ModelConfig, params: dict):
+    def __init__(self, cfg: ModelConfig, params: dict, tp=None):
         super().__init__()
         self.cfg = cfg
+        self.tp = tp
+        self.vocab = tp.plan.vocab if tp is not None else None
         self.register_buffer("embed_tokens", params["embed_tokens"])
         self.register_buffer("norm", params["norm"])
-        self.layers = nn.ModuleList(DecoderLayer(cfg, layer, i) for i, layer in enumerate(params["layers"]))
+        self.layers = nn.ModuleList(DecoderLayer(cfg, layer, i, tp) for i, layer in enumerate(params["layers"]))
+        # the KV heads of this rank's cache (every layer shares the plan)
+        self.kv_heads = self.layers[0].self_attn.n_kv if not cfg.is_mla else None
         head = params.get("lm_head")
         self.lm_head = Projection(head if head is not None else params["embed_tokens"])
         # each layer's mask kind
@@ -1195,7 +1270,13 @@ class LlamaModel(nn.Module):
         Returns (f32 logits (B, T, V), kv_cache), the cache updated in
         place."""
         cfg = self.cfg
-        x = self.embed_tokens[input_ids]
+        if self.vocab is None:
+            x = self.embed_tokens[input_ids]
+        else:  # vocab-parallel: the rows this rank holds, zeros elsewhere, summed
+            local = input_ids - self.vocab[0]
+            held = (local >= 0) & (local < self.embed_tokens.shape[0])
+            x = self.embed_tokens[local.clamp(0, self.embed_tokens.shape[0] - 1)]
+            x = self.tp.all_reduce(torch.where(held[..., None], x, torch.zeros((), dtype=x.dtype, device=x.device)))
         if cfg.is_gemma:
             # sqrt(hidden), rounded to the activations' dtype first
             x = x * torch.tensor(cfg.hidden_size**0.5, dtype=x.dtype, device=x.device)
@@ -1233,6 +1314,8 @@ class LlamaModel(nn.Module):
             x = layer(x, cos, sin, positions, kv_cache, i, cache_pos, masks[kind], slots.get(kind))
         x = rms_norm(x, self.norm, cfg.rms_norm_eps, cfg.is_gemma)
         logits = self.lm_head(x).to(torch.float32)
+        if self.vocab is not None:
+            logits = self.tp.gather_vocab(logits)
         if cfg.final_logit_softcapping:
             cap = float(np.float32(cfg.final_logit_softcapping))
             logits = cap * torch.tanh(logits / cap)

@@ -24,6 +24,13 @@ found must be the config's ``moe_layers``. GPT-OSS's shipped MXFP4 stacks
 staged until both halves are in, then decoded to f32 on ``device``
 (``quant.dequant_mxfp4``) and, with ``quant_bits``, quantized there.
 
+With ``tp`` (a rank's parallel/train.Plan) each tensor is cut to this
+rank's slice on the host before its copy (parallel/train.shard_leaf), so a
+rank never holds the whole model on its device: quantized weights are
+quantized whole first (a row-parallel slice keeps the full row's scale) and
+a packed-int4 row slice is re-packed over its own columns; GPT-OSS's MXFP4
+halves are cut to the rank's experts before they are decoded.
+
 A PEFT LoRA adapter directory loads as its base checkpoint with the pairs
 fused per tensor as they are read (``resolve_checkpoint_dir``; the fuse is
 ``tools/fuse_lora.fuse_pair``, so loading an adapter equals loading its
@@ -186,11 +193,14 @@ def load_params(
     quant_bits: Optional[int] = None,
     device="cpu",
     resolved=None,
+    tp=None,
 ) -> dict:
     """Params dict ``{"embed_tokens", "norm", "lm_head"?, "layers"}`` on
     ``device``, projections quantized to ``quant_bits`` (4 or 8) if given.
     ``model_path`` may be an adapter directory; a caller that resolved it
-    already passes ``resolved=(weights_dir, adapter)``."""
+    already passes ``resolved=(weights_dir, adapter)``. ``tp``: a rank's
+    tensor-parallel plan (parallel/train.plan); the params are then its
+    slices."""
     from ..io.index import PACKED_PARTS
     from ..tools.fuse_lora import fuse_pair
     from .quant import dequant_awq, dequant_gptq
@@ -209,13 +219,31 @@ def load_params(
     else:
         raise FileNotFoundError(f"No safetensors weights in {model_path}")
 
+    def cut(leaf, key, layer_idx=None, stack=None):
+        """This rank's slice of a host leaf (the whole leaf without ``tp``)."""
+        if tp is None:
+            return leaf
+        from ..parallel.train import shard_leaf
+
+        return shard_leaf(cfg, tp, key, leaf, layer_idx, stack)
+
     def place(t):
         return t.to(device=device, dtype=dtype)
 
-    def place_stack(w, key):
+    def place_weight(w, key, layer_idx, quantized):
+        """A projection or expert matrix: quantized whole on the host when
+        asked, then cut, then copied."""
+        if quantized:
+            return {k: v.to(device) for k, v in cut(quantize(w, quant_bits), key, layer_idx).items()}
+        return place(cut(w, key, layer_idx))
+
+    def place_stack(w, key, layer_idx, group, whole=True):
+        """A fused stack (``whole``: not yet cut to the rank's experts)."""
         if quant_bits and key in ("gate_up", "down"):
-            return {k: v.to(device) for k, v in quantize_stacked(w, quant_bits).items()}
-        return place(w)
+            qd = quantize_stacked(w, quant_bits)
+            qd = cut(qd, key, layer_idx, group) if whole else qd
+            return {k: v.to(device) for k, v in qd.items()}
+        return place(cut(w, key, layer_idx, group) if whole else w)
 
     mxfp4_pending: dict = {}  # (layer, gate_up_proj | down_proj) -> its blocks / scales so far
 
@@ -250,18 +278,19 @@ def load_params(
                     pair = adapter["pairs"][name]
                     arr = fuse_pair(arr, pair["A"], pair["B"], adapter["scale"])
                 if name == "model.embed_tokens.weight":
-                    params["embed_tokens"] = place(arr)
+                    params["embed_tokens"] = place(cut(arr, "embed_tokens"))
                 elif name == "model.norm.weight":
                     params["norm"] = place(arr)
                 elif name == "lm_head.weight":
-                    params["lm_head"] = place(arr)
+                    params["lm_head"] = place(cut(arr, "lm_head"))
                 elif name.startswith("model.layers."):
                     parts = name.split(".")
                     suffix = ".".join(parts[3:])
-                    layer = params["layers"][int(parts[2])]
+                    li = int(parts[2])
+                    layer = params["layers"][li]
                     if suffix in _STACKS:
                         group, key = _STACKS[suffix]
-                        layer.setdefault(group, {})[key] = place_stack(arr, key)
+                        layer.setdefault(group, {})[key] = place_stack(arr, key, li, group)
                         continue
                     if suffix.startswith("mlp.experts.") and suffix.endswith(("_blocks", "_scales")):
                         # gpt-oss's MXFP4 stacks: stage each half (copied:
@@ -272,19 +301,19 @@ def load_params(
                         pend[half] = arr.clone()
                         if len(pend) == 2:
                             del mxfp4_pending[(int(parts[2]), stem)]
-                            w = dequant_mxfp4(pend["blocks"].to(device), pend["scales"].to(device))
                             group, key = _STACKS["mlp.experts." + stem]
-                            layer.setdefault(group, {})[key] = place_stack(w, key)
+                            # the halves lead with the expert axis: cut them
+                            # to the rank's experts before decoding
+                            blocks, scales = (cut(pend[h], key, li, group) for h in ("blocks", "scales"))
+                            w = dequant_mxfp4(blocks.to(device), scales.to(device))
+                            layer.setdefault(group, {})[key] = place_stack(w, key, li, group, whole=False)
                         continue
                     if suffix.startswith(("block_sparse_moe.experts.", "mlp.experts.")) and parts[5].isdigit():
                         # model.layers.N.block_sparse_moe.experts.E.w{1,2,3}.weight (mixtral)
                         # model.layers.N.mlp.experts.E.{gate,up,down}_proj.weight (qwen3-moe, deepseek)
                         experts = layer.setdefault("experts", [dict() for _ in range(cfg.num_local_experts)])
                         wname = _EXPERT_WEIGHTS[parts[6]]
-                        experts[int(parts[5])][wname] = (
-                            {k: v.to(device) for k, v in quantize(arr, quant_bits).items()} if quant_bits
-                            else place(arr)
-                        )
+                        experts[int(parts[5])][wname] = place_weight(arr, wname, li, bool(quant_bits))
                         continue
                     if cfg.model_type == "glm4" and suffix in _GLM4_NORMS:
                         pieces = [(_GLM4_NORMS[suffix], arr)]
@@ -298,11 +327,7 @@ def load_params(
                                 )
                             pieces = [(key, arr)]
                     for key, w in pieces:
-                        if quant_bits and key in QUANTIZABLE:
-                            w = {k: v.to(device) for k, v in quantize(w, quant_bits).items()}
-                        else:
-                            w = place(w)
-                        layer[key] = w
+                        layer[key] = place_weight(w, key, li, bool(quant_bits) and key in QUANTIZABLE)
                 else:
                     logger.warning("Skipping unknown weight %s", name)
 

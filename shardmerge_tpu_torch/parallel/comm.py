@@ -14,6 +14,14 @@ its device, and offers the merge's collectives:
 - ``gather_rows``: a row-sharded result gathered to the first rank in row
   blocks of bounded bytes, for the write-back.
 
+The tensor-parallel decoder (parallel/tp.py) adds:
+
+- ``all_reduce_sum``: the sum of every rank's partial, accumulated in a
+  chosen dtype in rank order from an all-gather, so that every rank holds
+  the same bits whatever the transport's reduction order;
+- ``all_gather_last``: the vocab-parallel logits joined along the last axis;
+- ``broadcast_object``: the first rank's call records, over a control group.
+
 Ranks sit at positions 0..P-1 (``merge_mesh`` orders them host by host);
 position p holds rows [p M/P, (p+1) M/P) and the p-th column block.
 
@@ -99,7 +107,7 @@ class Comm:
     (host-staged collectives are synchronous, so their seconds are their
     wall; an NCCL call's are its launch)."""
 
-    def __init__(self, device, order: Optional[Sequence[int]] = None):
+    def __init__(self, device, order: Optional[Sequence[int]] = None, serialized: bool = False):
         import torch.distributed as dist
 
         self._dist = dist
@@ -117,7 +125,9 @@ class Comm:
         self.staged = self.backend == "gloo" and self.device.type == "cuda"
         self.stats = {}
         self.hosts = 1  # hosts the ranks span (merge_mesh counts them)
-        self._owner = threading.get_ident()
+        # serialized: the caller orders every collective under one lock
+        # (the tensor-parallel leader's), from whichever thread holds it
+        self._owner = None if serialized else threading.get_ident()
 
     @property
     def transport(self) -> str:
@@ -131,7 +141,7 @@ class Comm:
     # -- plumbing -------------------------------------------------------------
 
     def _enter(self):
-        if threading.get_ident() != self._owner:
+        if self._owner is not None and threading.get_ident() != self._owner:
             raise RuntimeError(
                 "a merge collective ran off the thread that owns the rank's group: "
                 "every rank must run its collectives in one order, from one thread"
@@ -238,3 +248,42 @@ class Comm:
         if out is None:
             return None
         return out.reshape((p * m,) + tuple(x.shape[1:]))
+
+    def _gather_flat(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``x`` stacked in rank order: (P,) + x.shape, on x's device."""
+        send = self._out(x.contiguous().reshape(-1))
+        recv = torch.empty((self.size * send.numel(),), dtype=send.dtype, device=send.device)
+        self._dist.all_gather_into_tensor(recv, send)
+        return self._back(recv, x).reshape((self.size,) + tuple(x.shape))
+
+    def all_reduce_sum(self, x: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """The sum over the ranks of ``x``, in x.dtype: every rank's partial
+        is gathered and summed in rank order in ``dtype`` (default x.dtype),
+        so every rank holds the same bits."""
+        self._enter()
+        t0 = time.perf_counter()
+        recv = self._gather_flat(x)
+        acc = recv[0].to(dtype or x.dtype)
+        for r in range(1, self.size):
+            acc = acc + recv[r].to(acc.dtype)
+        self._count("all_reduce", x.nbytes, t0)
+        return acc.to(x.dtype)
+
+    def all_gather_last(self, x: torch.Tensor) -> torch.Tensor:
+        """(..., n) on every rank -> (..., P n), rank r's block at [r n, (r+1) n)."""
+        self._enter()
+        t0 = time.perf_counter()
+        recv = self._gather_flat(x)
+        out = recv.movedim(0, -2).reshape(tuple(x.shape[:-1]) + (self.size * x.shape[-1],))
+        self._count("all_gather", x.nbytes, t0)
+        return out
+
+    def broadcast_object(self, obj=None, group=None):
+        """The first rank's picklable ``obj`` on every rank (over ``group``,
+        a host-side control group)."""
+        self._enter()
+        t0 = time.perf_counter()
+        box = [obj]
+        self._dist.broadcast_object_list(box, src=self.order[0], group=group)
+        self._count("broadcast", 0, t0)
+        return box[0]

@@ -26,8 +26,10 @@ concurrently); the continuous pool's daemon takes the same lock for each of
 its steps. On the card every T=1 decode attention of these paths runs the
 flash-decode kernel and every int4 decode GEMV the int4 kernel.
 
-Not ported yet (``serve`` raises ``NotImplementedError`` naming it):
-tensor-parallel serving (``shard``).
+``serve(shard=True)`` under a launcher's ranks (``torchrun
+--nproc-per-node P``) serves tensor parallel (parallel/tp.py): rank 0 loads
+its slices and runs the server, every other rank loads its slices and
+replays rank 0's model and cache calls until rank 0's server stops.
 """
 
 from __future__ import annotations
@@ -810,6 +812,10 @@ class ModelServer:
             self.batcher.stop()
         if self.pool is not None:
             self.pool.stop()
+        # a tensor-parallel engine's followers return once the server stops
+        stop = getattr(self.engine, "stop", None)
+        if stop is not None:
+            stop()
 
 
 def serve(
@@ -830,7 +836,7 @@ def serve(
     warmup: bool = False,
     device="cuda:0",
     tokenizer=None,
-) -> ModelServer:
+) -> Optional[ModelServer]:
     """Load a model and start the HTTP server (CLI entry). ``draft_model``
     enables speculative decoding (``speculation_k`` tokens a round) for
     greedy single-prompt requests and the greedy pool; ``batch_window_ms``
@@ -840,12 +846,12 @@ def serve(
     skip its prefill; ``continuous`` > 0 serves greedy requests from a
     continuously batched pool of that many slots (requests join the running
     decode and free their slot the moment they finish; see
-    batching.ContinuousEngine). ``shard`` is the JAX server's option that
-    is not ported (ROADMAP A.10b)."""
+    batching.ContinuousEngine). ``shard`` serves tensor parallel over the
+    ranks a launcher started: rank 0 returns the running server; every
+    other rank replays rank 0's calls until that server stops and returns
+    None (with one rank ``shard`` only logs)."""
     from .inference import InferenceEngine
 
-    if shard:
-        raise NotImplementedError("serve options not ported yet: tensor-parallel serving (shard; ROADMAP A.10b)")
     engine = InferenceEngine.from_pretrained(
         model_path,
         load_in_4bit=load_in_4bit,
@@ -855,7 +861,11 @@ def serve(
         draft_model=draft_model,
         speculation_k=speculation_k,
         prefix_cache_slots=prefix_cache,
+        shard=shard,
     )
+    if engine.follower:
+        engine.follow()
+        return None
     server = ModelServer(
         engine,
         model_id=str(model_path),

@@ -77,3 +77,11 @@ def test_the_guard_reads_the_merge_across_ranks():
     names = {str(p.relative_to(REPO)) for p in FILES}
     wanted = {f"shardmerge_tpu_torch/parallel/{m}.py" for m in ("__init__", "comm", "fft2d", "merge", "multihost")}
     assert wanted | {"scripts/merge_ranks_torch.py"} <= names
+
+
+def test_the_tensor_parallel_modules_are_guarded():
+    """The tensor-parallel placement and protocol modules and the four-GPU
+    decoding script are among the files the guard reads."""
+    names = {str(p.relative_to(REPO)) for p in FILES}
+    assert {"shardmerge_tpu_torch/parallel/train.py", "shardmerge_tpu_torch/parallel/tp.py",
+            "scripts/serve_ranks_torch.py"} <= names

@@ -5,7 +5,10 @@ Both servers run on the same weights with the same stub tokenizer and a
 continuous pool of 2 slots; every request goes to both, one at a time, and
 the JSON bodies (status codes, texts, finish reasons, usage) must be equal.
 The port's DynamicBatcher, warmup, ``serve()`` and CLI entry are tested on
-their own.
+their own. ``serve --shard`` runs as two gloo ranks (tests/torch_ranks.py)
+of the CLI: its completions and SSE events are held to the JAX server's
+JSON on the same checkpoint, the follower exits 0 when rank 0's server
+stops, and a rank that raises ends both ranks with a nonzero exit.
 """
 
 import json
@@ -13,6 +16,7 @@ import threading
 import time
 import urllib.error
 import urllib.request
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -229,14 +233,28 @@ def test_serve_entry_loads_warms_up_and_answers(tmp_path):
         server.stop()
 
 
-def test_unported_serve_options_raise_by_name(tmp_path, capsys):
+def test_unported_serve_options_raise_by_name(tmp_path, caplog):
+    """``serve(shard=True)`` (once refused) with one rank only logs, as the
+    JAX server does on one device: the engine is the unsharded one and
+    answers; the CLI's option checks still refuse a pool beyond 64 slots."""
+    import logging
+
     from shardmerge_tpu_torch.cli import main
     from shardmerge_tpu_torch.serve import serve
 
-    with pytest.raises(NotImplementedError, match="shard"):
-        serve(str(tmp_path), device="cpu", shard=True)
-    assert main(["serve", str(tmp_path), "--shard", "--device", "cpu"]) == 2
-    assert "shard" in capsys.readouterr().err
+    from .test_torch_engine import _save_tiny_checkpoint
+
+    _save_tiny_checkpoint(tmp_path)
+    with caplog.at_level(logging.INFO, logger="shardmerge_tpu_torch.parallel.tp"):
+        server = serve(str(tmp_path), port=0, device="cpu", shard=True, tokenizer=StubTokenizer())
+    try:
+        assert server.engine.tp is None and "one rank, nothing to shard" in caplog.text
+        status, body = _call(server.port, "/v1/completions", {"prompt": "one rank", **GREEDY})
+        assert status == 200
+        assert body["choices"][0]["text"] == "".join(
+            server.engine.stream_generation("one rank", max_new_tokens=8, greedy=True))
+    finally:
+        server.stop()
     with pytest.raises(SystemExit):
         main(["serve", str(tmp_path), "--continuous", "65"])  # beyond the pool's 64 slots
 
@@ -273,3 +291,123 @@ def test_serve_entry_takes_speculation_and_the_prefix_cache(tmp_path, option):
             assert "prefix_cache" not in stats
     finally:
         server.stop()
+
+
+# -- serve --shard over two gloo ranks ----------------------------------------------
+
+SHARD_REQUESTS = [
+    ("/v1/completions", {"prompt": "hello there", "greedy": True, "max_tokens": 8}),
+    ("/v1/completions", {"prompt": ["hello", "there hello tok3"], "greedy": True, "max_tokens": 6}),
+    ("/v1/completions", {"prompt": "tok5 tok7 hello", "greedy": True, "max_tokens": 6, "stream": True}),
+    ("/v1/chat/completions", {"messages": [{"role": "user", "content": "hello"}], "greedy": True,
+                              "max_tokens": 5}),
+]
+
+
+def _serve_ranks(tmp_path, model, argv_extra=(), script=None):
+    """Start ``serve MODEL --shard`` as two gloo ranks of the CLI (or of
+    ``script``); returns (processes, port, logs) once rank 0 answers."""
+    from .torch_ranks import free_port, start
+
+    port = free_port()
+    argv = ["serve", str(model), "--shard", "--device", "cpu", "--port", str(port), "--continuous", "4",
+            *argv_extra]
+    logs = tmp_path / "logs"
+    head = [str(script)] if script else ["-m", "shardmerge_tpu_torch"]
+    procs = start(head + argv, 2, logs, env={"SHARDMERGE_HEARTBEAT_TIMEOUT_S": "20"})
+    deadline = time.monotonic() + 45
+    while time.monotonic() < deadline:
+        if any(p.poll() is not None for p in procs):
+            break
+        try:
+            urllib.request.urlopen(f"http://127.0.0.1:{port}/health", timeout=2).read()
+            return procs, port, logs
+        except OSError:
+            time.sleep(0.2)
+    for p in procs:
+        p.kill()
+    raise AssertionError("rank 0 never served: " + (logs / "rank0.err").read_text()[-3000:]
+                         + (logs / "rank1.err").read_text()[-2000:])
+
+
+def test_sharded_serve_on_two_ranks_answers_as_the_jax_server(tmp_path):
+    """``serve --shard --continuous 4`` on 2 gloo ranks: pooled completions,
+    a list prompt, SSE events and a chat completion carry the JAX server's
+    JSON (the same checkpoint, unsharded there: greedy tokens do not depend
+    on the split); after SIGINT to rank 0 both ranks exit 0, the follower
+    having replayed every call."""
+    import signal
+
+    from shardmerge_tpu.inference import InferenceEngine as JaxEngine
+
+    from .test_torch_tools import _hf_llama
+    from .torch_ranks import wait
+
+    model = tmp_path / "m"
+    _hf_llama(model, seed=23, layers=2)
+    procs, port, logs = _serve_ranks(tmp_path, model)
+    try:
+        got = [_call(port, path, payload) for path, payload in SHARD_REQUESTS]
+    finally:
+        procs[0].send_signal(signal.SIGINT)
+        results = wait(procs, logs, timeout=30)
+    assert [rc for rc, _, _ in results] == [0, 0], results[0][2][-2000:] + results[1][2][-2000:]
+    assert "stopped by rank 0" in results[1][2]
+    jax_server = JaxServer(JaxEngine.from_pretrained(str(model)), model_id=str(model), continuous_slots=4)
+    jport = jax_server.start(port=0)
+    try:
+        want = [_call(jport, path, payload) for path, payload in SHARD_REQUESTS]
+    finally:
+        jax_server.stop()
+    for (path, payload), a, b in zip(SHARD_REQUESTS, got, want):
+        if path.endswith("chat/completions"):  # ids and timestamps are per server
+            for body in (a[1], b[1]):
+                for key in ("id", "created"):
+                    body.pop(key, None)
+        assert a == b, payload
+
+
+def test_a_rank_that_raises_ends_every_rank(tmp_path):
+    """A follower whose third forward raises exits 1 naming its rank and the
+    call; rank 0's collective with it fails, the request answers 500 and
+    rank 0 exits nonzero, both well within the group's timeout."""
+    from .test_torch_tools import _hf_llama
+    from .torch_ranks import wait
+
+    model = tmp_path / "m"
+    _hf_llama(model, seed=29, layers=1)
+    procs, port, logs = _serve_ranks(tmp_path, model, script=Path(__file__).resolve())
+    t0 = time.monotonic()
+    status, body = _call(port, "/v1/completions", {"prompt": "hello there", "greedy": True, "max_tokens": 8})
+    results = wait(procs, logs, timeout=40)
+    assert status == 500 and "error" in body
+    assert results[1][0] == 1 and "rank 1 failed in call forward#" in results[1][2]
+    assert results[0][0] not in (0, None), results[0][2][-2000:]
+    assert "rank 0 failed in call forward#" in results[0][2]
+    assert time.monotonic() - t0 < 40
+
+
+def _failing_follower():
+    """Run the CLI with rank 1's model raising at its third forward."""
+    import os
+    import sys
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    from shardmerge_tpu_torch.cli import main
+    from shardmerge_tpu_torch.models import llama
+
+    if os.environ["RANK"] == "1":
+        forward, calls = llama.LlamaModel.forward, []
+
+        def failing(self, *args, **kwargs):
+            calls.append(1)
+            if len(calls) == 3:
+                raise RuntimeError("planted failure")
+            return forward(self, *args, **kwargs)
+
+        llama.LlamaModel.forward = failing
+    sys.exit(main(sys.argv[1:]))
+
+
+if __name__ == "__main__":
+    _failing_follower()

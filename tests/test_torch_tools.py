@@ -62,8 +62,9 @@ def _cfg(tmp_path, base, fts, out, **extra):
 
 # -- the command set ----------------------------------------------------------
 
-# JAX options the port accepts but refuses by name, with the queue item of
-# ROADMAP.md section A that ports each
+# JAX options the port once refused by name, with the queue item of
+# ROADMAP.md section A that ported them: tensor parallelism over launched
+# ranks, which with one rank only logs
 REFUSED = {
     ("generate", "--shard"): "A.10b",
     ("serve", "--shard"): "A.10b",
@@ -102,13 +103,30 @@ def test_the_port_cli_has_every_jax_command_and_option():
 
 
 @pytest.mark.parametrize("command,option", sorted(REFUSED), ids=lambda v: str(v))
-def test_unported_options_are_refused_by_name(tmp_path, capsys, command, option):
-    (tmp_path / "m").mkdir()
-    value = {"--draft-model": [str(tmp_path / "m")], "--speculation-k": ["2"], "--decode-chunk": ["4"],
-             "--prefix-cache": ["2"], "--shard": []}[option]
-    argv = [command, str(tmp_path / "m")] + (["p"] if command == "generate" else []) + [option, *value]
-    assert torch_cli(argv + ["--device", "cpu"]) == 2
-    assert option.lstrip("-").replace("-", "_") in capsys.readouterr().err.replace("-", "_")
+def test_unported_options_are_refused_by_name(tmp_path, capsys, monkeypatch, caplog, command, option):
+    """``--shard`` (once refused, exit 2) with one rank only logs: generate
+    prints the unsharded greedy text; serve answers until interrupted and
+    exits 0."""
+    import logging
+
+    _hf_llama(tmp_path / "m", seed=31, layers=1)
+    if command == "generate":
+        argv = ["generate", str(tmp_path / "m"), "hello there", "--max-tokens", "5", "--greedy", "--device", "cpu"]
+        assert torch_cli(argv) == 0
+        plain = capsys.readouterr().out
+        with caplog.at_level(logging.INFO, logger="shardmerge_tpu_torch.parallel.tp"):
+            assert torch_cli(argv + [option]) == 0
+        assert capsys.readouterr().out == plain and "one rank, nothing to shard" in caplog.text
+        return
+    from shardmerge_tpu_torch import cli as tcli
+
+    def interrupt(_):
+        raise KeyboardInterrupt
+
+    monkeypatch.setattr(tcli.time, "sleep", interrupt)
+    with caplog.at_level(logging.INFO, logger="shardmerge_tpu_torch.parallel.tp"):
+        assert torch_cli(["serve", str(tmp_path / "m"), option, "--device", "cpu", "--port", "0"]) == 0
+    assert "Serving" in capsys.readouterr().out and "one rank, nothing to shard" in caplog.text
 
 
 @pytest.mark.parametrize("command,option", sorted(ACCEPTED), ids=lambda v: str(v))
@@ -385,17 +403,23 @@ def test_cli_generate_wires_its_options(monkeypatch, tmp_path, capsys):
     calls = {}
 
     class FakeEngine:
+        follower = False  # rank 0 (or the only rank) of a tensor-parallel engine
+
         @classmethod
         def from_pretrained(cls, path, load_in_4bit=False, load_in_8bit=False, device=None, draft_model=None,
-                            speculation_k=4):
+                            speculation_k=4, shard=False):
             calls["init"] = (str(path), load_in_4bit, load_in_8bit, str(device))
             calls["draft"] = (draft_model, speculation_k)
+            calls["shard"] = shard
             return cls()
 
         def stream_generation(self, **kw):
             calls["gen"] = kw
             yield "hello"
             yield " world"
+
+        def stop(self):
+            calls["stopped"] = True
 
     monkeypatch.setattr(inf, "InferenceEngine", FakeEngine)
     (tmp_path / "model").mkdir()
@@ -404,6 +428,7 @@ def test_cli_generate_wires_its_options(monkeypatch, tmp_path, capsys):
     assert "hello world" in capsys.readouterr().out
     assert calls["init"] == (str(tmp_path / "model"), True, False, "cpu")
     assert calls["draft"] == (None, 4)
+    assert calls["shard"] is False and calls["stopped"] is True
     assert calls["gen"]["max_new_tokens"] == 7 and calls["gen"]["temperature"] == 0.5
     assert calls["gen"]["greedy"] is True
     assert torch_cli(["generate", str(tmp_path / "model"), "x", "--no-greedy", "--device", "cpu"]) == 0

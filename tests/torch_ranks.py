@@ -1,7 +1,8 @@
 """Launch the port's merge ranks as gloo processes on localhost, the way
 ``torchrun`` starts them (the ``env://`` rendezvous variables), for the
 multi-rank CPU tests (tests/test_torch_parallel.py,
-tests/test_torch_multihost.py). Imports nothing of JAX."""
+tests/test_torch_multihost.py, tests/test_torch_tp.py,
+tests/test_torch_serve.py). Imports nothing of JAX."""
 
 from __future__ import annotations
 
@@ -21,11 +22,9 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def launch(argv: Sequence[str], world: int, logs: Path, timeout: float = 240.0,
-           env: dict = None) -> List[Tuple[int, str, str]]:
-    """Run ``python argv`` as ranks 0..world-1 of one group; returns each
-    rank's (exit code, stdout, stderr). A rank still running at ``timeout``
-    (a hang) is killed, and its code is reported as None."""
+def start(argv: Sequence[str], world: int, logs: Path, env: dict = None) -> List[subprocess.Popen]:
+    """Start ``python argv`` as ranks 0..world-1 of one group, each rank's
+    stdout and stderr in ``logs``; returns the processes (not waited for)."""
     logs.mkdir(parents=True, exist_ok=True)
     port = free_port()
     procs = []
@@ -42,21 +41,32 @@ def launch(argv: Sequence[str], world: int, logs: Path, timeout: float = 240.0,
             "OMP_NUM_THREADS": "1",
             **(env or {}),
         }
-        out = open(logs / f"rank{rank}.out", "w")
-        err = open(logs / f"rank{rank}.err", "w")
-        procs.append((subprocess.Popen([sys.executable, *argv], env=rank_env, cwd=str(REPO),
-                                       stdout=out, stderr=err), out, err))
+        with open(logs / f"rank{rank}.out", "w") as out, open(logs / f"rank{rank}.err", "w") as err:
+            procs.append(subprocess.Popen([sys.executable, *argv], env=rank_env, cwd=str(REPO), stdout=out,
+                                          stderr=err))
+    return procs
+
+
+def wait(procs, logs: Path, timeout: float) -> List[Tuple[int, str, str]]:
+    """Each rank's (exit code, stdout, stderr); a rank still running at
+    ``timeout`` (a hang) is killed, with every other, and its code is None."""
     results = []
-    for rank, (proc, out, err) in enumerate(procs):
+    for rank, proc in enumerate(procs):
         try:
             rc = proc.wait(timeout=timeout)
         except subprocess.TimeoutExpired:
-            for p, _, _ in procs:
+            for p in procs:
                 p.kill()
             rc = None
-        out.close()
-        err.close()
         results.append((rc, (logs / f"rank{rank}.out").read_text(), (logs / f"rank{rank}.err").read_text()))
-    for p, _, _ in procs:
+    for p in procs:
         p.wait()
     return results
+
+
+def launch(argv: Sequence[str], world: int, logs: Path, timeout: float = 240.0,
+           env: dict = None) -> List[Tuple[int, str, str]]:
+    """Run ``python argv`` as ranks 0..world-1 of one group; returns each
+    rank's (exit code, stdout, stderr). A rank still running at ``timeout``
+    (a hang) is killed, and its code is reported as None."""
+    return wait(start(argv, world, logs, env), logs, timeout)

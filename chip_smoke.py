@@ -11,7 +11,7 @@ Phases (each prints one line or a few; any failure exits non-zero):
 3. kernel int4_gemv: hold it to ``int4_matmul_plain`` at the Llama-3.1-8B
    decode shapes, B = 1, 4, 8, 32, 64, f32 and bf16 x (relL2 <= 1e-5 f32,
    <= 4e-3 bf16), and row 0's bits at B = 1 to those at every other B;
-   device times (CUDA graphs, L2 flushed by a read) beside the PR 1
+   bf16 device times (CUDA graphs, L2 flushed by a read) beside the first
    design's, the plain version, the bound, the bf16 dense matmul (4x the
    bytes) and ``torch._weight_int4pack_mm`` (bf16 scales; a yardstick);
    one decode layer's seven GEMVs summed at B = 1, 4, 8, 64;
@@ -55,19 +55,20 @@ Phases (each prints one line or a few; any failure exits non-zero):
    merge thread's Python stack is sampled every 5 ms: where its time went,
    by site, and which threads moved across the longest gap in the samples;
 8. stack: three more finetunes of the same base (delta scales 0.02, 0.05,
-   0.13 beside ft1's 0.01: first-round norms 1 : 2 : 5 : 13), a 4-finetune
-   and a 3-finetune merge through the CLI: index mirrored, finite bf16,
-   3 (2) pair merges and 2 host syncs a merged tensor. On one q_proj and
+   0.13 beside ft1's 0.01: first-round norms 1 : 2 : 5 : 13), a 3-finetune
+   and a 4-finetune merge through the CLI: index mirrored, finite bf16,
+   2 (3) pair merges and 2 host syncs a merged tensor. On one q_proj and
    one down_proj the card's in-process reduction must give the CLI's bits,
    every round-1 pair merge must agree with the host on the same inputs
    (97% within 2e-2), and every later pair's blend must agree with the
-   host's on identical spectra (cutoff threshold bit for bit, relL2 1e-5);
+   host's on identical spectra (cutoff threshold bit for bit, relL2 1e-5;
+   the host's side runs on a worker thread beside the variants below and
+   [shard], and is gated after [shard]);
    batch_rounds' batched pair merges must hold to the per-pair path on the
    same inputs (relL2 1e-6), and the two reductions are timed in turn. On
    a 3-tensor subset: hbm_budget_gb 0 (with spills) and prefetch_depth 0
    must give the default run's bits, and the default the CLI's bits
-   (batch_rounds' whole outputs are printed beside them); the 4-finetune
-   merge's spans, sequential and pipelined, as in 7;
+   (batch_rounds' whole outputs are printed beside them);
 9. shard: the fourier merge across ranks. Two ranks share the card
    (``torchrun``'s env:// variables, started by this script; gloo with
    collectives staged through host memory) and run the port's merge CLI on
@@ -214,7 +215,26 @@ Phases (each prints one line or a few; any failure exits non-zero):
    int4: 8 greedy tokens sharded against one device's (near-tie rule),
    every rank launching the GEMV. A world-1 NCCL ``generate --shard`` logs
    one rank and gives one device's tokens;
-19. the kernel summary line (all five kernels), the card line, and the result line.
+19. train: training at Llama-3.1-8B widths, 2 layers, seeded random
+   weights. The full fine-tune (bf16 params with an f32 master, remat, two
+   microbatches, clip + cosine, B x T = 4 x 512, a repeated batch): losses
+   finite and falling over 4 steps; a checkpoint after 2 steps restored onto
+   a fresh template resumes with the uninterrupted run's bits (or, when
+   not, within twice the gap of two uninterrupted runs); step ms, tokens/s,
+   peak memory, save and restore seconds. QLoRA (an int4 base made on the card, rank 16 on
+   q_proj / v_proj, 1 x 64 tokens): the GEMV launched 10 times a step (the
+   untargeted k/o/gate/up/down of 2 layers), the adapters' gradients on the
+   kernel route within relL2 5e-2 of the plain route's, the loss falling,
+   lora_to_peft then fuse_lora equal to merge_lora within one bf16 ulp. Two
+   ranks sharing the card (``--train-rank``; gloo, host-staged), 1 layer,
+   f32, 2 steps on dp = 2 with ZeRO-1 and on tp = 2, held to the one-device
+   step (losses 1e-4 relative, updates relL2 1e-2), with the collectives'
+   calls, bytes and seconds: started before [families], they run beside
+   [families] and [experts], and [train] waits for them before its own
+   steps;
+20. the kernel summary line (all five kernels; the GEMV's ``launches``
+   those of [serve], its ``train_launches`` those of [train]'s QLoRA
+   steps), the card line, and the result line.
 
 It imports nothing of JAX. With no CUDA device it exits 1 and prints no
 result.
@@ -283,10 +303,6 @@ GEMV_PREVIOUS_MS = {
                  (1024, 4096): (0.0091, 0.0115, 0.0186, 0.0237, 0.0434),
                  (14336, 4096): (0.0234, 0.0402, 0.0709, 0.2629, 0.5085),
                  (4096, 14336): (0.0287, 0.0451, 0.0762, 0.2640, 0.5141)},
-    "float32": {(4096, 4096): (0.0107, 0.0148, 0.0240, 0.0778, 0.1505),
-                (1024, 4096): (0.0092, 0.0117, 0.0192, 0.0234, 0.0427),
-                (14336, 4096): (0.0228, 0.0421, 0.0708, 0.2613, 0.5088),
-                (4096, 14336): (0.0297, 0.0474, 0.0778, 0.2628, 0.5117)},
 }
 # decode attention at 8B geometry: KV heads, query heads per KV head, head dim
 KVH, GROUP, HEAD_DIM = 8, 4, 128
@@ -413,7 +429,7 @@ def gemv_bound(rows: int, shapes=LAYER_GEMVS, x_bytes: int = 2):
 def phase_kernel(torch, qk):
     """int4_gemv at the 8B decode shapes x GEMV_ROWS, f32 and bf16 x: held
     to the plain version, row 0's bits at B = 1 held to every other B,
-    device times (graph_ms: CUDA graphs, the L2 flushed by a read) beside
+    bf16 device times (graph_ms: CUDA graphs, the L2 flushed by a read) beside
     the PR 1 design's, the plain version, the bound, the bf16 dense matmul
     and the library int4 call (``torch._weight_int4pack_mm``, bf16 scales, a
     yardstick that the port never calls)."""
@@ -444,22 +460,24 @@ def phase_kernel(torch, qk):
                 passed = rel <= tol and got.dtype == dtype and got.shape == (b, n) and same_bits
                 passed &= bool(torch.isfinite(got).all())
                 ok &= passed
+                if dtype == torch.float32:  # held to its plain version; timed at bf16, the decode path's dtype
+                    say(f"[kernel] {name:8s} N={n:5d} K={k:5d} B={b:2d} plan {qk.plan(n, k, dtype)[:2]} "
+                        f"relL2={rel:.2e} (tol {tol:.0e}) max_abs={err:.3e} row 0 {'=' if same_bits else '!='} "
+                        f"B=1's bits {'ok' if passed else 'FAIL'}")
+                    continue
+                bound_ms, bound_by = gemv_bound(b, [(n, k)], x.element_size())
                 ms = graph_ms(torch, lambda: qk.int4_matmul(x, q, s), flush)
                 plain = graph_ms(torch, lambda: qk.int4_matmul_plain(x, q, s), flush)
-                row = dict(err=err, ms=ms, plain=plain, previous=GEMV_PREVIOUS_MS[name][(n, k)][i])
-                extra = ""
-                if dtype == torch.bfloat16:
-                    row["dense"] = graph_ms(torch, lambda: torch.matmul(x, dense.T), flush)
-                    row["library"] = None
-                    if lib is not None:
-                        try:
-                            row["library"] = graph_ms(torch, lambda: lib(x), flush)
-                        except Exception as exc:  # a yardstick only: say why it does not run
-                            lib, why = None, f"{type(exc).__name__}: {str(exc).splitlines()[0][:120]}"
-                    extra = (f" bf16 dense (4x the bytes) {row['dense']:.4f} ms; library int4 "
-                             + (f"_weight_int4pack_mm (bf16 scales) {row['library']:.4f} ms" if lib is not None
-                                else f"not run ({why})"))
-                bound_ms, bound_by = gemv_bound(b, [(n, k)], x.element_size())
+                row = dict(err=err, ms=ms, plain=plain, previous=GEMV_PREVIOUS_MS[name][(n, k)][i], library=None)
+                row["dense"] = graph_ms(torch, lambda: torch.matmul(x, dense.T), flush)
+                if lib is not None:
+                    try:
+                        row["library"] = graph_ms(torch, lambda: lib(x), flush)
+                    except Exception as exc:  # a yardstick only: say why it does not run
+                        lib, why = None, f"{type(exc).__name__}: {str(exc).splitlines()[0][:120]}"
+                extra = (f" bf16 dense (4x the bytes) {row['dense']:.4f} ms; library int4 "
+                         + (f"_weight_int4pack_mm (bf16 scales) {row['library']:.4f} ms" if lib is not None
+                            else f"not run ({why})"))
                 results[(name, n, k, b)] = dict(row, bound=bound_ms)
                 say(
                     f"[kernel] {name:8s} N={n:5d} K={k:5d} B={b:2d} plan {qk.plan(n, k, dtype)[:2]} relL2={rel:.2e} "
@@ -1149,7 +1167,12 @@ def hold_to_host(torch, dirs, names, alphas, weight_map, out: Path, card: str):
     round-trip noise picks sign agreement, so there the blend is held on
     identical spectra (cutoff threshold bit for bit, blended half spectrum
     within relL2 1e-5). batch_rounds' pair merges are held to the per-pair
-    path on the same inputs, and both reductions are timed in turn."""
+    path on the same inputs, and both reductions are timed in turn.
+
+    The card's side runs here, timings included. The host's side (a minute
+    of CPU at these shapes) is handed to a worker thread; the returned
+    ``finish()`` waits for it, prints its lines and applies its gates, so
+    the host works beside what the caller runs in between."""
     from shardmerge_tpu_torch.config import MergeConfig, MergeModel
     from shardmerge_tpu_torch.io.safetensors_io import load_file
     from shardmerge_tpu_torch.merge import fourier
@@ -1164,6 +1187,16 @@ def hold_to_host(torch, dirs, names, alphas, weight_map, out: Path, card: str):
     card_eng = fourier.FourierMerge(cfg, device="cuda:0")
     batch_eng = fourier.FourierMerge(cfg, device="cuda:0", batch_rounds=True)
     host_eng = fourier.FourierMerge(cfg, device="cpu")
+
+    def blend_on(dev, h0, h1, a_prop, ranks, cols):
+        x0, x1 = h0.to(dev), h1.to(dev)
+        w = blend.hermitian_col_weights(cols, device=dev)
+        thr = select.kth_smallest_weighted(x0.real.abs(), ranks[0], w, y=x1.real.abs())
+        res = blend.interpolate_half_spectrum(x0, x1, torch.tensor(a_prop, device=dev), 1.0, *ranks, w,
+                                              use_cutoff=True, use_cull=True)
+        return thr.cpu(), res.cpu()
+
+    host_work = []  # (name, tag, kind, the card's result, the host's call)
     for name in STACK_CHECKED:
         shard = weight_map[name]
         base = load_file(base_dir / shard)[name]
@@ -1184,12 +1217,9 @@ def hold_to_host(torch, dirs, names, alphas, weight_map, out: Path, card: str):
             ha, hb = a.cpu(), b.cpu()
             tag = f"[stack] {name} ({card}) {regime} {Path(a_name).name[:24]} + {Path(b_name).name[:24]}, cull {cull}"
             if cull == card_eng.cull_start_pct:
-                host, _ = host_eng.merge_pair(job, ha, hb, target, cull)
-                close = torch.isclose(merged.cpu(), host, rtol=2e-2, atol=1e-6).double().mean().item()
-                say(f"{tag}: card vs host on the same inputs {close * 100:.3f}% within 2e-2 (gate 97%), "
-                    f"relL2 {rel_l2(merged.cpu(), host):.2e}")
-                if close < 0.97:
-                    raise SystemExit(f"[stack] {name}: a round-1 pair merge disagrees with the host")
+                host_work.append((name, tag, "round 1", merged.cpu(),
+                                  (lambda job=job, ha=ha, hb=hb, target=target, cull=cull:
+                                   host_eng.merge_pair(job, ha, hb, target, cull)[0])))
                 continue
             if regime != "slerp" or not fourier._use_fast_imag(False, ha):
                 raise SystemExit(f"[stack] {name}: expected fast-path slerp pairs after round 1, got {regime}")
@@ -1198,23 +1228,9 @@ def hold_to_host(torch, dirs, names, alphas, weight_map, out: Path, card: str):
             h0 = fourier._rfft2(ha) * (1.0 / torch.tensor(norm_a))
             h1 = fourier._rfft2(hb) * (1.0 / torch.tensor(norm_b))
             ranks = (blend.cutoff_rank(n, 0.08), blend.cull_rank(n, cull), blend.cull_limit(n, cull))
-            spectra = {}
-            for dev in ("cpu", "cuda:0"):
-                x0, x1 = h0.to(dev), h1.to(dev)
-                w = blend.hermitian_col_weights(ha.shape[-1], device=dev)
-                thr = select.kth_smallest_weighted(x0.real.abs(), ranks[0], w, y=x1.real.abs())
-                res = blend.interpolate_half_spectrum(x0, x1, torch.tensor(a_prop, device=dev), 1.0, *ranks, w,
-                                                      use_cutoff=True, use_cull=True)
-                spectra[dev] = (thr.cpu(), res.cpu())
-            same_thr = torch.equal(spectra["cpu"][0].view(torch.int32), spectra["cuda:0"][0].view(torch.int32))
-            res_rel = rel_l2(torch.view_as_real(spectra["cuda:0"][1]), torch.view_as_real(spectra["cpu"][1]))
-            # the whole pair merge is not held here (nor run on the host, to
-            # keep the script inside its time): FFT round-trip noise of the
-            # culled zeros picks sign agreement
-            say(f"{tag}: on identical spectra the cutoff threshold is {'bit-equal' if same_thr else 'DIFFERENT'} "
-                f"and the blended half spectrum within relL2 {res_rel:.2e} (gate 1e-5)")
-            if not same_thr or res_rel > 1e-5:
-                raise SystemExit(f"[stack] {name}: the card's blend disagrees with the host's on identical spectra")
+            args = (h0, h1, a_prop, ranks, ha.shape[-1])
+            host_work.append((name, tag, "spectra", blend_on("cuda:0", *args),
+                              (lambda args=args: blend_on("cpu", *args))))
         # batch_rounds: each batched pair merge against the per-pair path
         # on the same inputs (round 1's two slerp pairs form one batch)
         batched = []
@@ -1238,6 +1254,37 @@ def hold_to_host(torch, dirs, names, alphas, weight_map, out: Path, card: str):
         say(f"[stack] {name} ({card}) reduction of the 4 deltas, ms (3 runs in turn, medians): per pair "
             f"{sorted(times['per pair'])[1]:.2f}, batch_rounds {sorted(times['batched'])[1]:.2f} (all: "
             + "; ".join(f"{k} {', '.join(f'{v:.2f}' for v in vs)}" for k, vs in times.items()) + ")")
+
+    # the host's side, one pair at a time on a worker thread (torch's CPU
+    # ops release the GIL), after every card measurement above
+    pool = ThreadPoolExecutor(1)
+    futures = [pool.submit(call) for *_, call in host_work]
+    pool.shutdown(wait=False)
+    t_submit = time.perf_counter()
+
+    def finish():
+        for (name, tag, kind, card_side, _), future in zip(host_work, futures):
+            host = future.result()
+            if kind == "round 1":
+                close = torch.isclose(card_side, host, rtol=2e-2, atol=1e-6).double().mean().item()
+                say(f"{tag}: card vs host on the same inputs {close * 100:.3f}% within 2e-2 (gate 97%), "
+                    f"relL2 {rel_l2(card_side, host):.2e}")
+                if close < 0.97:
+                    raise SystemExit(f"[stack] {name}: a round-1 pair merge disagrees with the host")
+                continue
+            same_thr = torch.equal(host[0].view(torch.int32), card_side[0].view(torch.int32))
+            res_rel = rel_l2(torch.view_as_real(card_side[1]), torch.view_as_real(host[1]))
+            # the whole pair merge is not held here (nor run on the host, to
+            # keep the script inside its time): FFT round-trip noise of the
+            # culled zeros picks sign agreement
+            say(f"{tag}: on identical spectra the cutoff threshold is {'bit-equal' if same_thr else 'DIFFERENT'} "
+                f"and the blended half spectrum within relL2 {res_rel:.2e} (gate 1e-5)")
+            if not same_thr or res_rel > 1e-5:
+                raise SystemExit(f"[stack] {name}: the card's blend disagrees with the host's on identical spectra")
+        say(f"[stack] the host's side of {len(host_work)} pair merges of {len(STACK_CHECKED)} tensors came in "
+            f"{time.perf_counter() - t_submit:.1f} s after it was handed over")
+
+    return finish
 
 
 def subset_model(torch, dirs, root: Path, names, tensors=STACK_SUBSET, rows=None) -> dict:
@@ -1264,7 +1311,10 @@ def subset_model(torch, dirs, root: Path, names, tensors=STACK_SUBSET, rows=None
 
 def phase_stack(torch, root: Path, dirs, card: str):
     """Base + 3 and + 4 finetunes through the CLI, held to the host and to
-    the engine's own variants, with the pipeline's spans."""
+    the engine's own variants, with the pipeline's spans. Returns the
+    finetunes' directories, the 3-finetune merge's spans and
+    ``hold_to_host``'s ``finish`` (its host side runs on while the
+    variants and [shard] run)."""
     from shardmerge_tpu_torch.cli import run_merge
     from shardmerge_tpu_torch.config import MergeConfig
     from shardmerge_tpu_torch.io.safetensors_io import load_file
@@ -1275,7 +1325,7 @@ def phase_stack(torch, root: Path, dirs, card: str):
         f"{', '.join(str(v) for v in STACK_SCALES.values())} against ft1's 0.01) written in "
         f"{time.perf_counter() - t0:.1f} s")
     merged_per_layer = 9
-    for names in (STACK_FOUR, STACK_FOUR[:3]):
+    for names in (STACK_FOUR[:3], STACK_FOUR):  # the CLI's walls before the host checks start
         n = len(names)
         label = f"{n}-ft"
         cfg_file = merge_config(root, f"stack{n}", dirs["base"], [(dirs[m], STACK_ALPHAS[m]) for m in names])
@@ -1299,9 +1349,8 @@ def phase_stack(torch, root: Path, dirs, card: str):
             stack3 = {k: v for k, v in stats["tensor_spans"].items()
                       if k.endswith(("gate_proj.weight", "up_proj.weight"))}
         if n == 4:
-            hold_to_host(torch, dirs, names, STACK_ALPHAS, weight_map, out, card)
+            finish = hold_to_host(torch, dirs, names, STACK_ALPHAS, weight_map, out, card)
             cli_subset = {k: load_file(out / weight_map[k])[k] for k in STACK_SUBSET}
-            pipeline_profile(torch, "stack 4-ft", cfg_file, card)
         shutil.rmtree(out)
 
     # the variants, in process on a subset of the tensors
@@ -1333,7 +1382,7 @@ def phase_stack(torch, root: Path, dirs, card: str):
         if not same and tag != "batch_rounds":
             raise SystemExit(f"[stack] variant {tag} disagrees with the default run")
     shutil.rmtree(root / "subset")
-    return dirs, stack3
+    return dirs, stack3, finish
 
 
 # --- [shard]: the fourier merge across ranks -----------------------------------
@@ -4469,6 +4518,348 @@ def phase_tp(torch, root: Path, merged: Path, engine, card: str):
         f"{time.perf_counter() - t_phase:.1f} s")
 
 
+# [train]: training on the card at Llama-3.1-8B widths, seeded random weights
+TRAIN_SEED = 31
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_ACCUM = 4, 512, 2
+TRAIN_STEPS, TRAIN_SAVE_AT = 4, 2
+TRAIN_LR, QLORA_LR = 1e-4, 1e-3
+QLORA_RANK, QLORA_TARGETS, QLORA_SEQ, QLORA_STEPS = 16, ("q_proj", "v_proj"), 64, 4
+# the untargeted int4 projections a layer (k, o, gate, up, down): the GEMV's
+# forward launches a QLoRA step at B x T = 64 rows
+QLORA_GEMVS = 5 * LAYERS
+TRAIN_RANKS, RANKS_LAYERS, RANKS_BATCH, RANKS_SEQ, RANKS_STEPS = 2, 1, 2, 128, 2
+
+
+def train_cfg(layers: int = LAYERS):
+    from shardmerge_tpu_torch.models import llama
+
+    return llama.ModelConfig.from_hf_config({**LLAMA_31_8B, "num_hidden_layers": layers})
+
+
+def train_tx():
+    """The clip + cosine chain of examples/train_recipe_torch.py."""
+    from shardmerge_tpu_torch.parallel import optim
+
+    return optim.chain(optim.clip_by_global_norm(1.0), optim.adamw(optim.cosine_decay_schedule(TRAIN_LR, 100)))
+
+
+def leaves_of(state, key: str = "params"):
+    from shardmerge_tpu_torch.parallel.train import tree_flatten
+
+    return tree_flatten(state[key])[1]
+
+
+def run_gap(torch, a, b) -> float:
+    """Max-abs difference over two lists of tensors."""
+    return max(float((x.float() - y.float()).abs().max()) for x, y in zip(a, b))
+
+
+def full_finetune(torch, root: Path, card: str) -> dict:
+    """The full fine-tune: bf16 params with an f32 master, remat, two
+    microbatches, the clip + cosine chain, B x T = 4 x 512 on a repeated
+    batch. Run A saves after TRAIN_SAVE_AT steps; run R restores A's
+    snapshot onto a fresh template and resumes: its losses and params are
+    A's bits, or, when they are not, within twice the gap between A and a
+    run B that repeats A (the atomics of a backward may differ run to
+    run)."""
+    from shardmerge_tpu_torch.models import llama
+    from shardmerge_tpu_torch.parallel.checkpoint import restore_train_state, save_train_state
+    from shardmerge_tpu_torch.parallel.mesh import make_mesh
+    from shardmerge_tpu_torch.parallel.train import make_train_step
+
+    cfg = train_cfg()
+    dev = torch.device("cuda:0")
+    mesh = make_mesh(("dp", "tp"), shape=(1, 1), device="cuda")
+    gen = torch.Generator(device=dev).manual_seed(TRAIN_SEED)
+    batch = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1), device=dev, generator=gen)
+    ckpt = root / "train_ckpt"
+    out = {}
+
+    def run(tag, restore=False):
+        init, step = make_train_step(mesh, cfg, remat=True, master_fp32=True, grad_accum=TRAIN_ACCUM, tx=train_tx())
+        torch.cuda.reset_peak_memory_stats()
+        state = init(llama.init_params(cfg, seed=TRAIN_SEED + (1 if restore else 0), dtype=torch.bfloat16,
+                                       device=dev))
+        first = 0
+        if restore:
+            t0 = time.perf_counter()
+            state, first = restore_train_state(ckpt, state)
+            torch.cuda.synchronize()
+            out["restore_s"] = time.perf_counter() - t0
+        losses, walls = [], []
+        for i in range(first, TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss = step(state, batch)
+            losses.append(float(loss))  # the step's one host sync
+            walls.append(time.perf_counter() - t0)
+            if tag == "A" and i + 1 == TRAIN_SAVE_AT:
+                t0 = time.perf_counter()
+                save_train_state(ckpt, state, step=TRAIN_SAVE_AT)
+                out["save_s"] = time.perf_counter() - t0
+                out["ckpt_bytes"] = (ckpt / "train_state.safetensors").stat().st_size
+        params = [v.detach().clone() for v in leaves_of(state)]
+        peak = torch.cuda.max_memory_allocated()
+        del state
+        torch.cuda.empty_cache()
+        return losses, params, walls, peak
+
+    la, pa, walls, peak = run("A")
+    lr_, pr, _, _ = run("R", restore=True)
+    n = sum(p.numel() for p in pa)
+    res_loss = max(abs(x - y) for x, y in zip(la[TRAIN_SAVE_AT:], lr_))
+    res_params = run_gap(torch, pa, pr)
+    gap_loss = gap_params = 0.0
+    if res_loss or res_params:  # not A's bits: the run-to-run gap decides
+        lb, pb, _, _ = run("B")
+        gap_loss = max(abs(x - y) for x, y in zip(la, lb))
+        gap_params = run_gap(torch, pa, pb)
+    ok = all(math.isfinite(x) for x in la) and la[-1] < la[0]
+    ok &= res_loss <= 2 * gap_loss and res_params <= 2 * gap_params
+    step_s = sorted(walls[1:])[len(walls[1:]) // 2]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    say(f"[train] full fine-tune, Llama-3.1-8B widths x {LAYERS} layers ({n / 1e9:.3f} B params), bf16 + f32 master, "
+        f"remat, grad_accum {TRAIN_ACCUM}, clip + cosine, B x T = {TRAIN_BATCH} x {TRAIN_SEQ}: losses "
+        f"{[round(x, 4) for x in la]} (finite, falling: {la[-1] < la[0]})")
+    say(f"[train] step {step_s * 1e3:.1f} ms (median of steps 2-{TRAIN_STEPS}; first {walls[0] * 1e3:.1f} ms), "
+        f"{tokens / step_s:.0f} tokens/s, peak {peak / 2**30:.2f} GiB on {card}")
+    say(f"[train] checkpoint after {TRAIN_SAVE_AT} steps: {out['ckpt_bytes'] / 2**30:.2f} GiB saved in "
+        f"{out['save_s']:.1f} s, restored in {out['restore_s']:.1f} s; resumed vs uninterrupted: losses max-abs "
+        f"{res_loss:.3e}, params max-abs {res_params:.3e}"
+        + ("" if not (res_loss or res_params) else f"; two uninterrupted runs: {gap_loss:.3e} / {gap_params:.3e}")
+        + f" (gate: A's bits, or at most twice the run-to-run gap) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("[train] the full fine-tune's losses do not fall, or the resumed run left the run-to-run gap")
+    return {"step_ms": step_s * 1e3, "tokens_per_s": tokens / step_s, "peak_gib": peak / 2**30}
+
+
+def qlora(torch, qk, root: Path, card: str) -> int:
+    """QLoRA: an int4 base (quantized on the card) with rank-16 adapters on
+    q_proj / v_proj, B x T = 1 x 64: every step's forward launches the GEMV
+    QLORA_GEMVS times (the untargeted projections; their backward is
+    Int4Matmul's dequant product). After two steps the adapters' gradients
+    on the kernel route are held to the plain route's (5e-2); the loss
+    falls; lora_to_peft then fuse_lora of the dequantized base's targets on
+    the card equals merge_lora within one bf16 ulp. Returns the GEMV
+    launches of the steps."""
+    from shardmerge_tpu_torch.io.safetensors_io import SafeTensorsReader, save_file
+    from shardmerge_tpu_torch.models import llama
+    from shardmerge_tpu_torch.models.quant import dequant
+    from shardmerge_tpu_torch.parallel.lora import lora_to_peft, make_lora_train_step, merge_lora
+    from shardmerge_tpu_torch.parallel.mesh import make_mesh
+    from shardmerge_tpu_torch.parallel.train import _loss_fn, tree_flatten, tree_unflatten
+    from shardmerge_tpu_torch.tools.fuse_lora import fuse_lora
+
+    cfg = train_cfg()
+    dev = torch.device("cuda:0")
+    base = llama.init_params(cfg, seed=TRAIN_SEED + 7, dtype=torch.bfloat16, device=dev,
+                             project=lambda w: card_quantize(torch, w))
+    gen = torch.Generator(device=dev).manual_seed(TRAIN_SEED + 8)
+    batch = torch.randint(0, cfg.vocab_size, (1, QLORA_SEQ + 1), device=dev, generator=gen)
+    init, step = make_lora_train_step(make_mesh(("dp", "tp"), shape=(1, 1), device="cuda"), cfg, rank=QLORA_RANK,
+                                      learning_rate=QLORA_LR, targets=QLORA_TARGETS, seed=TRAIN_SEED)
+    state = init(base)
+    losses, per_step, walls = [], [], []
+    total = 0
+    for i in range(QLORA_STEPS):
+        qk.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = step(state, batch)
+        losses.append(float(loss))
+        walls.append(time.perf_counter() - t0)
+        per_step.append(qk.launch_counts["int4_gemv"])
+        total += per_step[-1]
+        if i == 1:  # the adapters' gradients on both routes, B != 0 by now
+            def grads():
+                leaves = [v.detach().requires_grad_(True) for v in tree_flatten(state["lora"])[1]]
+                merged = merge_lora(state["params"], tree_unflatten(state["lora"], leaves), 1.0)
+                return torch.autograd.grad(_loss_fn(merged, cfg, batch), leaves)
+
+            qk.reset_launch_counts()
+            kernel = grads()
+            kernel_launches = qk.launch_counts["int4_gemv"]
+            with mock.patch.object(qk, "supported", lambda *a: False):
+                plain = grads()
+            rel = rel_l2(torch.cat([g.reshape(-1) for g in kernel]), torch.cat([g.reshape(-1) for g in plain]))
+    ok = per_step == [QLORA_GEMVS] * QLORA_STEPS and kernel_launches == QLORA_GEMVS and rel <= 5e-2
+    ok &= all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+    say(f"[train] QLoRA: int4 base, rank {QLORA_RANK} on {'/'.join(QLORA_TARGETS)}, B x T = 1 x {QLORA_SEQ}: losses "
+        f"{[round(x, 4) for x in losses]}; int4 GEMV launches a step {per_step} (predicted {QLORA_GEMVS}); adapter "
+        f"gradients kernel route vs plain relL2 {rel:.3e} (gate 5e-2); step {sorted(walls[1:])[1] * 1e3:.1f} ms "
+        f"on {card} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("[train] QLoRA: the GEMV launches, the gradient routes or the loss left their gates")
+    # export, fuse the targets of the dequantized base on the card, hold to merge_lora
+    adapter, base_dir, fused_dir = root / "qlora_adapter", root / "qlora_base", root / "qlora_fused"
+    lora_to_peft(state["lora"], adapter, rank=QLORA_RANK, alpha=float(QLORA_RANK))
+    base_dir.mkdir()
+    names = {f"model.layers.{i}.self_attn.{t}.weight": (i, t) for i in range(LAYERS) for t in QLORA_TARGETS}
+    save_file({k: dequant(state["params"]["layers"][i][t], torch.bfloat16).cpu() for k, (i, t) in names.items()},
+              base_dir / "model.safetensors")
+    fuse_lora(base_dir, adapter, fused_dir, device="cuda")
+    merged = merge_lora(state["params"], state["lora"], 1.0)
+    worst = 0.0
+    with SafeTensorsReader(fused_dir / "model.safetensors") as r:
+        for k, (i, t) in names.items():
+            a, b = r.get_tensor(k).to(dev).float(), merged["layers"][i][t].float()
+            ulps = (a - b).abs() / (torch.maximum(a.abs(), b.abs()) * 2.0**-7).clamp_min(1e-30)
+            worst = max(worst, float(ulps.max()))
+    ok = worst <= 1.0
+    say(f"[train] QLoRA export: lora_to_peft -> fuse_lora (card) of {len(names)} targets vs merge_lora: at most "
+        f"{worst:.2f} bf16 ulp {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("[train] the fused adapter is not merge_lora's within one bf16 ulp")
+    return total
+
+
+def train_rank(root: Path) -> int:
+    """One rank of [train]'s two ranks sharing the card (``python3
+    chip_smoke.py --train-rank ROOT`` with torchrun's variables; gloo,
+    host-staged). One layer at 8B widths, f32 (bf16's rounding would hide
+    a fault under its own noise): both ranks run RANKS_STEPS steps on dp =
+    2 with ZeRO-1 and on tp = 2, rank 0 keeping each run's whole params on
+    the card; when rank 1 has left the card, rank 0 runs the one-device
+    step, holds each run to its losses (1e-4 relative) and updates (relL2
+    1e-2), and writes ROOT/train_ranks.json with the collectives' calls,
+    bytes and seconds and its own seconds of work."""
+    import torch
+    import torch.distributed as dist
+
+    from shardmerge_tpu_torch.models import llama
+    from shardmerge_tpu_torch.parallel.mesh import Mesh, make_mesh
+    from shardmerge_tpu_torch.parallel.train import make_train_step
+
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False  # plain f32 products, as the main process has them
+    cfg = train_cfg(RANKS_LAYERS)
+    dev = torch.device("cuda:0")
+    gen = torch.Generator(device=dev).manual_seed(TRAIN_SEED + 3)
+    batch = torch.randint(0, cfg.vocab_size, (RANKS_BATCH, RANKS_SEQ + 1), device=dev, generator=gen)
+
+    def params():
+        return llama.init_params(cfg, seed=TRAIN_SEED + 4, dtype=torch.float32, device=dev)
+
+    def run(mesh, **opts):
+        init, step = make_train_step(mesh, cfg, learning_rate=TRAIN_LR, **opts)
+        state = init(params())
+        losses, walls = [], []
+        for _ in range(RANKS_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss = step(state, batch)
+            losses.append(float(loss))
+            walls.append(time.perf_counter() - t0)
+        lay, keep = state.layout, mesh.rank == 0  # every rank takes part in the gathers; rank 0 keeps them
+        whole = []
+        for i, v in enumerate(leaves_of(state)):
+            w = lay.gather("trained", i, v)
+            whole.append(w.detach() if keep else None)
+            del w
+        del state
+        torch.cuda.empty_cache()
+        return losses, whole, walls
+
+    runs = {}
+    for tag, shape, opts in (("dp=2 zero1", (TRAIN_RANKS, 1), {"zero1": True}), ("tp=2", (1, TRAIN_RANKS), {})):
+        m = make_mesh(("dp", "tp"), shape=shape)
+        losses, whole, walls = run(m, **opts)
+        stats = {axis: {k: [v[0], v[1], round(v[2], 3)] for k, v in c.stats.items()} for axis, c in m.comms.items()}
+        runs[tag] = (losses, whole, walls, stats, next(iter(m.comms.values())).transport)
+    dist.barrier()
+    if dist.get_rank():
+        return 0
+    torch.cuda.synchronize()
+    time.sleep(2.0)  # rank 1's process leaves the card
+    ref_losses, ref, ref_walls = run(Mesh(("dp", "tp"), (1, 1), 0, "cuda:0"))  # the one-device step
+    p0 = leaves_of({"params": params()})
+    out = {"ref_step_ms": [w * 1e3 for w in ref_walls], "ref": ref_losses}
+    for tag, (losses, whole, walls, stats, transport) in runs.items():
+        upd = 0.0
+        for w, r, p in zip(whole, ref, p0):  # on the card, a leaf at a time
+            d = r - p
+            if bool((d != 0).any()):
+                upd = max(upd, float(((w - p) - d).norm() / d.norm()))
+        out[tag] = {"losses": losses, "loss_rel": max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)),
+                    "update_rel": upd, "step_ms": [w * 1e3 for w in walls], "collectives": stats,
+                    "transport": transport}
+    out["wall_s"] = time.perf_counter() - t_start
+    (root / "train_ranks.json").write_text(json.dumps(out))
+    return 0
+
+
+def start_train_ranks(root: Path) -> list:
+    """Start [train]'s two ranks sharing the card. They are host-bound (5 GB
+    of f32 gradients and updates a ZeRO-1 step over loopback TCP) and hold
+    about 40 GB of the card at most, so main() starts them before
+    [families] and they run beside [families] and [experts]; [train] waits
+    for them before its own steps take the card's memory."""
+    port = free_port()
+    procs = []
+    for rank in range(TRAIN_RANKS):
+        env = {**os.environ, "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port), "WORLD_SIZE": str(TRAIN_RANKS),
+               "RANK": str(rank), "LOCAL_RANK": str(rank), "LOCAL_WORLD_SIZE": str(TRAIN_RANKS)}
+        with open(root / f"train{rank}.out", "w") as o, open(root / f"train{rank}.err", "w") as e:
+            procs.append(subprocess.Popen([sys.executable, str(REPO / "chip_smoke.py"), "--train-rank", str(root)],
+                                          cwd=REPO, env=env, stdout=o, stderr=e))
+    return procs
+
+
+def stop_procs(procs):
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def train_ranks(torch, root: Path, card: str, procs: list) -> float:
+    """Wait for [train]'s two ranks (``start_train_ranks``) and gate their
+    report; returns the seconds rank 0 worked."""
+    try:
+        codes = [p.wait(timeout=400) for p in procs]
+    except subprocess.TimeoutExpired:
+        codes = [None] * len(procs)
+    finally:
+        stop_procs(procs)
+    if codes != [0] * TRAIN_RANKS:
+        tails = "".join(f"\n--- rank {r} stderr:\n" + (root / f"train{r}.err").read_text()[-3000:]
+                        for r in range(TRAIN_RANKS))
+        raise SystemExit(f"[train] ranks exited {codes}{tails}")
+    res = json.loads((root / "train_ranks.json").read_text())
+    ok = True
+    for tag in ("dp=2 zero1", "tp=2"):
+        r = res[tag]
+        passed = r["loss_rel"] <= 1e-4 and r["update_rel"] <= 1e-2
+        ok &= passed
+        say(f"[train] two ranks sharing the card ({r['transport']}), {tag}, Llama-3.1-8B widths x {RANKS_LAYERS} "
+            f"layer, f32, {RANKS_STEPS} steps of B x T = {RANKS_BATCH} x {RANKS_SEQ}: losses {r['losses']} vs one "
+            f"device {res['ref']} (rel {r['loss_rel']:.2e}, gate 1e-4), updates relL2 {r['update_rel']:.2e} (gate "
+            f"1e-2); step ms (beside [families] / [experts]) {[round(x, 1) for x in r['step_ms']]} vs one device "
+            f"{[round(x, 1) for x in res['ref_step_ms']]}; collectives [calls, bytes, seconds] by axis "
+            f"{r['collectives']} {'ok' if passed else 'FAIL'}")
+    if not ok:
+        raise SystemExit("[train] a two-rank step left the one-device step's class")
+    return res["wall_s"]
+
+
+def phase_train(torch, qk, root: Path, card: str, ranks: list) -> int:
+    """[train]: two ranks sharing the card (started by main() before
+    [families]: waited for and gated here), the full fine-tune with its
+    checkpoint, QLoRA through the int4 GEMV. Returns the GEMV launches of
+    the QLoRA steps (the main path's count for the kernels line)."""
+    t0 = time.perf_counter()
+    worked = train_ranks(torch, root, card, ranks)
+    t1 = time.perf_counter()
+    full_finetune(torch, root, card)
+    t2 = time.perf_counter()
+    torch.cuda.empty_cache()
+    launches = qlora(torch, qk, root, card)
+    say(f"[train] parts: ranks {worked:.1f} s of rank 0's work beside [families] and [experts], then "
+        f"{t1 - t0:.1f} s waited for; full fine-tune {t2 - t1:.1f} s, QLoRA {time.perf_counter() - t2:.1f} s")
+    return launches
+
+
+
 def write_word_tokenizer(path: Path, vocab: int, **config):
     """A word-level tokenizer.json (word ``w{i}`` is token i) and its
     tokenizer_config.json, which fixes the class (without it transformers
@@ -4516,6 +4907,7 @@ def main() -> int:
     fft, fft_launches = phase_fft(torch, pf, fv)
     lap("fft")
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    ranks = []
     try:
         t0 = time.perf_counter()
         dirs, shapes = write_checkpoints(torch, root)
@@ -4524,10 +4916,12 @@ def main() -> int:
         merged, merge_tensor_s = phase_merge(torch, root, dirs)
         pipeline_profile(torch, "merge 2-ft", root / "merged.json", card)
         lap("checkpoints, merge")
-        stack_dirs, stack3_spans = phase_stack(torch, root, dirs, card)
+        stack_dirs, stack3_spans, stack_host = phase_stack(torch, root, dirs, card)
         lap("stack")
         phase_shard(torch, root, {**stack_dirs, "ft2": dirs[2]}, merged, merge_tensor_s, card)
         lap("shard")
+        stack_host()  # [stack]'s host checks, run beside the variants and [shard]
+        lap("stack's host checks, after [shard]")
         phase_engines(torch, root, stack_dirs, card)
         mask_times(torch, card)
         lap("engines")
@@ -4543,17 +4937,23 @@ def main() -> int:
         lap("tp")
         del engine
         torch.cuda.empty_cache()
+        ranks = start_train_ranks(root)  # [train]'s two ranks, beside [families] and [experts]
         phase_families(torch, root, card)
         lap("families")
         phase_experts(torch, root, card)
         lap("experts")
         phase_sinks_chunked(torch, root, card)
         lap("sinks-chunked")
+        reset_counts(qk)
+        train_launches = phase_train(torch, qk, root, card, ranks)
+        lap("train")
     finally:
+        stop_procs(ranks)
         shutil.rmtree(root, ignore_errors=True)
 
     # launches: the serve path's run for the decode kernels, the [fft]
-    # round trip for the transforms; times at those paths' shapes (B=8
+    # round trip for the transforms; the GEMV's [train] QLoRA steps apart
+    # (train_launches); times at those paths' shapes (B=8
     # GEMVs, the pool's B=8 x 4096-slot attention, the (4096, 8192) round
     # trip: both DFT axes, the Stockham rows pass (4096, 4096))
     say(json.dumps({"kernels": [
@@ -4563,6 +4963,7 @@ def main() -> int:
             "source": "shardmerge_tpu_torch/csrc/int4_gemv.cu",
             "replaces": "shardmerge_tpu/models/quant_kernels.py:148",
             "launches": launches["int4_gemv"],
+            "train_launches": train_launches,
             **int4,
         },
         {
@@ -4612,4 +5013,6 @@ if __name__ == "__main__":
         sys.exit(shard_rank(Path(sys.argv[2])))
     if sys.argv[1:2] == ["--tp-rank"]:
         sys.exit(tp_rank(Path(sys.argv[2])))
+    if sys.argv[1:2] == ["--train-rank"]:
+        sys.exit(train_rank(Path(sys.argv[2])))
     sys.exit(main())

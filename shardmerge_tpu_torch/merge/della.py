@@ -31,27 +31,12 @@ import torch
 
 from ..io.writer import ShardLayer
 from ..ops import prng
+from ..ops.prng import fma_f32
 from .base import MergeTensorsBase
 from .dare import tensor_key
 from .ties import elect_disjoint_mean, finish, sum_in_order
 
 logger = logging.getLogger(__name__)
-
-
-def fma_f32(a: torch.Tensor, b: float, c) -> torch.Tensor:
-    """``a * b + c`` rounded once to f32, for f32 ``a`` and f32 values ``b``,
-    ``c`` (a Python float, or a tensor for ``c``). The product is exact in
-    f64; the sum is rounded to odd there (Boldo-Melquiond), so its rounding
-    to f32 is the correctly rounded fused result."""
-    p = a.to(torch.float64) * b
-    s = p + c
-    bp = s - p
-    err = (p - (s - bp)) + (c - bp)  # s + err == p + c exactly (TwoSum)
-    bits = s.view(torch.int64)
-    even = (bits & 1) == 0
-    toward = torch.where((err > 0) == (s > 0), 1, -1)
-    bits = torch.where((err != 0) & even, bits + toward, bits)
-    return bits.view(torch.float64).to(torch.float32)
 
 
 def keep_probs(rows: torch.Tensor, density: float, epsilon: float) -> torch.Tensor:

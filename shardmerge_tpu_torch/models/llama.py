@@ -44,7 +44,14 @@ families Mixtral, Qwen3-MoE and DeepSeek V2/V3, GPT-OSS and Llama-4.
   with GPT-OSS's o_proj bias and the replicated shared experts added once,
   after it; the vocab-parallel embedding is a masked local lookup and an
   all-reduce; the vocab-parallel logits are gathered to the full vocab
-  before the final softcap.
+  before the final softcap;
+- training (``forward_train``, ``block_train``, ``embed_matrix``): the
+  same math as functions of the params dict, cache-free (S = T; MLA over its
+  own latents), differentiable through every leaf that requires grad, with
+  per-block recompute (``remat``) and the tensor-parallel f/g operators of
+  parallel/train.py; the serving modules stay inference-only. GPT-OSS's
+  o_proj bias is added as serving adds it (the JAX ``block_train`` leaves
+  it out).
 """
 
 from __future__ import annotations
@@ -79,6 +86,10 @@ __all__ = [
     "llama4_router_scores",
     "l2_qk",
     "nope_temp_q",
+    "embed_matrix",
+    "block_train",
+    "train_masks",
+    "forward_train",
 ]
 
 # model types whose forward is ported (llama4 and gemma3 as multimodal
@@ -559,11 +570,12 @@ def nope_temp_q(cfg: ModelConfig, q: torch.Tensor, positions: torch.Tensor) -> t
 
 
 def matmul(x: torch.Tensor, w) -> torch.Tensor:
-    """``x @ W.T`` in x.dtype; ``w`` is an (out, in) tensor or a quantized
+    """``x @ W.T`` in x.dtype; ``w`` is an (out, in) tensor (taken in x's
+    dtype: a QLoRA-merged bf16 weight under f32 activations) or a quantized
     ``{"q", "scale"}`` dict."""
     if isinstance(w, dict):
         return dequant_matmul(x, w)
-    return x @ w.T
+    return x @ (w if w.dtype == x.dtype else w.to(x.dtype)).T
 
 
 def _act(g32: torch.Tensor, hidden_act: str) -> torch.Tensor:
@@ -1320,3 +1332,322 @@ class LlamaModel(nn.Module):
             cap = float(np.float32(cfg.final_logit_softcapping))
             logits = cap * torch.tanh(logits / cap)
         return logits, kv_cache
+
+
+# ---------------------------------------------------------------------------
+# Training: the cache-free causal forward on the params dict
+# ---------------------------------------------------------------------------
+#
+# Functions of a params dict whose leaves may require grad (the serving
+# modules above hold their weights as buffers and stay inference-only).
+# ``split`` is one rank's view of a tensor-parallel layer (parallel/train.py
+# ``LayerSplit``): the heads / MLP / experts / stacks its leaves are slices of
+# (the fields of parallel/train.LayerPlan) and Megatron's three operators:
+# ``enter`` (identity forward, gradient all-reduced backward) on every
+# replicated tensor that feeds a split computation, ``share`` (rank 0's value,
+# zeros elsewhere, gradient passed through) on every replicated term of a
+# partial sum, and ``psum`` (all-reduce both ways) for OLMo-2's full-vector
+# norm statistic. Each attention and FFN then returns this rank's partial sum,
+# which ``reduce`` (the row-parallel all-reduce) completes. ``split=None``
+# is the one-device block.
+
+
+def embed_matrix(params: dict) -> torch.Tensor:
+    """The embedding table as a matrix, dequantized when quantized (the one
+    definition every forward entry reads)."""
+    embed = params["embed_tokens"]
+    return dequant(embed) if isinstance(embed, dict) else embed
+
+
+def _mlp_fn(layer, x: torch.Tensor, hidden_act: str, prefix: str = "") -> torch.Tensor:
+    act = _act(matmul(x, layer[prefix + "gate_proj"]).to(torch.float32), hidden_act)
+    return matmul(act.to(x.dtype) * matmul(x, layer[prefix + "up_proj"]), layer[prefix + "down_proj"])
+
+
+def _stack_of(w, dtype: torch.dtype) -> torch.Tensor:
+    return dequant_stacked(w, dtype) if isinstance(w, dict) else w.to(dtype)
+
+
+def _full_rms(v: torch.Tensor, w: torch.Tensor, width: int, psum, eps: float) -> torch.Tensor:
+    """RMSNorm over a vector of ``width`` entries of which ``v`` holds a
+    slice: the sum of squares is summed over the ranks."""
+    v32 = v.to(torch.float32)
+    ss = psum((v32 * v32).sum(dim=-1, keepdim=True))
+    return (v32 * torch.rsqrt(ss / width + eps) * w.to(torch.float32)).to(v.dtype)
+
+
+def _attention_train(cfg: ModelConfig, layer, h, cos, sin, positions, mask, use_rope, split):
+    """GQA attention over this call's own keys (S = T): the serving
+    einsum path's math. ``mask`` (T, T) additive."""
+    B, T, _ = h.shape
+    H, KVH, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    heads = split is not None and split.heads is not None
+    enter = split.enter if heads else (lambda t: t)
+    if heads:
+        (h0, h1), (k0, k1) = split.heads, split.kv_heads
+        H, KVH = h1 - h0, k1 - k0
+        h = enter(h)
+    q, k, v = matmul(h, layer["q_proj"]), matmul(h, layer["k_proj"]), matmul(h, layer["v_proj"])
+    if "q_bias" in layer:
+        q, k, v = q + layer["q_bias"], k + layer["k_bias"], v + layer["v_bias"]
+    if cfg.qk_norm_full:  # olmo2: the FULL vectors, before the head split
+        if heads:
+            q = _full_rms(q, enter(layer["q_norm"])[h0 * D:h1 * D], cfg.num_attention_heads * D, split.psum,
+                          cfg.rms_norm_eps)
+            k = _full_rms(k, enter(layer["k_norm"])[k0 * D:k1 * D], cfg.num_key_value_heads * D, split.psum,
+                          cfg.rms_norm_eps)
+        else:
+            q = rms_norm(q, layer["q_norm"], cfg.rms_norm_eps)
+            k = rms_norm(k, layer["k_norm"], cfg.rms_norm_eps)
+    q = q.reshape(B, T, H, D).transpose(1, 2)
+    k = k.reshape(B, T, KVH, D).transpose(1, 2)
+    v = v.reshape(B, T, KVH, D).transpose(1, 2)
+    if "q_norm" in layer and not cfg.qk_norm_full:  # qwen3 / gemma3 per head
+        q = rms_norm(q, enter(layer["q_norm"]), cfg.rms_norm_eps, cfg.is_gemma)
+        k = rms_norm(k, enter(layer["k_norm"]), cfg.rms_norm_eps, cfg.is_gemma)
+    if use_rope:
+        q, k = apply_rope_cfg(cfg, q, k, cos, sin, positions)
+        q, k = l2_qk(cfg, q, k)
+    else:
+        q = nope_temp_q(cfg, q, positions)
+    group = H // KVH
+    qg = q.reshape(B, KVH, group, T, D)
+    scale = float(np.sqrt(np.float32(cfg.query_pre_attn_scalar or D)))
+    scores = torch.einsum("bkgtd,bksd->bkgts", qg.to(torch.float32), k.to(torch.float32)) / scale
+    if cfg.attn_logit_softcapping:
+        cap = float(np.float32(cfg.attn_logit_softcapping))
+        scores = cap * torch.tanh(scores / cap)
+    scores = scores + mask
+    if "sinks" in layer:  # gpt-oss: the sink logit joins the normalization
+        sinks = enter(layer["sinks"])
+        if heads:
+            sinks = sinks[h0:h1]
+        sinks = sinks.to(torch.float32).reshape(1, KVH, group, 1, 1)
+        mx = torch.maximum(scores.amax(dim=-1, keepdim=True), sinks)
+        e = torch.exp(scores - mx)
+        probs = e / (e.sum(dim=-1, keepdim=True) + torch.exp(sinks - mx))
+    else:
+        probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgts,bksd->bkgtd", probs, v.to(torch.float32))
+    out = out.reshape(B, H, T, D).transpose(1, 2).reshape(B, T, H * D)
+    out = matmul(out.to(h.dtype), layer["o_proj"])
+    if split is not None and not heads:  # replicated attention: one rank's term
+        out = split.share(out)
+    if "o_bias" in layer:  # after the sum, once: rank 0's term
+        out = out + (layer["o_bias"] if split is None else split.share(layer["o_bias"]))
+    return out
+
+
+def _mla_train(cfg: ModelConfig, layer, h, cos, sin, positions, mask, split):
+    """DeepSeek MLA, cache-free: attention over this call's own latents
+    (S = T), the serving path's absorbed einsums."""
+    B, T, _ = h.shape
+    H = cfg.num_attention_heads
+    dn, dr, dc, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.kv_lora_rank, cfg.v_head_dim
+    heads = split is not None and split.heads is not None
+    enter = split.enter if heads else (lambda t: t)
+    h0, h1 = split.heads if heads else (0, H)
+    if "q_proj" in layer:  # no q_lora_rank (V2-Lite): q_proj is split by heads
+        q = matmul(enter(h), layer["q_proj"]).reshape(B, T, h1 - h0, dn + dr)
+    else:
+        q = matmul(rms_norm(matmul(h, layer["q_a_proj"]), layer["q_a_layernorm"], cfg.rms_norm_eps),
+                   layer["q_b_proj"])
+        q = enter(q.reshape(B, T, H, dn + dr))[:, :, h0:h1]
+    q = q.transpose(1, 2)
+    q_nope, q_pe = q[..., :dn], q[..., dn:]
+    ckv = matmul(h, layer["kv_a_proj"])
+    c = enter(rms_norm(ckv[..., :dc], layer["kv_a_layernorm"], cfg.rms_norm_eps))
+    q_pe, k_pe = apply_rope_cfg(cfg, q_pe, enter(ckv[..., dc:][:, None]), cos, sin, positions)
+    wkb = layer["kv_b_proj"]
+    wkb = dequant(wkb, torch.float32) if isinstance(wkb, dict) else wkb.to(torch.float32)
+    wkb = enter(wkb.reshape(H, dn + dv, dc))[h0:h1]
+    c32, pe32 = c.to(torch.float32), k_pe[:, 0].to(torch.float32)
+    q_abs = torch.einsum("bhtd,hdc->bhtc", q_nope.to(torch.float32), wkb[:, :dn])
+    scores = torch.einsum("bhtc,bsc->bhts", q_abs, c32) + torch.einsum("bhtd,bsd->bhts", q_pe.to(torch.float32), pe32)
+    scores = scores * float(np.float32(cfg.mla_softmax_scale)) + mask
+    probs = torch.softmax(scores, dim=-1)
+    ctx = torch.einsum("bhts,bsc->bhtc", probs, c32)
+    out = torch.einsum("bhtc,hvc->bhtv", ctx, wkb[:, dn:])
+    out = matmul(out.transpose(1, 2).reshape(B, T, (h1 - h0) * dv).to(h.dtype), layer["o_proj"])
+    return split.share(out) if split is not None and not heads else out
+
+
+def _experts_train(cfg: ModelConfig, layer, x, split):
+    """Expert lists (Mixtral / Qwen3-MoE / DeepSeek), dense-and-mask, plus
+    DeepSeek's shared experts; the serving ``MoE``'s math."""
+    n_exp = cfg.num_local_experts
+    if cfg.model_type.startswith("deepseek"):
+        idx, w = deepseek_topk(cfg, layer["moe_gate"], layer.get("gate_bias"), x)
+    else:
+        probs = torch.softmax(matmul(x, layer["moe_gate"]).to(torch.float32), dim=-1)
+        w, idx = topk(probs, cfg.num_experts_per_tok)
+        if cfg.norm_topk_prob:
+            w = w / w.sum(dim=-1, keepdim=True)
+    weights = _dense_weights(idx, w, n_exp)
+    split_e = split is not None and split.experts
+    xe = split.enter(x) if split_e else x
+    if split_e:
+        weights = split.enter(weights)
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for e, ex in enumerate(layer["experts"]):
+        h = _mlp_fn({"gate_proj": ex["w1"], "up_proj": ex["w3"], "down_proj": ex["w2"]}, xe, cfg.hidden_act)
+        out = out + h.to(torch.float32) * weights[..., e:e + 1]
+    if split is not None and not split_e:
+        out = split.share(out)
+    if "shared_gate_proj" in layer:
+        shared = _mlp_fn(layer, x, cfg.hidden_act, "shared_").to(torch.float32)
+        out = out + (shared if split is None else split.share(shared))
+    return out.to(x.dtype)
+
+
+def _gptoss_train(cfg: ModelConfig, layer, x, split):
+    e = layer["gptoss_experts"]
+    scores = gptoss_router_scores(cfg, layer["moe_gate"], layer["moe_gate_bias"], x)
+    split_s = split is not None and split.stacks is not None
+    xe = x
+    if split_s:
+        e0, e1 = split.stacks
+        scores, xe = split.enter(scores)[..., e0:e1], split.enter(x)
+    out = gptoss_expert_math(xe, _stack_of(e["gate_up"], x.dtype), e["gate_up_bias"], _stack_of(e["down"], x.dtype),
+                             e["down_bias"], scores)
+    if split is not None and not split_s:
+        out = split.share(out)
+    return out.to(x.dtype)
+
+
+def _llama4_train(cfg: ModelConfig, layer, x, split):
+    e = layer["llama4_experts"]
+    B, T, D = x.shape
+    xf = x.reshape(B * T, D).to(torch.float32)
+    scores = llama4_router_scores(cfg, layer["moe_gate"], xf)
+    split_s = split is not None and split.stacks is not None
+    xe = xf
+    if split_s:
+        e0, e1 = split.stacks
+        scores, xe = split.enter(scores)[:, e0:e1], split.enter(xf)
+    gu = torch.matmul(xe[None] * scores.T[:, :, None], _stack_of(e["gate_up"], torch.float32))
+    gate, up = gu.chunk(2, dim=-1)
+    routed = torch.einsum("eni,eih->nh", _act(gate, cfg.hidden_act) * up, _stack_of(e["down"], torch.float32))
+    if split is not None and not split_s:
+        routed = split.share(routed)
+    shared = _mlp_fn(layer, x, cfg.hidden_act, "shared_").to(torch.float32)
+    out = routed.reshape(B, T, D) + (shared if split is None else split.share(shared))
+    return out.to(x.dtype)
+
+
+def _ffn_train(cfg: ModelConfig, layer, x, split):
+    """The layer's FFN: this rank's partial sum under ``split``."""
+    if "gptoss_experts" in layer:
+        return _gptoss_train(cfg, layer, x, split)
+    if "llama4_experts" in layer:
+        return _llama4_train(cfg, layer, x, split)
+    if "experts" in layer:
+        return _experts_train(cfg, layer, x, split)
+    if split is None:
+        return _mlp_fn(layer, x, cfg.hidden_act)
+    if split.mlp:
+        return _mlp_fn(layer, split.enter(x), cfg.hidden_act)
+    return split.share(_mlp_fn(layer, x, cfg.hidden_act))
+
+
+def block_train(cfg: ModelConfig, layer, x, cos, sin, positions, mask, reduce=None, use_rope: bool = True,
+                split=None):
+    """One cache-free decoder block (attention + FFN with residuals),
+    differentiable; ``mask`` (T, T) additive.
+
+    ``reduce``: the partial-sum reduction applied to the attention output
+    (after o_proj) and the FFN output (after down_proj), Megatron's two
+    row-parallel products: with ``split``'s slices it is the ranks'
+    all-reduce; None is the one-device block."""
+    po = cfg.is_gemma
+    h = x if cfg.is_olmo2 else rms_norm(x, layer["input_layernorm"], cfg.rms_norm_eps, po)
+    if cfg.is_mla:
+        attn_out = _mla_train(cfg, layer, h, cos, sin, positions, mask, split)
+    else:
+        attn_out = _attention_train(cfg, layer, h, cos, sin, positions, mask, use_rope, split)
+    return _block_tail(cfg, layer, x, attn_out, reduce, po, split)
+
+
+def _block_tail(cfg: ModelConfig, layer, x, attn_out, reduce, po: bool, split=None):
+    """The reduce / residual / FFN tail every attention shares: OLMo-2's
+    post-norms, Gemma-2/3's and GLM-4's sandwich norms, the pre-norm block."""
+    eps = cfg.rms_norm_eps
+    if reduce is not None:
+        attn_out = reduce(attn_out)
+    if cfg.is_olmo2:  # post-norm residuals, no pre-FFN norm
+        x = x + rms_norm(attn_out, layer["post_attention_layernorm"], eps)
+        ffn_out = _ffn_train(cfg, layer, x, split)
+        if reduce is not None:
+            ffn_out = reduce(ffn_out)
+        return x + rms_norm(ffn_out, layer["post_feedforward_layernorm"], eps)
+    if "pre_feedforward_layernorm" in layer:  # sandwich norms
+        x = x + rms_norm(attn_out, layer["post_attention_layernorm"], eps, po)
+        ffn_out = _ffn_train(cfg, layer, rms_norm(x, layer["pre_feedforward_layernorm"], eps, po), split)
+        if reduce is not None:
+            ffn_out = reduce(ffn_out)
+        return x + rms_norm(ffn_out, layer["post_feedforward_layernorm"], eps, po)
+    x = x + attn_out
+    ffn_out = _ffn_train(cfg, layer, rms_norm(x, layer["post_attention_layernorm"], eps, po), split)
+    if reduce is not None:
+        ffn_out = reduce(ffn_out)
+    return x + ffn_out
+
+
+def train_masks(cfg: ModelConfig, T: int, device=None) -> Dict[str, torch.Tensor]:
+    """The additive (T, T) f32 masks of a cache-free forward by kind: full
+    (causal), sliding (the window) and chunked (Llama-4's chunk-aligned)."""
+    i = torch.arange(T, device=device)[:, None]
+    j = torch.arange(T, device=device)[None, :]
+    causal = j <= i
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    masked = torch.full((), -1e9, dtype=torch.float32, device=device)
+    masks = {"full": torch.where(causal, zero, masked)}
+    if cfg.sliding_window is not None:
+        masks["sliding"] = torch.where(causal & (j > i - cfg.sliding_window), zero, masked)
+    if cfg.attention_chunk_size is not None:
+        C = cfg.attention_chunk_size
+        masks["chunked"] = torch.where(causal & (j >= torch.div(i, C, rounding_mode="floor") * C), zero, masked)
+    return masks
+
+
+def forward_train(params: dict, cfg: ModelConfig, input_ids: torch.Tensor, remat: bool = False, tp=None
+                  ) -> torch.Tensor:
+    """Cache-free causal forward for training: (B, T) ids -> f32 logits
+    (B, T, V), differentiable through every leaf that requires grad.
+
+    ``remat=True`` checkpoints each block (``torch.utils.checkpoint``,
+    non-reentrant): the backward recomputes a block's activations instead
+    of holding every layer's, with the same ops in the same order.
+    ``tp`` (parallel/train.py ``TrainTP``): the params are one rank's
+    tensor-parallel slices; ``tp.splits[i]`` is layer i's view and
+    ``tp.reduce`` the row-parallel all-reduce. The embedding and the
+    lm_head are whole on every rank."""
+    from torch.utils.checkpoint import checkpoint
+
+    B, T = input_ids.shape
+    x = embed_matrix(params)[input_ids]
+    if cfg.is_gemma:
+        x = x * torch.tensor(cfg.hidden_size**0.5, dtype=x.dtype, device=x.device)
+    rope = rope_tables(cfg, T, x.device)
+    positions = torch.arange(T, device=x.device)[None, :].expand(B, T)
+    masks = train_masks(cfg, T, x.device)
+
+    def blk(layer, x, mask, cos, sin, use_rope, split):
+        return block_train(cfg, layer, x, cos, sin, positions, mask, None if tp is None else tp.reduce,
+                           use_rope, split)
+
+    for i, layer in enumerate(params["layers"]):
+        kind = "chunked" if cfg.layer_is_chunked(i) else "sliding" if cfg.layer_is_sliding(i) else "full"
+        cos, sin = layer_rope(cfg, rope, i)
+        args = (layer, x, masks[kind], cos, sin, cfg.layer_uses_rope(i), None if tp is None else tp.splits[i])
+        if remat:
+            x = checkpoint(blk, *args, use_reentrant=False)
+        else:
+            x = blk(*args)
+    x = rms_norm(x, params["norm"], cfg.rms_norm_eps, cfg.is_gemma)
+    head = params.get("lm_head")
+    logits = matmul(x, head if head is not None else params["embed_tokens"]).to(torch.float32)
+    if cfg.final_logit_softcapping:
+        cap = float(np.float32(cfg.final_logit_softcapping))
+        logits = cap * torch.tanh(logits / cap)
+    return logits

@@ -14,7 +14,9 @@ and the dict's key is ``q3``), and GPT-OSS's shipped MXFP4 stacks decode to
 f32 (:func:`dequant_mxfp4`).
 
 ``dequant_matmul`` routes a packed-int4 product with at most 64 rows on a
-CUDA tensor to the hand-written GEMV (quant_kernels.int4_matmul). Every other
+CUDA tensor to the hand-written GEMV (quant_kernels.int4_matmul), and one
+whose x requires grad (training through a frozen int4 base) to
+``quant_kernels.Int4Matmul``, the same kernel with a backward. Every other
 product takes the plain path, which stands for the JAX package's XLA
 split-half decomposition: two matmuls over the dequantized halves in
 x.dtype.
@@ -148,10 +150,13 @@ def dequant_matmul(x: torch.Tensor, wq: Dict[str, torch.Tensor]) -> torch.Tensor
     """``x @ dequant(W).T`` in x.dtype."""
     q, s = wq["q"], wq["scale"]
     if q.dtype == torch.uint8:
-        from .quant_kernels import int4_matmul, supported
+        from .quant_kernels import Int4Matmul, int4_matmul, supported
 
-        if x.is_cuda and supported(x.shape, q.shape):
-            return int4_matmul(x, q, s)
+        if supported(x.shape, q.shape):
+            if x.requires_grad and torch.is_grad_enabled():
+                return Int4Matmul.apply(x, q, s)
+            if x.is_cuda:
+                return int4_matmul(x, q, s)
         h = q.shape[1]
         wl = (((q & 0xF).to(torch.int8) - 8) * s).to(x.dtype)
         wh = (((q >> 4).to(torch.int8) - 8) * s).to(x.dtype)

@@ -18,6 +18,12 @@ row's result has the same bits alone as in a batch of up to 64.
 :func:`int4_matmul_split_order` is that split structure in plain torch.
 
 Each launch of the kernel adds one to ``launch_counts["int4_gemv"]``.
+
+:class:`Int4Matmul` is the product as an autograd function (JAX's
+``custom_vjp``): its forward is :func:`int4_matmul`, its backward
+``dx = g @ dequant(W)`` in g's dtype as a plain matmul (JAX runs it on XLA
+outside the Pallas kernel), and the frozen ``q`` and ``scale`` get no
+gradient.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from .quant import dequant
 
 __all__ = [
     "int4_matmul",
+    "Int4Matmul",
     "int4_matmul_plain",
     "int4_matmul_split_order",
     "supported",
@@ -199,3 +206,20 @@ def int4_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.
         raise RuntimeError(f"int4_gemv launch failed: cudaError {err}")
     launch_counts["int4_gemv"] += 1
     return y.reshape(*lead, n)
+
+
+class Int4Matmul(torch.autograd.Function):
+    """``x @ dequant({q, scale}).T`` with a gradient for x: the forward is
+    :func:`int4_matmul` (the kernel on a CUDA tensor), the backward
+    ``g @ dequant(W)`` in g's dtype; q and scale are frozen."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(q, scale)
+        return int4_matmul(x, q, scale)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        q, scale = ctx.saved_tensors
+        w = dequant({"q": q, "scale": scale.reshape(-1, 1)}, g.dtype)
+        return g @ w, None, None

@@ -9,8 +9,12 @@ JAX's default PRNG is threefry2x32 with ``jax_threefry_partitionable`` on:
 - the bits of an array of ``shape`` come from one threefry2x32 call per
   element, its counter the element's row-major flat index split into
   ``(idx >> 32, idx & 0xFFFFFFFF)``, and are ``out0 ^ out1``;
+- ``split(key, num)``: key i is ``threefry2x32(key, (0, i))`` (the flat
+  index as the counter again);
 - ``uniform`` keeps the top 23 bits as the mantissa of a float in [1, 2)
-  and subtracts 1; ``bernoulli(key, p)`` is ``uniform < p``.
+  and subtracts 1, then scales to [minval, maxval) as ``u * (maxval -
+  minval) + minval`` in f32 (XLA contracts it into one FMA on the CPU),
+  floored at minval; ``bernoulli(key, p)`` is ``u < p``.
 
 torch has no unsigned 32-bit shifts on every device, so the words live in
 int64 tensors masked to 32 bits; the same code runs on CPU and CUDA tensors.
@@ -27,7 +31,8 @@ from typing import Sequence, Tuple, Union
 
 import torch
 
-__all__ = ["threefry2x32", "key", "fold_in", "random_bits", "bernoulli", "bernoulli_range", "CHUNK"]
+__all__ = ["threefry2x32", "key", "fold_in", "split", "random_bits", "uniform", "bernoulli", "bernoulli_range",
+           "fma_f32", "CHUNK"]
 
 _M = 0xFFFFFFFF
 _PARITY = 0x1BD11BDA
@@ -81,6 +86,11 @@ def fold_in(k: Key, data: int) -> Key:
     return threefry2x32(k, 0, data & _M)
 
 
+def split(k: Key, num: int = 2) -> Tuple[Key, ...]:
+    """``jax.random.split(k, num)``'s keys."""
+    return tuple(threefry2x32(k, 0, i) for i in range(num))
+
+
 def random_bits(k: Key, start: int, stop: int, device) -> torch.Tensor:
     """The 32-bit words (int64) of flat elements [start, stop) of any array
     drawn under ``k``."""
@@ -93,6 +103,32 @@ def _uniform_of(bits: torch.Tensor) -> torch.Tensor:
     """f32 in [0, 1) from the top 23 bits, as ``jax.random.uniform``."""
     mantissa = bits.bitwise_right_shift_(9).bitwise_or_(_ONE_BITS).to(torch.int32)
     return mantissa.view(torch.float32) - 1.0
+
+
+def fma_f32(a: torch.Tensor, b: float, c) -> torch.Tensor:
+    """``a * b + c`` rounded once to f32, for f32 ``a`` and f32 values ``b``,
+    ``c`` (a Python float, or a tensor for ``c``). The product is exact in
+    f64; the sum is rounded to odd there (Boldo-Melquiond), so its rounding
+    to f32 is the correctly rounded fused result."""
+    p = a.to(torch.float64) * b
+    s = p + c
+    bp = s - p
+    err = (p - (s - bp)) + (c - bp)  # s + err == p + c exactly (TwoSum)
+    bits = s.view(torch.int64)
+    even = (bits & 1) == 0
+    toward = torch.where((err > 0) == (s > 0), 1, -1)
+    bits = torch.where((err != 0) & even, bits + toward, bits)
+    return bits.view(torch.float64).to(torch.float32)
+
+
+def uniform(k: Key, shape: Sequence[int], minval: float = 0.0, maxval: float = 1.0, device=None) -> torch.Tensor:
+    """``jax.random.uniform(k, shape, float32, minval, maxval)``: f32 on
+    ``device``."""
+    shape = tuple(shape)
+    lo = float(torch.tensor(minval, dtype=torch.float32))
+    span = float(torch.tensor(maxval, dtype=torch.float32) - lo)
+    u = _uniform_of(random_bits(k, 0, _numel(shape), device))
+    return torch.clamp_min(fma_f32(u, span, lo), lo).reshape(shape)
 
 
 def bernoulli(k: Key, p, shape: Sequence[int], device=None, chunk: int = CHUNK) -> torch.Tensor:

@@ -1,2 +1,4 @@
-"""The fourier merge across ranks (counterpart of shardmerge_tpu/parallel/:
-``fft2d``, ``merge`` and ``multihost``), on torch.distributed."""
+"""Work across ranks on torch.distributed (counterpart of
+shardmerge_tpu/parallel/): the fourier merge (``fft2d``, ``merge``,
+``multihost``), tensor-parallel serving (``tp``) and training over a (dp, tp)
+mesh (``mesh``, ``train``, ``optim``, ``checkpoint``, ``lora``)."""

@@ -22,6 +22,13 @@ The tensor-parallel decoder (parallel/tp.py) adds:
 - ``all_gather_last``: the vocab-parallel logits joined along the last axis;
 - ``broadcast_object``: the first rank's call records, over a control group.
 
+The train step (parallel/train.py) runs a :class:`Comm` over each axis of
+its (dp, tp) mesh (``group``: that axis's process group, parallel/mesh.py)
+and adds ``reduce_scatter_sum`` (ZeRO-1's and fsdp's gradient shards,
+summed in f32 on either transport: NCCL's reduce-scatter of the cast
+gradients, or an all-to-all summed in rank order) and ``all_gather_flat``
+(the updated shards back).
+
 Ranks sit at positions 0..P-1 (``merge_mesh`` orders them host by host);
 position p holds rows [p M/P, (p+1) M/P) and the p-th column block.
 
@@ -105,14 +112,17 @@ class Comm:
     ``order`` lists the ranks by position (default: rank order). ``stats``
     counts, per collective kind, [calls, bytes this rank sent, host seconds]
     (host-staged collectives are synchronous, so their seconds are their
-    wall; an NCCL call's are its launch)."""
+    wall; an NCCL call's are its launch). ``group``: a subgroup to run over
+    instead of the default group (ranks and positions are then the
+    group's)."""
 
-    def __init__(self, device, order: Optional[Sequence[int]] = None, serialized: bool = False):
+    def __init__(self, device, order: Optional[Sequence[int]] = None, serialized: bool = False, group=None):
         import torch.distributed as dist
 
         self._dist = dist
-        self.rank = dist.get_rank()
-        self.size = dist.get_world_size()
+        self.group = group
+        self.rank = dist.get_rank(group)
+        self.size = dist.get_world_size(group)
         self.order: List[int] = list(order) if order is not None else list(range(self.size))
         if sorted(self.order) != list(range(self.size)):
             raise ValueError(f"order {self.order} is not a permutation of the group's {self.size} ranks")
@@ -120,7 +130,7 @@ class Comm:
         self._pos_of = [self.order.index(r) for r in range(self.size)]
         self._identity = self.order == list(range(self.size))
         self.device = torch.device(device)
-        self.backend = str(dist.get_backend())
+        self.backend = str(dist.get_backend(group))
         # gloo moves no CUDA tensor: its collectives go through host memory
         self.staged = self.backend == "gloo" and self.device.type == "cuda"
         self.stats = {}
@@ -178,7 +188,7 @@ class Comm:
         self._enter()
         t0 = time.perf_counter()
         buf = self._out(x).clone()
-        self._dist.all_reduce(buf)
+        self._dist.all_reduce(buf, group=self.group)
         out = self._back(buf, x)
         self._count("all_reduce", x.nbytes, t0)
         return out
@@ -190,7 +200,7 @@ class Comm:
         complex_ = chunks.is_complex()
         send = self._out(self._real(self._by_rank(chunks)).contiguous())
         recv = torch.empty_like(send)
-        self._dist.all_to_all_single(recv, send)
+        self._dist.all_to_all_single(recv, send, group=self.group)
         recv = self._by_position(self._back(recv, chunks))
         out = torch.view_as_complex(recv) if complex_ else recv
         self._count(kind, chunks.nbytes, t0)
@@ -219,7 +229,7 @@ class Comm:
         send = self._out(self._real(x).contiguous())
         recv = torch.empty((self.size * send.shape[0],) + tuple(send.shape[1:]), dtype=send.dtype,
                            device=send.device)
-        self._dist.all_gather_into_tensor(recv, send)
+        self._dist.all_gather_into_tensor(recv, send, group=self.group)
         recv = self._by_position(self._back(recv, x).reshape((self.size,) + tuple(send.shape)))
         out = torch.view_as_complex(recv) if complex_ else recv
         self._count("all_gather", x.nbytes, t0)
@@ -240,7 +250,8 @@ class Comm:
         for r0 in range(0, m, step):
             block = self._out(x[r0:r0 + step].contiguous())
             recv = [torch.empty_like(block) for _ in range(p)] if self.primary else None
-            self._dist.gather(block, recv, dst=self.order[0])
+            dst = self.order[0] if self.group is None else self._dist.get_global_rank(self.group, self.order[0])
+            self._dist.gather(block, recv, dst=dst, group=self.group)
             if self.primary:
                 for g, piece in enumerate(recv):
                     out[self._pos_of[g], r0:r0 + step].copy_(piece)
@@ -253,7 +264,7 @@ class Comm:
         """Every rank's ``x`` stacked in rank order: (P,) + x.shape, on x's device."""
         send = self._out(x.contiguous().reshape(-1))
         recv = torch.empty((self.size * send.numel(),), dtype=send.dtype, device=send.device)
-        self._dist.all_gather_into_tensor(recv, send)
+        self._dist.all_gather_into_tensor(recv, send, group=self.group)
         return self._back(recv, x).reshape((self.size,) + tuple(x.shape))
 
     def all_reduce_sum(self, x: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
@@ -275,6 +286,42 @@ class Comm:
         t0 = time.perf_counter()
         recv = self._gather_flat(x)
         out = recv.movedim(0, -2).reshape(tuple(x.shape[:-1]) + (self.size * x.shape[-1],))
+        self._count("all_gather", x.nbytes, t0)
+        return out
+
+    def reduce_scatter_sum(self, x: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """A flat (P c,) tensor on every rank -> this rank's (c,) chunk of the
+        sum over the ranks (chunk r at [r c, (r+1) c)), summed in ``dtype``
+        (default x.dtype) and rounded once to x.dtype on either transport:
+        NCCL's reduce-scatter runs on x cast to ``dtype`` (twice the bytes
+        for a bf16 x summed in f32); elsewhere (gloo has none) an all-to-all
+        brings every rank's chunk r to rank r, added in rank order one chunk
+        at a time on x's device."""
+        self._enter()
+        t0 = time.perf_counter()
+        chunks, nbytes = x.reshape(self.size, -1), x.nbytes
+        if self.backend == "nccl":
+            wide = x.to(dtype or x.dtype)
+            nbytes = wide.nbytes
+            out = torch.empty_like(wide.reshape(self.size, -1)[0])
+            self._dist.reduce_scatter_tensor(out, wide, group=self.group)
+            out = out.to(x.dtype)
+        else:
+            send = self._out(chunks.contiguous())
+            recv = torch.empty_like(send)
+            self._dist.all_to_all_single(recv, send, group=self.group)
+            acc = recv[0].to(x.device, dtype or x.dtype)
+            for r in range(1, self.size):
+                acc = acc + recv[r].to(x.device, acc.dtype)
+            out = acc.to(x.dtype)
+        self._count("reduce_scatter", nbytes, t0)
+        return out
+
+    def all_gather_flat(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's (c,) chunk joined in rank order: (P c,)."""
+        self._enter()
+        t0 = time.perf_counter()
+        out = self._gather_flat(x).reshape(-1)
         self._count("all_gather", x.nbytes, t0)
         return out
 

@@ -1,7 +1,8 @@
-"""Tensor-parallel placement of the decoder params (counterpart of the
-placement half of shardmerge_tpu/parallel/train.py: ``loader_shardings``,
+"""Tensor-parallel placement of the decoder params and the (dp, tp) train
+step (counterpart of shardmerge_tpu/parallel/train.py: ``loader_shardings``,
 ``param_shardings``, ``shard_params``, with the divisibility rule of the
-JAX loader's ``_StreamShardings._fits``).
+JAX loader's ``_StreamShardings._fits``; ``_loss_fn``, ``_OptimKit``,
+``make_train_step``).
 
 Megatron-style over one axis ``"tp"`` of P ranks:
 
@@ -44,13 +45,17 @@ the high nibbles of another.
 
 from __future__ import annotations
 
+import dataclasses
+from collections.abc import Mapping
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 
 __all__ = ["COL", "ROW", "REP", "loader_rules", "param_shardings", "fits", "repack4_tp_blocked", "LayerPlan",
-           "Plan", "plan", "shard_leaf", "shard_params", "collectives_per_forward"]
+           "Plan", "plan", "split_of", "shard_leaf", "shard_params", "collectives_per_forward", "train_plan",
+           "TrainTP", "TrainState", "tree_flatten", "tree_unflatten", "_loss_fn", "make_train_step"]
 
 COL = ("tp", None)
 ROW = (None, "tp")
@@ -248,39 +253,51 @@ def _stack_experts(leaf, e0: int, e1: int):
     return leaf[e0:e1].clone()
 
 
-def shard_leaf(cfg, pl: Plan, key: str, leaf, layer_idx: Optional[int] = None, stack: Optional[str] = None):
-    """This rank's slice of one leaf (raw tensor or quantized dict): ``key``
-    a top-level name (``layer_idx`` None), a layer's key, an expert's
-    ``w1``/``w3``/``w2``, or with ``stack`` a fused stack's key. Leaves the
-    rank holds whole come back as they are."""
+def split_of(cfg, pl: Plan, key: str, leaf, layer_idx: Optional[int] = None, stack: Optional[str] = None):
+    """The part of one leaf this rank holds, as ``(dim, lo, hi)`` of the
+    whole (unpacked) leaf: rows (dim 0) or input columns (dim 1), or the
+    experts of a fused stack (dim 0); None when the rank holds it whole.
+    ``key``, ``layer_idx`` and ``stack`` as for :func:`shard_leaf`."""
     if layer_idx is None:
-        if key in _TOP_RULES and pl.vocab is not None:
-            return _out_rows(leaf, *pl.vocab)
-        return leaf
+        return (0, *pl.vocab) if key in _TOP_RULES and pl.vocab is not None else None
     lp = pl.layers[layer_idx]
     if stack is not None:
-        return leaf if lp.stacks is None else _stack_experts(leaf, *lp.stacks)
+        return None if lp.stacks is None else (0, *lp.stacks)
     D = cfg.head_dim
     if lp.heads is not None:
         h0, h1 = lp.heads
         if cfg.is_mla:
             if key == "q_proj":
-                return _out_rows(leaf, h0 * cfg.qk_head_dim, h1 * cfg.qk_head_dim)
+                return (0, h0 * cfg.qk_head_dim, h1 * cfg.qk_head_dim)
             if key == "o_proj":
-                return _in_cols(leaf, h0 * cfg.v_head_dim, h1 * cfg.v_head_dim)
+                return (1, h0 * cfg.v_head_dim, h1 * cfg.v_head_dim)
         else:
             k0, k1 = lp.kv_heads
             if key in ("q_proj", "q_bias"):
-                return _out_rows(leaf, h0 * D, h1 * D)
+                return (0, h0 * D, h1 * D)
             if key in ("k_proj", "v_proj", "k_bias", "v_bias"):
-                return _out_rows(leaf, k0 * D, k1 * D)
+                return (0, k0 * D, k1 * D)
             if key == "o_proj":
-                return _in_cols(leaf, h0 * D, h1 * D)
+                return (1, h0 * D, h1 * D)
     if (lp.mlp and key in ("gate_proj", "up_proj", "down_proj")) or (lp.experts and key in ("w1", "w3", "w2")):
         if key in ("down_proj", "w2"):
-            return _in_cols(leaf, *_block(_in_dim(leaf), pl.rank, pl.size))
-        return _out_rows(leaf, *_block(_out_dim(leaf), pl.rank, pl.size))
-    return leaf
+            return (1, *_block(_in_dim(leaf), pl.rank, pl.size))
+        return (0, *_block(_out_dim(leaf), pl.rank, pl.size))
+    return None
+
+
+def shard_leaf(cfg, pl: Plan, key: str, leaf, layer_idx: Optional[int] = None, stack: Optional[str] = None):
+    """This rank's slice of one leaf (raw tensor or quantized dict): ``key``
+    a top-level name (``layer_idx`` None), a layer's key, an expert's
+    ``w1``/``w3``/``w2``, or with ``stack`` a fused stack's key. Leaves the
+    rank holds whole come back as they are."""
+    cut = split_of(cfg, pl, key, leaf, layer_idx, stack)
+    if cut is None:
+        return leaf
+    dim, lo, hi = cut
+    if stack is not None:
+        return _stack_experts(leaf, lo, hi)
+    return _out_rows(leaf, lo, hi) if dim == 0 else _in_cols(leaf, lo, hi)
 
 
 def _out_dim(leaf) -> int:
@@ -330,3 +347,552 @@ def collectives_per_forward(cfg, pl: Plan) -> dict:
         else:
             reduces += lp.mlp
     return {"all_reduce": reduces, "all_gather": 1 if pl.vocab is not None else 0}
+
+
+# ---------------------------------------------------------------------------
+# Training over a (dp, tp) mesh
+# ---------------------------------------------------------------------------
+#
+# JAX jits one step over the global batch and lets GSPMD place everything.
+# The port runs one process a rank (parallel/mesh.py) and does by hand what
+# GSPMD derives:
+#
+# - dp: each rank takes its rows of every (micro)batch; the gradients are
+#   summed over the dp group in f32 and divided by dp (mean of the ranks'
+#   means); the loss likewise;
+# - tp: the serving placement (``plan``) with the embedding and the lm_head
+#   replicated (``train_plan``: JAX's manual cp path replicates them too);
+#   the model runs Megatron's f/g operators (models/llama.py ``split``):
+#   :class:`_Enter` before each split product, :class:`_Reduce` after
+#   o_proj and down_proj, :class:`_Share` for replicated terms of a partial
+#   sum. Every replicated leaf then gets the same gradient on every tp rank
+#   and the leaves stay equal without a gradient collective;
+# - zero1: each dp rank keeps 1/dp of every moment (and of the f32 master):
+#   the flattened gradients are reduce-scattered, each rank updates its
+#   chunk, and the updated chunks are all-gathered;
+# - fsdp: the parameters themselves are kept as those chunks and each is
+#   all-gathered at its use (:class:`_Gather`, whose backward
+#   reduce-scatters the gradient), again at a remat recompute.
+#
+# Every collective sums in rank order (parallel/comm.py), so replicated
+# values are the same bits on every rank.
+
+
+def train_plan(cfg, rank: int, size: int, quant_bits: Optional[int] = None) -> Plan:
+    """The training placement: :func:`plan` with the vocab replicated, and
+    attention replicated where a KV head would be held by several ranks
+    (KVH % P != 0: its copies would get different gradients)."""
+    pl = plan(cfg, rank, size, quant_bits)
+    layers = pl.layers
+    if not cfg.is_mla and cfg.num_key_value_heads % size:
+        layers = tuple(dataclasses.replace(lp, heads=None, kv_heads=None) for lp in layers)
+    return dataclasses.replace(pl, vocab=None, layers=layers)
+
+
+class _Enter(torch.autograd.Function):
+    """Megatron's f: identity forward, the gradient summed over tp."""
+
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.comm = comm
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.all_reduce_sum(g, torch.float32), None
+
+
+class _Reduce(torch.autograd.Function):
+    """Megatron's g: the partial sums summed over tp, the gradient passed."""
+
+    @staticmethod
+    def forward(ctx, x, comm):
+        return comm.all_reduce_sum(x, torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Psum(torch.autograd.Function):
+    """A sum over tp consumed by split computations: summed both ways."""
+
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.comm = comm
+        return comm.all_reduce_sum(x, torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.all_reduce_sum(g, torch.float32), None
+
+
+class _Share(torch.autograd.Function):
+    """A replicated term of a partial sum: rank 0's value, zeros elsewhere;
+    the gradient passed on every rank."""
+
+    @staticmethod
+    def forward(ctx, x, first):
+        return x.view_as(x) if first else torch.zeros_like(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class LayerSplit:
+    """One layer's tensor-parallel view for models/llama.py: the
+    :class:`LayerPlan` fields and the f / share / psum operators."""
+
+    def __init__(self, lp: LayerPlan, comm):
+        self.heads, self.kv_heads = lp.heads, lp.kv_heads
+        self.mlp, self.experts, self.stacks = lp.mlp, lp.experts, lp.stacks
+        self._comm = comm
+
+    def enter(self, x):
+        return _Enter.apply(x, self._comm)
+
+    def share(self, x):
+        return _Share.apply(x, self._comm.rank == 0)
+
+    def psum(self, x):
+        return _Psum.apply(x, self._comm)
+
+
+class TrainTP:
+    """The tensor-parallel context ``forward_train`` takes: the rank's
+    :func:`train_plan`, each layer's :class:`LayerSplit` and the
+    row-parallel ``reduce``."""
+
+    def __init__(self, cfg, comm):
+        self.cfg, self.comm = cfg, comm
+        self.replan()
+
+    def replan(self, quant_bits: Optional[int] = None) -> None:
+        """The plan for a base quantized to ``quant_bits``."""
+        self.plan = train_plan(self.cfg, self.comm.rank, self.comm.size, quant_bits)
+        self.splits = [LayerSplit(lp, self.comm) for lp in self.plan.layers]
+
+    def reduce(self, x):
+        return _Reduce.apply(x, self.comm)
+
+
+# the train state's trees: dicts flatten in sorted key order (JAX's), lists
+# in order; a leaf is a tensor
+
+
+def tree_flatten(tree, prefix: Tuple = ()) -> Tuple[List[Tuple], List[torch.Tensor]]:
+    """(paths, leaves) of ``tree`` in JAX's flatten order."""
+    if isinstance(tree, dict):
+        items = [(k, tree[k]) for k in sorted(tree)]
+    elif isinstance(tree, (list, tuple)):
+        items = list(enumerate(tree))
+    else:
+        return [prefix], [tree]
+    paths, leaves = [], []
+    for k, v in items:
+        p, lv = tree_flatten(v, prefix + (k,))
+        paths += p
+        leaves += lv
+    return paths, leaves
+
+
+def tree_unflatten(template, leaves):
+    """``template``'s structure with ``leaves`` (in flatten order) at its leaves."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):  # the leaves come in sorted key order; keep the dict's own
+            built = {k: build(node[k]) for k in sorted(node)}
+            return {k: built[k] for k in node}
+        if isinstance(node, (list, tuple)):
+            return [build(v) for v in node]
+        return next(it)
+
+    return build(template)
+
+
+def _key_of(path: Tuple) -> Tuple[str, Optional[int], Optional[str]]:
+    """(leaf key, layer index, stack) of a param path, for :func:`split_of`."""
+    if path[0] != "layers":
+        return path[0], None, None
+    i = path[1]
+    if path[2] == "experts":
+        return path[4], i, None
+    if path[2] in _STACKS:
+        return path[3], i, path[2]
+    return path[2], i, None
+
+
+class _Layout:
+    """Where a train state's leaves live: each param leaf's whole shape and
+    its tensor-parallel cut (:func:`split_of`), and whether the params
+    (fsdp) and the optimizer leaves (zero1 or fsdp) are dp chunks: the
+    flattened leaf padded to a multiple of dp, chunk d on dp rank d.
+    parallel/checkpoint.py moves leaves through ``gather`` (this rank's ->
+    whole) and ``place`` (whole -> this rank's) by kind: "trained" (leaf i
+    of the trained tree: the params, or LoRA's adapters), "opt" (a moment
+    or the master of trained leaf i), "base" (LoRA's frozen leaves, whole
+    on every rank only without tp)."""
+
+    def __init__(self, mesh, tree: dict, cuts: list, zero1: bool = False, fsdp: bool = False,
+                 trained: str = "params"):
+        self.mesh = mesh
+        self.trained = trained
+        self.dp = mesh.shape.get("dp", 1)
+        self.dp_rank = mesh.coords.get("dp", 0)
+        self.dp_comm = mesh.comm("dp")
+        self.tp_comm = mesh.comm("tp")
+        self.zero1, self.fsdp = zero1, fsdp
+        self.paths, leaves = tree_flatten(tree)
+        self.full_shapes = [tuple(v.shape) for v in leaves]
+        self.cuts = cuts
+        self.local_shapes = []
+        for shape, cut in zip(self.full_shapes, self.cuts):
+            shape = list(shape)
+            if cut is not None:
+                shape[cut[0]] = cut[2] - cut[1]
+            self.local_shapes.append(tuple(shape))
+        self.numels = [int(np.prod(s)) for s in self.local_shapes]
+        self.chunks = [-(-n // self.dp) for n in self.numels]
+
+    # -- dp chunks --------------------------------------------------------
+
+    def chunk(self, i: int, t: torch.Tensor) -> torch.Tensor:
+        """Leaf i's (tp-local) tensor -> this dp rank's flat chunk."""
+        c = self.chunks[i]
+        flat = t.reshape(-1)
+        pad = c * self.dp - flat.numel()
+        if pad:
+            flat = torch.cat([flat, flat.new_zeros(pad)])
+        return flat[self.dp_rank * c:(self.dp_rank + 1) * c].clone()
+
+    def unchunk(self, i: int, chunk: torch.Tensor) -> torch.Tensor:
+        """This rank's chunk -> leaf i's whole (tp-local) tensor."""
+        flat = chunk if self.dp == 1 else self.dp_comm.all_gather_flat(chunk)
+        return flat[:self.numels[i]].reshape(self.local_shapes[i])
+
+    # -- tp slices --------------------------------------------------------
+
+    def slice_tp(self, i: int, full: torch.Tensor) -> torch.Tensor:
+        cut = self.cuts[i]
+        if cut is None:
+            return full
+        dim, lo, hi = cut
+        return full.narrow(dim, lo, hi - lo).contiguous()
+
+    def gather_tp(self, i: int, local: torch.Tensor) -> torch.Tensor:
+        cut = self.cuts[i]
+        if cut is None:
+            return local
+        pieces = self.tp_comm.all_gather_flat(local.reshape(-1)).reshape((self.tp_comm.size,) + local.shape)
+        return torch.cat(list(pieces), dim=cut[0])
+
+    # -- by kind (checkpoints) --------------------------------------------
+
+    def _chunked(self, kind: str) -> bool:
+        return self.fsdp or (kind == "opt" and self.zero1)
+
+    def _base(self, t: torch.Tensor) -> torch.Tensor:
+        if self.tp_comm is not None:
+            raise ValueError("a LoRA state's tensor-parallel base is not checkpointed: save it with tp = 1")
+        return t
+
+    def gather(self, kind: str, i: int, t: torch.Tensor) -> torch.Tensor:
+        if kind == "base":
+            return self._base(t)
+        return self.gather_tp(i, self.unchunk(i, t) if self._chunked(kind) else t)
+
+    def place(self, kind: str, i: int, whole: torch.Tensor) -> torch.Tensor:
+        if kind == "base":
+            return self._base(whole.to(self.mesh.device))
+        local = self.slice_tp(i, whole.to(self.mesh.device))
+        return self.chunk(i, local) if self._chunked(kind) else local
+
+
+def param_cuts(cfg, pl: Optional[Plan], params: dict) -> list:
+    """Each param leaf's tensor-parallel cut under ``pl`` (flatten order)."""
+    cuts = []
+    for p, v in zip(*tree_flatten(params)):
+        key, i, stack = _key_of(p)
+        cuts.append(None if pl is None else split_of(cfg, pl, key, v, i, stack))
+    return cuts
+
+
+def _loss_fn(params: dict, cfg, batch: torch.Tensor, remat: bool = False, tp: Optional[TrainTP] = None
+             ) -> torch.Tensor:
+    """Next-token cross entropy over a (B, T+1) token batch: f32
+    log-softmax, the mean NLL over B x T."""
+    from ..models.llama import forward_train
+
+    inputs, targets = batch[:, :-1], batch[:, 1:]
+    logp = torch.log_softmax(forward_train(params, cfg, inputs, remat=remat, tp=tp), dim=-1)
+    return -torch.gather(logp, -1, targets[..., None].to(torch.int64))[..., 0].mean()
+
+
+class TrainState(dict):
+    """``{"params", "opt_state"[, "master"]}`` (LoRA: ``{"params", "lora",
+    "opt_state"}``) of this rank, and ``layout``, where its leaves live
+    (parallel/checkpoint.py gathers and re-places through it)."""
+
+    layout = None
+
+
+class _Gather(torch.autograd.Function):
+    """fsdp: a leaf's dp chunks all-gathered at use; the gradient
+    reduce-scattered back to this rank's chunk (summed over dp)."""
+
+    @staticmethod
+    def forward(ctx, chunk, layout, i):
+        ctx.layout, ctx.i = layout, i
+        return layout.unchunk(i, chunk)
+
+    @staticmethod
+    def backward(ctx, g):
+        lay, i = ctx.layout, ctx.i
+        flat = g.reshape(-1)
+        pad = lay.chunks[i] * lay.dp - flat.numel()
+        if pad:
+            flat = torch.cat([flat, flat.new_zeros(pad)])
+        return lay.dp_comm.reduce_scatter_sum(flat, torch.float32), None, None
+
+
+class _Gathered(Mapping):
+    """A params dict of fsdp chunks whose tensor leaves are gathered as they
+    are read (``block_train`` reads each once; a remat recompute reads it
+    again)."""
+
+    def __init__(self, node: dict, index: dict, layout: _Layout):
+        self._node, self._index, self._layout = node, index, layout
+
+    def __getitem__(self, key):
+        return _wrap(self._node[key], self._index[key], self._layout)
+
+    def __iter__(self):
+        return iter(self._node)
+
+    def __len__(self):
+        return len(self._node)
+
+
+def _wrap(node, index, layout):
+    if isinstance(node, dict):
+        return _Gathered(node, index, layout)
+    if isinstance(node, list):
+        return [_wrap(v, j, layout) for v, j in zip(node, index)]
+    return _Gather.apply(node, layout, index)
+
+
+class _OptimKit:
+    """The optimizer and the state placement every train step shares:
+    ``tx`` (default adamw(learning_rate)), ``master_fp32`` (an f32 master
+    and f32 moments, the params re-cast from it each step) and the dp
+    placement of :class:`_Layout` (zero1 / fsdp). ``init`` builds the state
+    of this rank's (tp-local) params; ``apply`` takes the step's gradients,
+    already summed over dp and divided by dp, in the layout of the state."""
+
+    def __init__(self, layout: _Layout, learning_rate: float, master_fp32: bool, tx=None):
+        from .optim import adamw
+
+        self.tx = tx if tx is not None else adamw(learning_rate)
+        self.layout = layout
+        self.master_fp32 = master_fp32
+        self.sharded = layout.zero1 or layout.fsdp  # the optimizer's leaves are dp chunks
+
+    def init(self, params: dict) -> TrainState:
+        """The state of the (tp-local) trained tree ``params``, under the
+        layout's key for it."""
+        lay = self.layout
+        _, leaves = tree_flatten(params)
+        if lay.fsdp:
+            leaves = [lay.chunk(i, v) for i, v in enumerate(leaves)]
+            params = tree_unflatten(params, leaves)
+        state = TrainState({lay.trained: params})
+        ref = leaves if not lay.zero1 else [lay.chunk(i, v) for i, v in enumerate(leaves)]
+        if self.master_fp32:
+            ref = [r.to(torch.float32) for r in ref]
+            state["master"] = ref
+        state["opt_state"] = self.tx.init(ref)
+        state.layout = lay
+        return state
+
+    def sumsq(self, tensors: List[torch.Tensor]) -> torch.Tensor:
+        """The squared global norm of the step's (local) update leaves: tp
+        slices summed over tp, replicated leaves counted once, dp chunks
+        summed over dp."""
+        lay = self.layout
+        split = torch.zeros((), dtype=torch.float32, device=tensors[0].device)
+        whole = torch.zeros_like(split)
+        for t, cut in zip(tensors, lay.cuts):
+            s = t.to(torch.float32).square().sum()
+            if cut is None:
+                whole = whole + s
+            else:
+                split = split + s
+        both = torch.stack([split, whole])
+        if self.sharded and lay.dp > 1:
+            both = lay.dp_comm.all_reduce(both)
+        split, whole = both[0], both[1]
+        if lay.tp_comm is not None:
+            split = lay.tp_comm.all_reduce_sum(split)
+        return split + whole
+
+    def apply(self, state: TrainState, grads: List[torch.Tensor]) -> TrainState:
+        """The next state. ``state`` and ``grads`` are consumed (JAX's
+        donation): each old leaf goes as its new one is made, so a step
+        holds one copy of the params, the master and the moments."""
+        lay = self.layout
+        tree = state[lay.trained]
+        _, params = tree_flatten(tree)
+        opt_state, master = state["opt_state"], state.get("master")
+        out = TrainState({k: v for k, v in state.items() if k not in (lay.trained, "opt_state", "master")})
+        state.clear()
+        if self.master_fp32:
+            for i, g in enumerate(grads):
+                grads[i] = g.to(torch.float32)
+            ref = master
+        elif lay.zero1:
+            ref = [lay.chunk(i, p) for i, p in enumerate(params)]
+        else:
+            ref = params
+        updates, out["opt_state"] = self.tx.update(grads, opt_state, ref, self.sumsq)
+        for i, u in enumerate(updates):  # optim.apply_updates, leaf by leaf
+            ref[i] = (ref[i] + u).to(ref[i].dtype)
+            updates[i] = None
+        if lay.zero1:  # one all-gather a leaf: its result is the leaf, no second copy
+            for i, r in enumerate(ref):
+                params[i] = lay.unchunk(i, r.to(params[i].dtype))
+        elif self.master_fp32:
+            for i, r in enumerate(ref):
+                params[i] = r.to(params[i].dtype)
+        out[lay.trained] = tree_unflatten(tree, params)
+        if self.master_fp32:
+            out["master"] = ref
+        out.layout = lay
+        return out
+
+
+def _local_rows(batch: torch.Tensor, k: int, grad_accum: int, dp: int, d: int) -> torch.Tensor:
+    """Dp rank d's rows of microbatch k: the (B, T+1) batch cut into
+    ``grad_accum`` microbatches, each cut over the dp ranks (JAX's
+    ``micro`` sharded on 'dp')."""
+    B = batch.shape[0]
+    if B % grad_accum:
+        raise ValueError(f"batch dim {B} not divisible by grad_accum={grad_accum}")
+    m = B // grad_accum
+    if m % dp:
+        raise ValueError(f"a microbatch of {m} rows does not split over dp={dp}")
+    b = m // dp
+    return batch[k * m + d * b:k * m + (d + 1) * b]
+
+
+def _dp_mean(comm, tensors: List[torch.Tensor], dp: int) -> List[torch.Tensor]:
+    """The mean over the dp ranks of each tensor (one flat f32 all-reduce)."""
+    if dp == 1:
+        return tensors
+    flat = torch.cat([t.reshape(-1).to(torch.float32) for t in tensors])
+    flat = comm.all_reduce(flat) / dp
+    out, o = [], 0
+    for t in tensors:
+        out.append(flat[o:o + t.numel()].reshape(t.shape).to(t.dtype))
+        o += t.numel()
+    return out
+
+
+def make_train_step(mesh, cfg, learning_rate: float = 1e-4, remat: bool = False, zero1: bool = False,
+                    master_fp32: bool = False, grad_accum: int = 1, tx=None, fsdp: bool = False):
+    """Build ``(init_state, train_step)`` over ``mesh`` (parallel/mesh.py):
+    dp-sharded batches, tp-sliced params, the options of JAX's
+    ``make_train_step``. ``train_step(state, batch) -> (state, loss)``
+    takes the GLOBAL (B, T+1) batch on every rank and consumes ``state``
+    (JAX donates it); the loss is the f32 global mean.
+
+    ``grad_accum=K`` cuts the batch into K microbatches, each run forward
+    and backward in turn (activation memory of one), the gradients summed in
+    f32 and averaged, then cast to the params' dtype unless ``master_fp32``;
+    with equal microbatches the step equals the unaccumulated one up to
+    rounding. ``remat`` checkpoints each block. ``zero1`` keeps 1/dp of the
+    moments (and master) a dp rank; ``fsdp`` also the params, gathered at
+    use (it subsumes zero1). ``tx`` replaces adamw(learning_rate) by any
+    parallel/optim.py transformation. ``master_fp32`` keeps an f32 master
+    and f32 moments and re-casts the params from it each step, so updates
+    under one ulp of a bf16 param accumulate."""
+    if fsdp and zero1:
+        raise ValueError("fsdp already shards the optimizer state over 'dp'; zero1 is subsumed")
+    dp, d = mesh.shape.get("dp", 1), mesh.coords.get("dp", 0)
+    tp = TrainTP(cfg, mesh.comm("tp")) if mesh.shape.get("tp", 1) > 1 else None
+    kit: List[_OptimKit] = []
+
+    def init_state(params: dict) -> TrainState:
+        layout = _Layout(mesh, params, param_cuts(cfg, tp.plan if tp is not None else None, params), zero1, fsdp)
+        params = shard_params(params, cfg, tp.plan) if tp is not None else params
+        params = tree_unflatten(params, [v.detach().to(mesh.device) for v in tree_flatten(params)[1]])
+        kit[:] = [_OptimKit(layout, learning_rate, master_fp32, tx)]
+        return kit[0].init(params)
+
+    def train_step(state: TrainState, batch) -> Tuple[TrainState, torch.Tensor]:
+        opt = kit[0]
+        lay = opt.layout
+        batch = torch.as_tensor(batch).to(mesh.device)
+        _, leaves = tree_flatten(state["params"])
+        leaves = [v.detach().requires_grad_(True) for v in leaves]
+        view = tree_unflatten(state["params"], leaves)
+        if fsdp:
+            view = _wrap(view, tree_unflatten(view, list(range(len(leaves)))), lay)
+        loss_sum, grad_sum = None, None
+        for k in range(grad_accum):
+            loss = _loss_fn(view, cfg, _local_rows(batch, k, grad_accum, dp, d), remat, tp)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            grads = [torch.zeros_like(v) if g is None else g for g, v in zip(grads, leaves)]
+            if grad_accum == 1:
+                loss_sum, grad_sum = loss.detach(), grads
+                break
+            loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
+            grads = [g.to(torch.float32) for g in grads]
+            grad_sum = grads if grad_sum is None else [a + g for a, g in zip(grad_sum, grads)]
+        loss = loss_sum / grad_accum
+        grads, grad_sum = grad_sum, None
+        if grad_accum > 1:
+            grads = [g / grad_accum for g in grads]
+            if not master_fp32:  # the unaccumulated path hands tx grads in the params' dtype
+                grads = [g.to(v.dtype) for g, v in zip(grads, leaves)]
+        if fsdp:  # the gathers' backward summed the chunks' gradients over dp
+            grads = [g / dp for g in grads] if dp > 1 else grads
+        elif zero1:
+            grads = _zero1_scatter(lay, grads)
+        else:
+            grads = _dp_mean(lay.dp_comm, grads, dp)
+        if dp > 1:
+            loss = lay.dp_comm.all_reduce(loss.to(torch.float32)) / dp
+        del leaves, view
+        return opt.apply(state, grads), loss
+
+    return init_state, train_step
+
+
+def _zero1_scatter(lay: _Layout, grads: List[torch.Tensor]) -> List[torch.Tensor]:
+    """ZeRO-1: each dp rank's chunk of every gradient, summed over dp in f32
+    and divided by dp, in one reduce-scatter of a chunk-major flat buffer:
+    row r holds every leaf's chunk r, zero-padded (handed to the transport
+    in the gradients' dtype when they share one; NCCL and gloo both sum it
+    in f32, Comm.reduce_scatter_sum)."""
+    if lay.dp == 1:  # one chunk: the whole flattened leaf
+        return [g.reshape(-1) for g in grads]
+    dtypes = [g.dtype for g in grads]
+    wire = dtypes[0] if len(set(dtypes)) == 1 else torch.float32
+    send = torch.zeros((lay.dp, sum(lay.chunks)), dtype=wire, device=grads[0].device)
+    o = 0
+    for i, g in enumerate(grads):
+        c, flat = lay.chunks[i], g.reshape(-1)
+        for r in range(lay.dp):
+            part = flat[r * c:(r + 1) * c]
+            send[r, o:o + part.numel()].copy_(part)
+        o += c
+    grads.clear()  # the caller's list: the whole gradients go before the reduction
+    mine = lay.dp_comm.reduce_scatter_sum(send.reshape(-1), torch.float32)
+    del send
+    out, o = [], 0
+    for c, dtype in zip(lay.chunks, dtypes):
+        out.append((mine[o:o + c].to(torch.float32) / lay.dp).to(dtype))
+        o += c
+    return out

@@ -560,3 +560,21 @@ def test_fft_wrappers_raise_instead_of_falling_back(card):
             pf.dft_rows_plain(xr, xi)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def test_int4_matmul_backward_on_the_card(card):
+    """Training through a frozen int4 base: an x that requires grad goes
+    through Int4Matmul, whose forward launches the kernel once and whose
+    backward is g @ dequant(W) in g's dtype (no launch); q and scale get no
+    gradient."""
+    q, s = _weights(1024, 512, card)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn((3, 7, 512), device=card).to(dtype).requires_grad_(True)
+        g = torch.randn((3, 7, 1024), device=card).to(dtype)
+        qk.reset_launch_counts()
+        y = quant.dequant_matmul(x, {"q": q, "scale": s})
+        assert type(y.grad_fn).__name__ == "Int4MatmulBackward" and qk.launch_counts["int4_gemv"] == 1
+        (dx,) = torch.autograd.grad(y, x, g)
+        assert qk.launch_counts["int4_gemv"] == 1
+        want = g @ quant.dequant({"q": q, "scale": s}, dtype)
+        assert dx.dtype == dtype and torch.equal(dx, want)

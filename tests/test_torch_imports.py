@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no module of shardmerge_tpu_torch/, no
-script that drives it on the card (chip_smoke.py, scripts/*_torch.py)
-imports JAX or the JAX package (shardmerge_tpu). Their import statements
+script that drives it on the card (chip_smoke.py, scripts/*_torch.py) and
+no example of it (examples/*_torch.py) imports JAX or the JAX package
+(shardmerge_tpu). Their import statements
 are read with ``ast``, so docstrings and comments that name JAX files do
 not count, and nothing is imported to check."""
 
@@ -14,6 +15,7 @@ FILES = sorted(
     [p for p in (REPO / "shardmerge_tpu_torch").rglob("*.py") if "_build" not in p.parts]
     + [REPO / "chip_smoke.py"]
     + sorted((REPO / "scripts").glob("*_torch.py"))
+    + sorted((REPO / "examples").glob("*_torch.py"))
 )
 FORBIDDEN = ("jax", "jaxlib", "shardmerge_tpu")
 
@@ -85,3 +87,11 @@ def test_the_tensor_parallel_modules_are_guarded():
     names = {str(p.relative_to(REPO)) for p in FILES}
     assert {"shardmerge_tpu_torch/parallel/train.py", "shardmerge_tpu_torch/parallel/tp.py",
             "scripts/serve_ranks_torch.py"} <= names
+
+
+def test_the_guard_reads_the_training_modules():
+    """The train step's modules, the script that runs it on several cards
+    and the recipe are among the files read."""
+    names = {str(p.relative_to(REPO)) for p in FILES}
+    wanted = {f"shardmerge_tpu_torch/parallel/{m}.py" for m in ("train", "optim", "mesh", "checkpoint", "lora")}
+    assert wanted | {"scripts/train_ranks_torch.py", "examples/train_recipe_torch.py"} <= names

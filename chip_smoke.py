@@ -215,6 +215,23 @@ Phases (each prints one line or a few; any failure exits non-zero):
    int4: 8 greedy tokens sharded against one device's (near-tie rule),
    every rank launching the GEMV. A world-1 NCCL ``generate --shard`` logs
    one rank and gives one device's tokens;
+18b. pp: pipeline-parallel training. Two ranks sharing the card
+   (``--pp-rank``; gloo, host-staged) as the two stages of Llama-3.1-8B
+   widths, 2 layers, seeded random weights, started after [inputs] and
+   running beside [generate], [serve], [spec] and [tp], gated after [tp]. The int4 forward (bf16, int4
+   projections made on the card, 4 microbatches of 1 x 64 under no_grad):
+   the GEMV launched exactly 7 x layers x microbatches on each rank, the
+   last stage's logits within relL2 1e-5 of the one-device forward_train
+   of each microbatch and 2e-2 of the whole batch's (its 256 rows on the
+   dense route). Two f32 make_pp_train_step steps of adamw + clip, 4 x 128
+   in 4 microbatches, held to the one-device make_train_step with
+   grad_accum 4 (losses 1e-4 relative, updates relL2 1e-2), each step's
+   p2p record the predicted 2 M calls and M activations (or gradients) of
+   1 x 128 x 4096 x 4 bytes; the state after step 1 saved (stage 1's
+   leaves to rank 0 over the pp line), restored on one device, step 2
+   there within 1e-4 of the pipeline's. Step ms on the ranks beside one
+   device's, save and restore seconds, each rank's peak and the card's
+   (nvidia-smi) over the window, the ranks' work and [pp]'s own wait;
 19. train: training at Llama-3.1-8B widths, 2 layers, seeded random
    weights. The full fine-tune (bf16 params with an f32 master, remat, two
    microbatches, clip + cosine, B x T = 4 x 512, a repeated batch): losses
@@ -234,7 +251,8 @@ Phases (each prints one line or a few; any failure exits non-zero):
    steps;
 20. the kernel summary line (all five kernels; the GEMV's ``launches``
    those of [serve], its ``train_launches`` those of [train]'s QLoRA
-   steps), the card line, and the result line.
+   steps, its ``pp_launches`` those of [pp]'s int4 forward on both ranks),
+   the card line, and the result line.
 
 It imports nothing of JAX. With no CUDA device it exits 1 and prints no
 result.
@@ -4528,6 +4546,10 @@ QLORA_RANK, QLORA_TARGETS, QLORA_SEQ, QLORA_STEPS = 16, ("q_proj", "v_proj"), 64
 # forward launches a QLoRA step at B x T = 64 rows
 QLORA_GEMVS = 5 * LAYERS
 TRAIN_RANKS, RANKS_LAYERS, RANKS_BATCH, RANKS_SEQ, RANKS_STEPS = 2, 1, 2, 128, 2
+# [pp]: two ranks sharing the card as two pipeline stages of the 8B widths
+PP_RANKS, PP_LAYERS, PP_SEED = 2, 2, 41
+PP_BATCH, PP_SEQ, PP_MICRO, PP_STEPS = 4, 128, 4, 2  # the f32 steps
+PP_INT4_SEQ = 64  # the int4 forward: PP_MICRO microbatches of 1 x 64 tokens, each on the GEMV
 
 
 def train_cfg(layers: int = LAYERS):
@@ -4860,6 +4882,276 @@ def phase_train(torch, qk, root: Path, card: str, ranks: list) -> int:
 
 
 
+def pp_tx():
+    """adamw with clip_by_global_norm: the global norm sums over the stages."""
+    from shardmerge_tpu_torch.parallel import optim
+
+    return optim.chain(optim.clip_by_global_norm(1.0), optim.adamw(TRAIN_LR))
+
+
+def pp_rank(root: Path) -> int:
+    """One rank of [pp]'s two ranks sharing the card (``python3 chip_smoke.py
+    --pp-rank ROOT`` with torchrun's variables; gloo, host-staged), stage r
+    of a pp = 2 pipeline of the 8B widths (2 layers, one a stage).
+
+    (b) the int4 forward: bf16 with int4 projections quantized on the card,
+    PP_MICRO microbatches of 1 x PP_INT4_SEQ under no_grad, the GEMV's
+    launches counted on each rank; the last stage holds its logits to the
+    one-device forward_train of each microbatch alone (the same routes) and
+    of the whole batch (its 256 rows on the dense route). (a) the f32 steps:
+    PP_STEPS make_pp_train_step steps of adamw with clip, B x T = PP_BATCH x
+    PP_SEQ in PP_MICRO microbatches, each step's p2p record and wall; (c)
+    the state after step 1 saved (the stages' leaves reach rank 0 over the
+    pp line). Then stage 1 hands rank 0 its params and leaves; rank 0 runs
+    the one-device make_train_step with grad_accum = PP_MICRO on the same
+    batch, compares losses and updates, restores the checkpoint on one
+    device and runs step 2 there, and writes ROOT/pp_ranks.json."""
+    import torch
+    import torch.distributed as dist
+
+    from shardmerge_tpu_torch.models import llama
+    from shardmerge_tpu_torch.models import quant_kernels as qk
+    from shardmerge_tpu_torch.parallel.checkpoint import restore_train_state, save_train_state
+    from shardmerge_tpu_torch.parallel.mesh import Mesh, make_mesh
+    from shardmerge_tpu_torch.parallel.pipeline import pipeline_forward_train, stack_stages
+    from shardmerge_tpu_torch.parallel.train import make_pp_train_step, make_train_step, tree_flatten
+
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = train_cfg(PP_LAYERS)
+    dev = torch.device("cuda:0")
+    mesh = make_mesh(("pp",), shape=(PP_RANKS,))
+    r = mesh.coords["pp"]
+    last = r == PP_RANKS - 1
+    pp = mesh.comm("pp")
+    out = {"transport": pp.transport}
+
+    # (b) the int4 forward
+    gen = torch.Generator(device=dev).manual_seed(PP_SEED + 2)
+    ids = torch.randint(0, cfg.vocab_size, (PP_MICRO, PP_INT4_SEQ), device=dev, generator=gen)
+    qparams = llama.init_params(cfg, seed=PP_SEED + 1, dtype=torch.bfloat16, device=dev,
+                                project=lambda w: card_quantize(torch, w))
+    stage = stack_stages(mesh, qparams, PP_RANKS)
+    if not last:
+        del qparams
+    torch.cuda.synchronize()
+    qk.reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits = pipeline_forward_train(mesh, cfg, stage, ids, PP_MICRO)
+    torch.cuda.synchronize()
+    out["int4_ms"] = (time.perf_counter() - t0) * 1e3
+    out["gemv_launches"] = qk.launch_counts["int4_gemv"]
+    out["int4_layers"] = len(stage["layers"])
+    del stage
+    if last:
+        with torch.no_grad():
+            each = torch.cat([llama.forward_train(qparams, cfg, ids[m:m + 1]) for m in range(PP_MICRO)])
+            whole = llama.forward_train(qparams, cfg, ids)
+        out["int4_vs_each"] = [rel_l2(logits, each), float((logits - each).abs().max())]
+        out["int4_vs_whole"] = [rel_l2(logits, whole), float((logits - whole).abs().max())]
+        out["int4_finite"] = bool(torch.isfinite(logits).all())
+        del qparams, each, whole, logits
+    torch.cuda.empty_cache()
+
+    # (a) the f32 steps, (c) the checkpoint after step 1
+    gen = torch.Generator(device=dev).manual_seed(PP_SEED + 3)
+    batch = torch.randint(0, cfg.vocab_size, (PP_BATCH, PP_SEQ + 1), device=dev, generator=gen)
+
+    def params():
+        return llama.init_params(cfg, seed=PP_SEED, dtype=torch.float32, device=dev)
+
+    init, step = make_pp_train_step(mesh, cfg, PP_MICRO, learning_rate=TRAIN_LR, tx=pp_tx())
+    state = init(stack_stages(mesh, params(), PP_RANKS))
+    torch.cuda.empty_cache()
+    losses, walls, p2p = [], [], []
+    for i in range(PP_STEPS):
+        before = list(pp.stats.get("p2p", [0, 0, 0.0]))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = step(state, batch)
+        losses.append(float(loss))
+        walls.append(time.perf_counter() - t0)
+        after = pp.stats["p2p"]
+        p2p.append([after[0] - before[0], after[1] - before[1], after[2] - before[2]])
+        if i == 0:
+            t0 = time.perf_counter()
+            save_train_state(root / "pp_ckpt", state, step=1)
+            out["save_s"] = time.perf_counter() - t0
+    out.update(losses=losses, step_ms=[w * 1e3 for w in walls], p2p=p2p)
+    mine = {"/".join(map(str, p)): v.detach().cpu() for p, v in zip(*tree_flatten(state["params"]))}
+    del state
+    torch.cuda.empty_cache()
+    if last:  # stage 1's params after the steps, for rank 0's comparison
+        torch.save(mine, root / "pp_stage1.pt")
+    out["peak_gib"] = torch.cuda.max_memory_reserved() / 2**30
+    out["wall_s"] = time.perf_counter() - t_start
+    (root / f"pp_rank{r}.json").write_text(json.dumps(out))
+    dist.barrier()
+    if r:
+        return 0
+    time.sleep(2.0)  # stage 1's process leaves the card
+
+    # rank 0: the one-device step on the same batch, then the restore
+    mine.update(torch.load(root / "pp_stage1.pt"))
+    (root / "pp_stage1.pt").unlink()
+    one = Mesh(("dp", "tp"), (1, 1), 0, "cuda:0")
+    init1, step1 = make_train_step(one, cfg, learning_rate=TRAIN_LR, grad_accum=PP_MICRO, tx=pp_tx())
+    state = init1(params())
+    ref, ref_walls = [], []
+    for _ in range(PP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = step1(state, batch)
+        ref.append(float(loss))
+        ref_walls.append(time.perf_counter() - t0)
+    ref_params = {"/".join(map(str, p)): v.detach() for p, v in zip(*tree_flatten(state["params"]))}
+    del state
+    torch.cuda.empty_cache()
+    p0 = {"/".join(map(str, p)): v for p, v in zip(*tree_flatten(params()))}
+    upd = 0.0
+    for k, w in ref_params.items():
+        d = w - p0[k]
+        if bool((d != 0).any()):
+            upd = max(upd, float(((mine[k].to(dev) - p0[k]) - d).norm() / d.norm()))
+    del ref_params, p0, mine
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    restored, at = restore_train_state(root / "pp_ckpt", init1(params()))
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    restored, loss = step1(restored, batch)
+    resumed = float(loss)
+    del restored
+    torch.cuda.empty_cache()
+    res = {"ranks": [json.loads((root / f"pp_rank{q}.json").read_text()) for q in range(PP_RANKS)],
+           "ref": ref, "ref_step_ms": [w * 1e3 for w in ref_walls], "update_rel": upd,
+           "loss_rel": max(abs(a - b) / abs(b) for a, b in zip(losses, ref)), "restored_at": at,
+           "restore_s": restore_s, "resumed": resumed, "ckpt_bytes": (root / "pp_ckpt" / "train_state.safetensors")
+           .stat().st_size, "rank0_peak_gib": torch.cuda.max_memory_reserved() / 2**30,
+           "rank0_wall_s": time.perf_counter() - t_start}
+    shutil.rmtree(root / "pp_ckpt", ignore_errors=True)
+    (root / "pp_ranks.json").write_text(json.dumps(res))
+    return 0
+
+
+def start_pp_ranks(root: Path) -> list:
+    """Start [pp]'s two ranks sharing the card (the allocator's expandable
+    segments: little reserved beyond what they hold). About 20 GiB a rank
+    in the steps and 35 GiB for rank 0's one-device runs: main() starts
+    them after [inputs], whose CLI merges fill the card, and they run
+    beside [generate], [serve], [spec] and [tp], whose decode holds a few
+    GiB; [pp] gates them before [train]'s ranks start."""
+    port = free_port()
+    procs = []
+    for rank in range(PP_RANKS):
+        env = {**os.environ, "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port), "WORLD_SIZE": str(PP_RANKS),
+               "RANK": str(rank), "LOCAL_RANK": str(rank), "LOCAL_WORLD_SIZE": str(PP_RANKS),
+               "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
+        with open(root / f"pp{rank}.out", "w") as o, open(root / f"pp{rank}.err", "w") as e:
+            procs.append(subprocess.Popen([sys.executable, str(REPO / "chip_smoke.py"), "--pp-rank", str(root)],
+                                          cwd=REPO, env=env, stdout=o, stderr=e))
+    return procs
+
+
+class CardMemory:
+    """The card's used memory (``nvidia-smi``'s memory.used, every ranks'
+    and this process's) sampled every ``period`` seconds on a thread: its
+    peak over the window between ``start`` and ``stop``."""
+
+    def __init__(self, period: float = 0.5):
+        self.period, self.peak_mib, self.samples = period, 0, 0
+        self._stop = threading.Event()
+        self._thread = None
+
+    def _run(self):
+        while not self._stop.is_set():
+            try:
+                used = subprocess.run(["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader,nounits"],
+                                      capture_output=True, text=True, timeout=10).stdout.split()
+                self.peak_mib = max(self.peak_mib, int(used[0]))
+                self.samples += 1
+            except (OSError, ValueError, IndexError, subprocess.TimeoutExpired):
+                pass
+            self._stop.wait(self.period)
+
+    def start(self):
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        return self
+
+    def stop(self) -> float:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join()
+        return self.peak_mib / 1024
+
+
+def phase_pp(torch, root: Path, card: str, procs: list, memory: CardMemory) -> int:
+    """[pp]: wait for the pipeline's two ranks (``start_pp_ranks``) and gate
+    their report: the GEMV launched 7 x layers x microbatches on each rank
+    and the int4 logits the per-microbatch one-device forward's (relL2 1e-5)
+    and within 2e-2 of the whole batch's; the f32 steps within 1e-4 (losses)
+    and relL2 1e-2 (updates) of the one-device step with grad_accum; each
+    step's p2p record the predicted 2 M calls of M mb x T x 4096 x 4 bytes
+    sent; the checkpoint restored on one device giving step 2's loss within
+    1e-4. Returns the GEMV launches of both ranks' int4 forwards."""
+    t0 = time.perf_counter()
+    try:
+        codes = [p.wait(timeout=600) for p in procs]
+    except subprocess.TimeoutExpired:
+        codes = [None] * len(procs)
+    finally:
+        stop_procs(procs)
+    waited = time.perf_counter() - t0
+    peak = memory.stop()
+    if codes != [0] * PP_RANKS:
+        tails = "".join(f"\n--- rank {r} stderr:\n" + (root / f"pp{r}.err").read_text()[-3000:]
+                        for r in range(PP_RANKS))
+        raise SystemExit(f"[pp] ranks exited {codes}{tails}")
+    res = json.loads((root / "pp_ranks.json").read_text())
+    ranks = res["ranks"]
+    want_gemv = [7 * rk["int4_layers"] * PP_MICRO for rk in ranks]
+    got_gemv = [rk["gemv_launches"] for rk in ranks]
+    each, whole = ranks[-1]["int4_vs_each"], ranks[-1]["int4_vs_whole"]
+    ok_b = got_gemv == want_gemv and each[0] <= 1e-5 and whole[0] <= 2e-2 and ranks[-1]["int4_finite"]
+    say(f"[pp] int4 forward, Llama-3.1-8B widths x {PP_LAYERS} layers on 2 stages ({ranks[0]['transport']}), bf16 "
+        f"with int4 projections, {PP_MICRO} microbatches of 1 x {PP_INT4_SEQ} under no_grad: int4 GEMV launches "
+        f"{got_gemv} by rank (predicted 7 x layers x microbatches = {want_gemv}); last stage's logits vs one "
+        f"device's forward_train of each microbatch: relL2 {each[0]:.3e} (gate 1e-5), max-abs {each[1]:.3e}; vs the "
+        f"whole batch's (256 rows, dense route): relL2 {whole[0]:.3e} (gate 2e-2), max-abs {whole[1]:.3e}; "
+        f"{[round(rk['int4_ms'], 1) for rk in ranks]} ms by rank {'ok' if ok_b else 'FAIL'}")
+    mb_bytes = PP_BATCH // PP_MICRO * PP_SEQ * LLAMA_31_8B["hidden_size"] * 4
+    want_p2p = [2 * PP_MICRO, PP_MICRO * mb_bytes]
+    p2p_ok = all([s[0], s[1]] == want_p2p for rk in ranks for s in rk["p2p"])
+    ok_a = res["loss_rel"] <= 1e-4 and res["update_rel"] <= 1e-2 and p2p_ok
+    ok_a &= all(math.isfinite(x) for rk in ranks for x in rk["losses"])
+    say(f"[pp] f32 pp = 2 steps, Llama-3.1-8B widths x {PP_LAYERS} layers, adamw + clip, B x T = {PP_BATCH} x "
+        f"{PP_SEQ} in {PP_MICRO} microbatches: losses {ranks[0]['losses']} vs one device (grad_accum {PP_MICRO}) "
+        f"{res['ref']} (rel {res['loss_rel']:.2e}, gate 1e-4), updates relL2 {res['update_rel']:.2e} (gate 1e-2); "
+        f"p2p [calls, bytes sent, seconds] a step by rank {[[[s[0], s[1], round(s[2], 3)] for s in rk['p2p']] for rk in ranks]} "
+        f"(predicted [{want_p2p[0]}, {want_p2p[1]}]: {PP_MICRO} sends of {mb_bytes} bytes and {PP_MICRO} receives "
+        f"a step a rank, 2 x {PP_MICRO} sends per stage boundary); step ms by rank "
+        f"{[[round(x, 1) for x in rk['step_ms']] for rk in ranks]} vs one device "
+        f"{[round(x, 1) for x in res['ref_step_ms']]} on {card} {'ok' if ok_a else 'FAIL'}")
+    ok_c = res["restored_at"] == 1 and abs(res["resumed"] - ranks[0]["losses"][1]) <= 1e-4 * abs(ranks[0]["losses"][1])
+    say(f"[pp] checkpoint of the pp = 2 state after step 1: {res['ckpt_bytes'] / 2**30:.2f} GiB saved in "
+        f"{ranks[0]['save_s']:.1f} s (stage 1's leaves to rank 0 over the pp line), restored on one device in "
+        f"{res['restore_s']:.1f} s (warm page cache); step 2 there {res['resumed']:.6f} vs the pipeline's "
+        f"{ranks[0]['losses'][1]:.6f} (gate 1e-4 relative) {'ok' if ok_c else 'FAIL'}")
+    say(f"[pp] ranks' work {[round(rk['wall_s'], 1) for rk in ranks]} s (rank 0 with its one-device runs "
+        f"{res['rank0_wall_s']:.1f} s) beside [generate], [serve], [spec] and [tp]; [pp]'s own wall {waited:.1f} s waited; "
+        f"peak reserved by rank {[round(rk['peak_gib'], 2) for rk in ranks]} GiB (rank 0 with its one-device runs "
+        f"{res['rank0_peak_gib']:.2f}); the card's memory.used peak {peak:.2f} GiB over the window "
+        f"({memory.samples} samples) on {card}")
+    if not (ok_a and ok_b and ok_c):
+        raise SystemExit("[pp] a pipeline gate failed: GEMV launches, int4 logits, f32 steps, p2p record or the "
+                         "checkpoint's resume")
+    if peak >= 80:
+        raise SystemExit(f"[pp] the card's memory peak {peak:.2f} GiB reached 80")
+    return sum(got_gemv)
+
+
 def write_word_tokenizer(path: Path, vocab: int, **config):
     """A word-level tokenizer.json (word ``w{i}`` is token i) and its
     tokenizer_config.json, which fixes the class (without it transformers
@@ -4907,7 +5199,7 @@ def main() -> int:
     fft, fft_launches = phase_fft(torch, pf, fv)
     lap("fft")
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
-    ranks = []
+    ranks, pp_ranks = [], []
     try:
         t0 = time.perf_counter()
         dirs, shapes = write_checkpoints(torch, root)
@@ -4927,6 +5219,9 @@ def main() -> int:
         lap("engines")
         phase_inputs(torch, root, stack_dirs, dirs[2], stack3_spans, card)
         lap("inputs")
+        torch.cuda.empty_cache()
+        memory = CardMemory().start()
+        pp_ranks = start_pp_ranks(root)  # [pp]'s two stages, beside [generate], [serve], [spec] and [tp]
         engine, _ = phase_generate(torch, merged)
         lap("generate")
         launches = phase_serve(torch, engine)
@@ -4935,6 +5230,8 @@ def main() -> int:
         lap("spec")
         phase_tp(torch, root, merged, engine, card)
         lap("tp")
+        pp_launches = phase_pp(torch, root, card, pp_ranks, memory)  # before [train]'s ranks take the card
+        lap("pp")
         del engine
         torch.cuda.empty_cache()
         ranks = start_train_ranks(root)  # [train]'s two ranks, beside [families] and [experts]
@@ -4949,6 +5246,7 @@ def main() -> int:
         lap("train")
     finally:
         stop_procs(ranks)
+        stop_procs(pp_ranks)
         shutil.rmtree(root, ignore_errors=True)
 
     # launches: the serve path's run for the decode kernels, the [fft]
@@ -4964,6 +5262,7 @@ def main() -> int:
             "replaces": "shardmerge_tpu/models/quant_kernels.py:148",
             "launches": launches["int4_gemv"],
             "train_launches": train_launches,
+            "pp_launches": pp_launches,
             **int4,
         },
         {
@@ -5015,4 +5314,6 @@ if __name__ == "__main__":
         sys.exit(tp_rank(Path(sys.argv[2])))
     if sys.argv[1:2] == ["--train-rank"]:
         sys.exit(train_rank(Path(sys.argv[2])))
+    if sys.argv[1:2] == ["--pp-rank"]:
+        sys.exit(pp_rank(Path(sys.argv[2])))
     sys.exit(main())

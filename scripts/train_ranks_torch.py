@@ -19,6 +19,12 @@ weights built on every GPU alike, a repeated batch of B x T = 4 x 512:
   Adam's normalisation amplifies where a gradient is near zero, sets the
   class.
 
+- the pipeline (``make_pp_train_step``) on (dp, pp) = (2, 2) and (pp, tp) =
+  (2, 2), f32, adamw(1e-4), 2 microbatches, 3 steps: the stages' whole
+  params joined by name against one GPU's f32 run under the same gates
+  (losses 1e-4, updates relL2 1e-2), with each stage's point-to-point
+  calls and bytes.
+
 Prints the card's name and power limit, each rank's transport, the
 collectives' calls and bytes on each axis, step ms and tokens/s on both
 routes, and the peak memory of a rank. Needs four GPUs (a 2 x 2 mesh);
@@ -41,6 +47,9 @@ import chip_smoke as cs  # noqa: E402
 
 BATCH, SEQ, STEPS, SEED = 4, 512, 3, 41
 RECIPES = ("f32", "bf16")
+# the pipeline's meshes (axes, shape) and its microbatches
+PP_MESHES = {"dp x pp": (("dp", "pp"), (2, 2)), "pp x tp": (("pp", "tp"), (2, 2))}
+PP_MICRO = 2
 # on one GPU only: the bf16 recipe's options on f32 params that start at the
 # bf16 init's values, the yardstick of the bf16 runs' rounding
 EXACT = "bf16 recipe in f32"
@@ -107,6 +116,38 @@ def train(torch, mesh, kind: str, zero1: bool):
     return losses, walls, whole, peak
 
 
+def train_pp(torch, axes, shape):
+    """STEPS f32 pipeline steps on a fresh ``axes`` mesh of ``shape``:
+    losses, step seconds, this stage's whole params by name (on the host),
+    the peak bytes, the pp line's p2p [calls, bytes] and the mesh."""
+    from shardmerge_tpu_torch.parallel.mesh import make_mesh
+    from shardmerge_tpu_torch.parallel.pipeline import stack_stages
+    from shardmerge_tpu_torch.parallel.train import make_pp_train_step, tree_flatten
+
+    mesh = make_mesh(axes, shape=shape)
+    cfg = cs.train_cfg()
+    gen = torch.Generator(device=mesh.device).manual_seed(SEED)
+    batch = torch.randint(0, cfg.vocab_size, (BATCH, SEQ + 1), device=mesh.device, generator=gen)
+    init_state, step = make_pp_train_step(mesh, cfg, PP_MICRO, learning_rate=cs.TRAIN_LR)
+    torch.cuda.reset_peak_memory_stats()
+    state = init_state(stack_stages(mesh, init(torch, cfg, "f32", mesh.device), mesh.shape["pp"],
+                                    tp="tp" in axes, cfg=cfg))
+    losses, walls = [], []
+    for _ in range(STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = step(state, batch)
+        losses.append(float(loss))
+        walls.append(time.perf_counter() - t0)
+    lay = state.layout
+    whole = {"/".join(map(str, p)): lay.gather("trained", i, v).cpu()
+             for i, (p, v) in enumerate(zip(lay.paths, tree_flatten(state["params"])[1]))}
+    peak = torch.cuda.max_memory_allocated()
+    del state
+    torch.cuda.empty_cache()
+    return losses, walls, whole, peak, mesh.comm("pp").stats.get("p2p", [0, 0])[:2], mesh
+
+
 def rank_main(root: Path) -> int:
     import torch
 
@@ -124,6 +165,13 @@ def rank_main(root: Path) -> int:
                      "collectives": {a: {k: v[:2] for k, v in c.stats.items()} for a, c in mesh.comms.items()}}
         if mesh.rank == 0:
             torch.save(whole, root / f"ranks_{kind}.pt")
+        del whole
+    for tag, (axes, shape) in PP_MESHES.items():
+        losses, walls, whole, peak, p2p, m = train_pp(torch, axes, shape)
+        out[tag] = {"losses": losses, "step_ms": [w * 1e3 for w in walls], "peak": peak, "p2p": p2p,
+                    "coords": m.coords, "transport": m.comm("pp").transport}
+        if m.coords.get("dp", 0) == 0 and m.coords.get("tp", 0) == 0:  # this stage's leaves, whole
+            torch.save(whole, root / f"pp_{tag.replace(' ', '')}_{m.coords['pp']}.pt")
         del whole
     (root / f"rank{mesh.rank}.json").write_text(json.dumps(out))
     return 0
@@ -195,6 +243,26 @@ def main() -> int:
                    f"({BATCH * SEQ / step * 1e3:.0f} tokens/s) vs one GPU {sorted(ref_walls)[1] * 1e3:.1f} ms; peak "
                    f"{max(r[kind]['peak'] for r in ranks) / 2**30:.2f} GiB a rank; collectives [calls, bytes] "
                    f"{mine['collectives']} {'ok' if passed else 'FAIL'}")
+        names = ["/".join(map(str, p)) for p in tree_flatten(init(torch, cfg, "f32", "cuda:0"))[0]]
+        ref_losses, ref_walls, ref_whole = one["f32"]
+        ref = dict(zip(names, ref_whole))
+        start = dict(zip(names, p0["f32"]))
+        for tag, (axes, shape) in PP_MESHES.items():
+            whole = {}
+            for q in range(shape[axes.index("pp")]):
+                whole.update(torch.load(root / f"pp_{tag.replace(' ', '')}_{q}.pt"))
+            mine = r0[tag]
+            rel = max(abs(a - b) / abs(b) for a, b in zip(mine["losses"], ref_losses))
+            upd = update_gap([whole[n] for n in names], [ref[n] for n in names], [start[n] for n in names])
+            passed = sorted(whole) == sorted(names) and rel <= 1e-4 and upd <= 1e-2
+            ok &= passed
+            step = sorted(mine["step_ms"])[1]
+            cs.say(f"[ranks] pipeline {tag} {shape} ({mine['transport']}), f32, {PP_MICRO} microbatches: losses "
+                   f"{[round(x, 5) for x in mine['losses']]}, losses rel to one GPU {rel:.2e} (gate 1e-4), params' "
+                   f"updates relL2 {upd:.2e} (gate 1e-2); step {step:.1f} ms ({BATCH * SEQ / step * 1e3:.0f} "
+                   f"tokens/s) vs one GPU {sorted(ref_walls)[1] * 1e3:.1f} ms; p2p [calls, bytes] over {STEPS} steps "
+                   f"by rank {[r[tag]['p2p'] for r in ranks]}; peak {max(r[tag]['peak'] for r in ranks) / 2**30:.2f} "
+                   f"GiB a rank {'ok' if passed else 'FAIL'}")
         if not ok:
             raise SystemExit("[ranks] a sharded step left one GPU's class")
     finally:

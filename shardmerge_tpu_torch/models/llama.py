@@ -89,6 +89,9 @@ __all__ = [
     "embed_matrix",
     "block_train",
     "train_masks",
+    "embed_train",
+    "blocks_train",
+    "head_train",
     "forward_train",
 ]
 
@@ -1610,6 +1613,54 @@ def train_masks(cfg: ModelConfig, T: int, device=None) -> Dict[str, torch.Tensor
     return masks
 
 
+def embed_train(params: dict, cfg: ModelConfig, input_ids: torch.Tensor) -> torch.Tensor:
+    """The embedded (B, T) ids, Gemma's sqrt(hidden) scale applied: the
+    first step of :func:`forward_train`."""
+    x = embed_matrix(params)[input_ids]
+    if cfg.is_gemma:
+        x = x * torch.tensor(cfg.hidden_size**0.5, dtype=x.dtype, device=x.device)
+    return x
+
+
+def blocks_train(cfg: ModelConfig, layers, x: torch.Tensor, remat: bool = False, tp=None) -> torch.Tensor:
+    """``x`` through ``layers``, (global layer index, layer) pairs in order:
+    each block with its own index's mask, rope table, rope gate and
+    tensor-parallel split (:func:`forward_train`'s middle; a pipeline stage
+    runs its own layers through it)."""
+    from torch.utils.checkpoint import checkpoint
+
+    B, T = x.shape[:2]
+    rope = rope_tables(cfg, T, x.device)
+    positions = torch.arange(T, device=x.device)[None, :].expand(B, T)
+    masks = train_masks(cfg, T, x.device)
+
+    def blk(layer, x, mask, cos, sin, use_rope, split):
+        return block_train(cfg, layer, x, cos, sin, positions, mask, None if tp is None else tp.reduce,
+                           use_rope, split)
+
+    for i, layer in layers:
+        kind = "chunked" if cfg.layer_is_chunked(i) else "sliding" if cfg.layer_is_sliding(i) else "full"
+        cos, sin = layer_rope(cfg, rope, i)
+        args = (layer, x, masks[kind], cos, sin, cfg.layer_uses_rope(i), None if tp is None else tp.splits[i])
+        if remat:
+            x = checkpoint(blk, *args, use_reentrant=False)
+        else:
+            x = blk(*args)
+    return x
+
+
+def head_train(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """The final norm, the lm_head (the embedding when tied) and the final
+    softcap: f32 logits, :func:`forward_train`'s last step."""
+    x = rms_norm(x, params["norm"], cfg.rms_norm_eps, cfg.is_gemma)
+    head = params.get("lm_head")
+    logits = matmul(x, head if head is not None else params["embed_tokens"]).to(torch.float32)
+    if cfg.final_logit_softcapping:
+        cap = float(np.float32(cfg.final_logit_softcapping))
+        logits = cap * torch.tanh(logits / cap)
+    return logits
+
+
 def forward_train(params: dict, cfg: ModelConfig, input_ids: torch.Tensor, remat: bool = False, tp=None
                   ) -> torch.Tensor:
     """Cache-free causal forward for training: (B, T) ids -> f32 logits
@@ -1622,32 +1673,6 @@ def forward_train(params: dict, cfg: ModelConfig, input_ids: torch.Tensor, remat
     tensor-parallel slices; ``tp.splits[i]`` is layer i's view and
     ``tp.reduce`` the row-parallel all-reduce. The embedding and the
     lm_head are whole on every rank."""
-    from torch.utils.checkpoint import checkpoint
-
-    B, T = input_ids.shape
-    x = embed_matrix(params)[input_ids]
-    if cfg.is_gemma:
-        x = x * torch.tensor(cfg.hidden_size**0.5, dtype=x.dtype, device=x.device)
-    rope = rope_tables(cfg, T, x.device)
-    positions = torch.arange(T, device=x.device)[None, :].expand(B, T)
-    masks = train_masks(cfg, T, x.device)
-
-    def blk(layer, x, mask, cos, sin, use_rope, split):
-        return block_train(cfg, layer, x, cos, sin, positions, mask, None if tp is None else tp.reduce,
-                           use_rope, split)
-
-    for i, layer in enumerate(params["layers"]):
-        kind = "chunked" if cfg.layer_is_chunked(i) else "sliding" if cfg.layer_is_sliding(i) else "full"
-        cos, sin = layer_rope(cfg, rope, i)
-        args = (layer, x, masks[kind], cos, sin, cfg.layer_uses_rope(i), None if tp is None else tp.splits[i])
-        if remat:
-            x = checkpoint(blk, *args, use_reentrant=False)
-        else:
-            x = blk(*args)
-    x = rms_norm(x, params["norm"], cfg.rms_norm_eps, cfg.is_gemma)
-    head = params.get("lm_head")
-    logits = matmul(x, head if head is not None else params["embed_tokens"]).to(torch.float32)
-    if cfg.final_logit_softcapping:
-        cap = float(np.float32(cfg.final_logit_softcapping))
-        logits = cap * torch.tanh(logits / cap)
-    return logits
+    x = embed_train(params, cfg, input_ids)
+    x = blocks_train(cfg, enumerate(params["layers"]), x, remat, tp)
+    return head_train(params, cfg, x)

@@ -11,6 +11,12 @@ on a (2, 1) ZeRO-1 mesh restores onto (1, 2), onto one device, or the other
 way round. The write is atomic (``.tmp`` then rename): a checkpoint exists
 whole or not at all. Across ranks every rank takes part in the gathers and
 rank 0 writes; every rank reads the file to restore.
+
+A pipeline's state (parallel/train.py ``make_pp_train_step``) is one stage
+a rank, its leaves named as unpipelined (``params/layers/12/q_proj``): the
+later stages send theirs to stage 0 over the pp line of rank 0, and a
+restore takes each stage's own names from the file, so a pipeline's
+checkpoint restores on one device or on (dp, tp), and the other way round.
 """
 
 from __future__ import annotations
@@ -18,6 +24,8 @@ from __future__ import annotations
 import logging
 from pathlib import Path
 from typing import Callable, Optional, Tuple
+
+import torch
 
 from ..io.safetensors_io import SafeTensorsReader, save_file
 from .train import TrainState, tree_flatten, tree_unflatten
@@ -95,6 +103,8 @@ def save_train_state(path, state: TrainState, step: Optional[int] = None) -> Pat
         return leaf
 
     _map_state(state, collect)
+    if lay.pp_comm is not None and all(c == 0 for a, c in lay.mesh.coords.items() if a != "pp"):
+        tensors = _gather_stages(lay.pp_comm, tensors)
     final = out_dir / _FILE
     if _first():
         out_dir.mkdir(parents=True, exist_ok=True)
@@ -110,6 +120,30 @@ def save_train_state(path, state: TrainState, step: Optional[int] = None) -> Pat
     return final
 
 
+def _gather_stages(pp, tensors: dict) -> dict:
+    """Every stage's whole leaves on stage 0 of the pp line (a name held by
+    several stages, a tied embedding or a step count, is stage 0's); the
+    other stages get their own back. Each stage sends its names, shapes and
+    dtypes, then its tensors one by one."""
+    import torch.distributed as dist
+
+    dev = "cpu" if pp.backend == "gloo" else pp.device  # gloo sends host tensors; NCCL the device's
+    if pp.position != 0:
+        meta = [[(n, tuple(t.shape), str(t.dtype)) for n, t in tensors.items()]]
+        dist.send_object_list(meta, dst=pp.global_rank(0), group=pp.group)
+        for t in tensors.values():
+            pp.send(t.to(dev), 0)
+        return tensors
+    out = dict(tensors)
+    for r in range(1, pp.size):
+        meta = [None]
+        dist.recv_object_list(meta, src=pp.global_rank(r), group=pp.group)
+        for name, shape, dtype in meta[0]:
+            t = pp.recv(torch.empty(shape, dtype=getattr(torch, dtype.split(".")[-1]), device=dev), r).cpu()
+            out.setdefault(name, t)
+    return out
+
+
 def place_state(template_state: TrainState, tensors, source: str = "checkpoint") -> TrainState:
     """``template_state`` with each leaf taken whole from ``tensors`` (a
     name -> tensor mapping: a checkpoint's reader, or a carried-over JAX
@@ -119,13 +153,15 @@ def place_state(template_state: TrainState, tensors, source: str = "checkpoint")
     names = []
     _map_state(template_state, lambda name, kind, i, leaf: names.append(name) or leaf)
     missing = [n for n in names if n not in tensors]
-    if missing or len(names) != len(tensors):
+    one_stage = lay.pp_comm is not None  # a pipeline stage takes its own leaves of the whole state
+    if missing or (len(names) != len(tensors) and not one_stage):
         raise ValueError(f"{source} has {len(tensors)} leaves; template expects {len(names)} (missing e.g. "
                          f"{missing[:3]}) — saved with a different model/optimizer configuration")
 
     def place(name, kind, i, ref):
         arr = tensors[name]
-        want = tuple(ref.shape) if kind in ("scalar", "base") else lay.full_shapes[i]
+        want = (tuple(ref.shape) if kind == "scalar" else lay.base_shapes[i] if kind == "base"
+                else lay.full_shapes[i])
         if tuple(arr.shape) != want:
             raise ValueError(f"{source} leaf {name} has shape {tuple(arr.shape)}; template expects {want}")
         if arr.dtype != ref.dtype:

@@ -29,6 +29,12 @@ summed in f32 on either transport: NCCL's reduce-scatter of the cast
 gradients, or an all-to-all summed in rank order) and ``all_gather_flat``
 (the updated shards back).
 
+The pipeline (parallel/pipeline.py) adds point-to-point transfers along its
+``"pp"`` line: ``send`` / ``recv`` (a stage's activations forward, their
+gradients back) and ``sendrecv`` (the first and the last stage trade the
+tied embedding's gradient), counted under the ``p2p`` kind (a receive as a
+call of no bytes sent).
+
 Ranks sit at positions 0..P-1 (``merge_mesh`` orders them host by host);
 position p holds rows [p M/P, (p+1) M/P) and the p-th column block.
 
@@ -323,6 +329,49 @@ class Comm:
         t0 = time.perf_counter()
         out = self._gather_flat(x).reshape(-1)
         self._count("all_gather", x.nbytes, t0)
+        return out
+
+    # -- point to point ----------------------------------------------------------
+
+    def global_rank(self, position: int) -> int:
+        """The global rank at ``position`` of this line."""
+        rank = self.order[position]
+        return rank if self.group is None else self._dist.get_global_rank(self.group, rank)
+
+    def send(self, x: torch.Tensor, to_position: int) -> None:
+        """Send ``x`` to the rank at ``to_position``; returns when the
+        transport has taken it (the matching ``recv`` must come)."""
+        self._enter()
+        t0 = time.perf_counter()
+        self._dist.send(self._out(x.contiguous()), dst=self.global_rank(to_position), group=self.group)
+        self._count("p2p", x.nbytes, t0)
+
+    def recv(self, like: torch.Tensor, from_position: int) -> torch.Tensor:
+        """A tensor of ``like``'s shape, dtype and device, sent by the rank at
+        ``from_position``."""
+        self._enter()
+        t0 = time.perf_counter()
+        buf = self._out(torch.empty_like(like))
+        self._dist.recv(buf, src=self.global_rank(from_position), group=self.group)
+        out = self._back(buf, like)
+        self._count("p2p", 0, t0)
+        return out
+
+    def sendrecv(self, x: torch.Tensor, position: int) -> torch.Tensor:
+        """Trade ``x`` with the rank at ``position`` (which trades a tensor of
+        x's shape and dtype): both transfers are posted before either is
+        waited for, so neither rank waits on the other's send."""
+        self._enter()
+        t0 = time.perf_counter()
+        peer = self.global_rank(position)
+        send = self._out(x.contiguous())
+        buf = torch.empty_like(send)
+        works = [self._dist.isend(send, dst=peer, group=self.group),
+                 self._dist.irecv(buf, src=peer, group=self.group)]
+        for w in works:
+            w.wait()
+        out = self._back(buf, x)
+        self._count("p2p", x.nbytes, t0)
         return out
 
     def broadcast_object(self, obj=None, group=None):

@@ -15,7 +15,8 @@ Init: B = 0 (the merged model is the base at step 0) and A ~ U(-1/sqrt(in),
 port's ``ops/prng.py``: ``key``, ``split``, ``uniform``).
 
 Under tp the base keeps the serving placement (parallel/train.py
-``train_plan``; int4 row slices re-packed) and each factor goes with its
+``train_plan``; int4 row slices re-packed; a checkpoint holds it whole, the
+packing over the whole K restored) and each factor goes with its
 weight's split dimension: a column-parallel weight (rows split) splits B's
 rows and replicates A, a row-parallel weight (columns split) splits A's
 columns and replicates B. The replicated factor enters the rank's slice
@@ -35,8 +36,8 @@ import torch
 
 from ..constants import LORA_TARGET_PROJECTIONS as DEFAULT_LORA_TARGETS
 from ..ops import prng
-from .train import (TrainState, TrainTP, _dp_mean, _Layout, _local_rows, _loss_fn, _OptimKit, shard_params, split_of,
-                    tree_flatten, tree_unflatten)
+from .train import (TrainState, TrainTP, _dp_mean, _Layout, _local_rows, _loss_fn, _OptimKit, base_cuts, shard_params,
+                    split_of, tree_flatten, tree_unflatten)
 
 __all__ = ["DEFAULT_LORA_TARGETS", "lora_init", "merge_lora", "make_lora_train_step", "lora_to_peft"]
 
@@ -157,7 +158,9 @@ def make_lora_train_step(mesh, cfg, rank: int, learning_rate: float = 1e-4,
         if tp is not None and _packed(params):  # int4 row slices need an even local K
             tp.replan(quant_bits=4)
         lora = lora_init(mesh, params, rank, targets=targets, seed=seed)
-        layout = _Layout(mesh, lora, _adapter_cuts(tp, params, lora), trained="lora")
+        shapes = [tuple(v.shape) for v in tree_flatten(params)[1]]
+        layout = _Layout(mesh, lora, _adapter_cuts(tp, params, lora), trained="lora",
+                         base=(shapes, base_cuts(cfg, tp.plan if tp is not None else None, params)))
         local = tree_unflatten(lora, [layout.slice_tp(i, v) for i, v in enumerate(tree_flatten(lora)[1])])
         base = shard_params(params, cfg, tp.plan) if tp is not None else params
         kit[:] = [_OptimKit(layout, learning_rate, False, tx)]

@@ -5,7 +5,8 @@ port's grid is the ranks a launcher started (``torchrun``: one process a
 rank, parallel/multihost.py ``initialize_distributed``), laid out row-major
 over the axes, the last axis fastest: on a ("dp", "tp") mesh rank
 ``d * tp + t`` sits at (d, t), so a host's consecutive ranks share a tensor
-parallel group. Each axis has one process group per line of the grid, and
+parallel group; on ("dp", "pp", "tp") rank ``d * P * T + p * T + t`` sits at
+(d, p, t), and the ``"pp"`` line of a (d, t) joins its stages in order. Each axis has one process group per line of the grid, and
 :class:`Mesh` keeps this rank's :class:`~.comm.Comm` over each of its lines.
 The transport is the merge ranks' (parallel/comm.py ``transport_for``): gloo
 on the CPU or when ranks share a GPU, NCCL with one GPU a rank.

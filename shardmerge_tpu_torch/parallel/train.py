@@ -54,8 +54,9 @@ import numpy as np
 import torch
 
 __all__ = ["COL", "ROW", "REP", "loader_rules", "param_shardings", "fits", "repack4_tp_blocked", "LayerPlan",
-           "Plan", "plan", "split_of", "shard_leaf", "shard_params", "collectives_per_forward", "train_plan",
-           "TrainTP", "TrainState", "tree_flatten", "tree_unflatten", "_loss_fn", "make_train_step"]
+           "Plan", "plan", "split_of", "shard_leaf", "shard_layer", "shard_params", "collectives_per_forward", "train_plan",
+           "TrainTP", "TrainState", "tree_flatten", "tree_unflatten", "_loss_fn", "make_train_step",
+           "make_pp_train_step", "base_cuts", "unpack4_tp_blocked"]
 
 COL = ("tp", None)
 ROW = (None, "tp")
@@ -313,21 +314,23 @@ def _in_dim(leaf) -> int:
     return leaf.shape[1]
 
 
+def shard_layer(cfg, pl: Plan, layer: dict, i: int) -> dict:
+    """This rank's slices of layer ``i``: every leaf through :func:`shard_leaf`."""
+    mine = {}
+    for k, v in layer.items():
+        if k == "experts":
+            mine[k] = [{w: shard_leaf(cfg, pl, w, e[w], i) for w in e} for e in v]
+        elif k in _STACKS:
+            mine[k] = {w: shard_leaf(cfg, pl, w, leaf, i, stack=k) for w, leaf in v.items()}
+        else:
+            mine[k] = shard_leaf(cfg, pl, k, v, i)
+    return mine
+
+
 def shard_params(params: dict, cfg, pl: Plan) -> dict:
     """This rank's params: every leaf through :func:`shard_leaf`."""
     out = {k: shard_leaf(cfg, pl, k, v) for k, v in params.items() if k != "layers"}
-    layers: List[dict] = []
-    for i, layer in enumerate(params["layers"]):
-        mine = {}
-        for k, v in layer.items():
-            if k == "experts":
-                mine[k] = [{w: shard_leaf(cfg, pl, w, e[w], i) for w in e} for e in v]
-            elif k in _STACKS:
-                mine[k] = {w: shard_leaf(cfg, pl, w, leaf, i, stack=k) for w, leaf in v.items()}
-            else:
-                mine[k] = shard_leaf(cfg, pl, k, v, i)
-        layers.append(mine)
-    out["layers"] = layers
+    out["layers"] = [shard_layer(cfg, pl, layer, i) for i, layer in enumerate(params["layers"])]
     return out
 
 
@@ -516,7 +519,7 @@ def _key_of(path: Tuple) -> Tuple[str, Optional[int], Optional[str]]:
     """(leaf key, layer index, stack) of a param path, for :func:`split_of`."""
     if path[0] != "layers":
         return path[0], None, None
-    i = path[1]
+    i = int(path[1])  # a list index, or a pipeline stage's global layer key
     if path[2] == "experts":
         return path[4], i, None
     if path[2] in _STACKS:
@@ -532,21 +535,31 @@ class _Layout:
     parallel/checkpoint.py moves leaves through ``gather`` (this rank's ->
     whole) and ``place`` (whole -> this rank's) by kind: "trained" (leaf i
     of the trained tree: the params, or LoRA's adapters), "opt" (a moment
-    or the master of trained leaf i), "base" (LoRA's frozen leaves, whole
-    on every rank only without tp)."""
+    or the master of trained leaf i), "base" (LoRA's frozen leaf i: its
+    whole shape in ``base_shapes``, its cut in ``base_cuts``, an entry of
+    :func:`base_cuts`).
+
+    On a pipeline (a ``"pp"`` axis) the trained tree is this rank's stage
+    (parallel/pipeline.py): ``counted[i]`` is False for the one leaf the
+    global norm must not count twice, the last stage's copy of a tied
+    embedding, and the norm is summed over the pp line."""
 
     def __init__(self, mesh, tree: dict, cuts: list, zero1: bool = False, fsdp: bool = False,
-                 trained: str = "params"):
+                 trained: str = "params", base: Optional[Tuple[list, list]] = None, counted: Optional[list] = None):
         self.mesh = mesh
         self.trained = trained
         self.dp = mesh.shape.get("dp", 1)
         self.dp_rank = mesh.coords.get("dp", 0)
         self.dp_comm = mesh.comm("dp")
         self.tp_comm = mesh.comm("tp")
+        self.pp_comm = mesh.comm("pp")
         self.zero1, self.fsdp = zero1, fsdp
         self.paths, leaves = tree_flatten(tree)
         self.full_shapes = [tuple(v.shape) for v in leaves]
         self.cuts = cuts
+        self.counted = counted if counted is not None else [True] * len(leaves)
+        # LoRA's frozen base: each leaf's whole shape and :func:`base_cuts` entry
+        self.base_shapes, self.base_cuts = base if base is not None else ([], [])
         self.local_shapes = []
         for shape, cut in zip(self.full_shapes, self.cuts):
             shape = list(shape)
@@ -593,19 +606,37 @@ class _Layout:
     def _chunked(self, kind: str) -> bool:
         return self.fsdp or (kind == "opt" and self.zero1)
 
-    def _base(self, t: torch.Tensor) -> torch.Tensor:
-        if self.tp_comm is not None:
-            raise ValueError("a LoRA state's tensor-parallel base is not checkpointed: save it with tp = 1")
-        return t
+    def _base_cut(self, i: int):
+        return self.base_cuts[i] if i < len(self.base_cuts) else None
+
+    def gather_base(self, i: int, local: torch.Tensor) -> torch.Tensor:
+        """Base leaf i whole: its tp slices joined, a packed int4 row slice's
+        split-half packing over the whole K restored."""
+        cut = self._base_cut(i)
+        if cut is None:
+            return local
+        dim, _, _, packed = cut
+        pieces = self.tp_comm.all_gather_flat(local.reshape(-1)).reshape((self.tp_comm.size,) + local.shape)
+        whole = torch.cat(list(pieces), dim=dim)
+        return unpack4_tp_blocked(whole, self.tp_comm.size) if packed else whole
+
+    def place_base(self, i: int, whole: torch.Tensor) -> torch.Tensor:
+        cut = self._base_cut(i)
+        if cut is None:
+            return whole
+        dim, lo, hi, packed = cut
+        if dim == 1:
+            return _cols(whole, lo, hi, packed)
+        return whole[lo:hi].clone()
 
     def gather(self, kind: str, i: int, t: torch.Tensor) -> torch.Tensor:
         if kind == "base":
-            return self._base(t)
+            return self.gather_base(i, t)
         return self.gather_tp(i, self.unchunk(i, t) if self._chunked(kind) else t)
 
     def place(self, kind: str, i: int, whole: torch.Tensor) -> torch.Tensor:
         if kind == "base":
-            return self._base(whole.to(self.mesh.device))
+            return self.place_base(i, whole.to(self.mesh.device))
         local = self.slice_tp(i, whole.to(self.mesh.device))
         return self.chunk(i, local) if self._chunked(kind) else local
 
@@ -617,6 +648,42 @@ def param_cuts(cfg, pl: Optional[Plan], params: dict) -> list:
         key, i, stack = _key_of(p)
         cuts.append(None if pl is None else split_of(cfg, pl, key, v, i, stack))
     return cuts
+
+
+def base_cuts(cfg, pl: Optional[Plan], params: dict) -> list:
+    """Each leaf's cut under ``pl`` for a whole tree whose quantized weights
+    are ``{"q", "scale"}`` (or fused ``{"q3", "scale"}``) dicts, in flatten
+    order: None (held whole) or ``(dim, lo, hi, packed)``, the rows or
+    unpacked input columns [lo, hi) of what :func:`shard_leaf` hands the
+    rank; ``packed``: a packed int4 row slice (re-packed over its columns).
+    A row slice's scale stays whole."""
+    cuts = []
+    for p, v in zip(*tree_flatten(params)):
+        field = p[-1] if p[-1] in ("q", "q3", "scale") else None
+        owner = p[:-1] if field is not None else p
+        key, i, stack = _key_of(owner)
+        whole = _at(params, owner)
+        cut = None if pl is None else split_of(cfg, pl, key, whole, i, stack)
+        if cut is not None and field == "scale" and cut[0] == 1 and stack is None:
+            cut = None
+        cuts.append(None if cut is None else (*cut, cut[0] == 1 and v.dtype == torch.uint8))
+    return cuts
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def unpack4_tp_blocked(q: torch.Tensor, n_tp: int) -> torch.Tensor:
+    """The inverse of :func:`repack4_tp_blocked`: ``n_tp`` blocks, each
+    split-half packed over its own columns (the joined row slices), back to
+    one split-half packing over the whole K."""
+    bh = q.shape[-1] // n_tp
+    nib = torch.cat([torch.cat([b & 0xF, b >> 4], dim=-1) for b in q.split(bh, dim=-1)], dim=-1)
+    half = nib.shape[-1] // 2
+    return (nib[..., :half] | (nib[..., half:] << 4)).to(torch.uint8)
 
 
 def _loss_fn(params: dict, cfg, batch: torch.Tensor, remat: bool = False, tp: Optional[TrainTP] = None
@@ -719,11 +786,14 @@ class _OptimKit:
     def sumsq(self, tensors: List[torch.Tensor]) -> torch.Tensor:
         """The squared global norm of the step's (local) update leaves: tp
         slices summed over tp, replicated leaves counted once, dp chunks
-        summed over dp."""
+        summed over dp, a pipeline's stages summed over pp (a tied
+        embedding's second copy left out)."""
         lay = self.layout
         split = torch.zeros((), dtype=torch.float32, device=tensors[0].device)
         whole = torch.zeros_like(split)
-        for t, cut in zip(tensors, lay.cuts):
+        for t, cut, counted in zip(tensors, lay.cuts, lay.counted):
+            if not counted:
+                continue
             s = t.to(torch.float32).square().sum()
             if cut is None:
                 whole = whole + s
@@ -735,7 +805,8 @@ class _OptimKit:
         split, whole = both[0], both[1]
         if lay.tp_comm is not None:
             split = lay.tp_comm.all_reduce_sum(split)
-        return split + whole
+        total = split + whole
+        return total if lay.pp_comm is None else lay.pp_comm.all_reduce_sum(total)
 
     def apply(self, state: TrainState, grads: List[torch.Tensor]) -> TrainState:
         """The next state. ``state`` and ``grads`` are consumed (JAX's
@@ -864,6 +935,64 @@ def make_train_step(mesh, cfg, learning_rate: float = 1e-4, remat: bool = False,
             grads = _dp_mean(lay.dp_comm, grads, dp)
         if dp > 1:
             loss = lay.dp_comm.all_reduce(loss.to(torch.float32)) / dp
+        del leaves, view
+        return opt.apply(state, grads), loss
+
+    return init_state, train_step
+
+
+def make_pp_train_step(mesh, cfg, n_microbatches: int, learning_rate: float = 1e-4, remat: bool = False,
+                       zero1: bool = False, master_fp32: bool = False, tx=None):
+    """Build ``(init_state, train_step)`` for pipeline-parallel training over
+    ``mesh``'s ``"pp"`` axis (with ``"dp"`` and ``"tp"`` when it has them):
+    JAX's ``make_pp_train_step`` and its options.
+
+    ``init_state`` takes this rank's stage (parallel/pipeline.py
+    ``stack_stages``); the optimizer state is the stage's own, Megatron-cut
+    with its leaves, and with ``zero1`` cut over dp (which needs a ``"dp"``
+    axis). ``train_step(state, batch) -> (state, loss)`` takes the global
+    (B, T+1) batch on every rank, runs the GPipe schedule over
+    ``n_microbatches`` and returns the f32 global mean loss on every rank.
+    The gradients are averaged over dp; a tied embedding's two copies (first
+    and last stage) each take the sum of both stages' gradients, and the
+    global norm (``clip_by_global_norm``) is summed over the stages with that
+    embedding counted once. ``remat``, ``master_fp32`` and ``tx`` as in
+    :func:`make_train_step`."""
+    from .pipeline import _pp_loss, stage_layout
+
+    if zero1 and "dp" not in mesh.axis_names:
+        raise ValueError("zero1 needs a 'dp' axis in the pipeline mesh")
+    dp = mesh.shape.get("dp", 1)
+    pp, r, n_pp = mesh.comm("pp"), mesh.coords.get("pp", 0), mesh.shape.get("pp", 1)
+    kit: List[_OptimKit] = []
+    tied: List[bool] = []
+
+    def init_state(pp_params: dict) -> TrainState:
+        layout = stage_layout(mesh, cfg, pp_params, zero1=zero1)
+        params = tree_unflatten(pp_params, [v.detach().to(mesh.device) for v in tree_flatten(pp_params)[1]])
+        head = torch.tensor([float("lm_head" in pp_params)], device=mesh.device)
+        tied[:] = [n_pp > 1 and float(pp.all_reduce_sum(head)) == 0.0]  # no stage holds an lm_head
+        kit[:] = [_OptimKit(layout, learning_rate, master_fp32, tx)]
+        return kit[0].init(params)
+
+    def train_step(state: TrainState, batch) -> Tuple[TrainState, torch.Tensor]:
+        opt = kit[0]
+        lay = opt.layout
+        batch = torch.as_tensor(batch).to(mesh.device)
+        paths, leaves = tree_flatten(state["params"])
+        leaves = [v.detach().requires_grad_(True) for v in leaves]
+        view = tree_unflatten(state["params"], leaves)
+        loss = _pp_loss(mesh, cfg, n_microbatches, remat, view, batch, leaves)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(v) if g is None else g for g, v in zip(grads, leaves)]
+        if tied[0] and r in (0, n_pp - 1):  # the tied embedding's two parts, summed in stage order
+            i = paths.index(("embed_tokens",))
+            other = pp.sendrecv(grads[i], n_pp - 1 if r == 0 else 0)
+            grads[i] = grads[i] + other if r == 0 else other + grads[i]
+        grads = _zero1_scatter(lay, grads) if zero1 else _dp_mean(lay.dp_comm, grads, dp)
+        loss = loss.detach()
+        if dp > 1:
+            loss = lay.dp_comm.all_reduce(loss) / dp
         del leaves, view
         return opt.apply(state, grads), loss
 

@@ -95,7 +95,7 @@ Phases (each prints one line or a few; any failure exits non-zero):
    traced result the engine's own pair merge bit for bit, its weight the
    alphas by stack position, round 1 at 97% within 2e-2, later rounds on
    identical spectra with the traced weight). addition also merges the
-   whole model (the 128256 x 4096 input/output layers).
+   whole model (the 128256 x 4096 input/output layers), in the same pool.
    Then the masks alone at (14336, 4096): DARE's Bernoulli draw, DELLA's
    keep probabilities and drop-and-rescale, device ms;
 11. inputs: every checkpoint input through the port's CLI on the card. A
@@ -176,11 +176,17 @@ Phases (each prints one line or a few; any failure exits non-zero):
    Qwen2.5-7B's layer of seven GEMVs timed at B = 1 and 8 beside the plain
    version, the library call and the bound; Phi-3 also through ``generate
    -4 --greedy`` from a checkpoint with fused qkv_proj/gate_up_proj, its
-   tokens equal to the in-memory model's;
+   tokens equal to the in-memory model's (the process started first and
+   waited for at the end of [experts]);
 16. experts: Mixtral-8x7B, Qwen3-30B-A3B, DeepSeek-V2-Lite and DeepSeek-V3
    at published widths, 2 layers, int4 made on the card: the launches of a
    decode step, one step held to the plain route, pools of Mixtral and
-   V2-Lite, V2-Lite's prefix cache and its generate CLI;
+   V2-Lite, V2-Lite's prefix cache and its generate CLI. The capacity
+   route: Mixtral-8x7B, 2 layers, bf16, served with
+   ``moe_dispatch="capacity"`` (experts stacked once) at full capacity and
+   at 1.25 against the dense route: flash decode launched on every step,
+   nothing dropped at full capacity, logits within 2e-2 where no router
+   near-tie flips, tokens the dense route's up to a near-tie;
 17. sinks-chunked: GPT-OSS-20B and Llama-4-Scout at published widths, 2
    layers. GPT-OSS written as a shipped-format MXFP4 checkpoint (layer 0's
    blocks and scales in two shards) and loaded at 4 bits (the card's MXFP4
@@ -232,6 +238,19 @@ Phases (each prints one line or a few; any failure exits non-zero):
    there within 1e-4 of the pipeline's. Step ms on the ranks beside one
    device's, save and restore seconds, each rank's peak and the card's
    (nvidia-smi) over the window, the ranks' work and [pp]'s own wait;
+18c. cp, ep: context and expert parallelism on two ranks sharing the card
+   (``--cpep-rank``; gloo, host-staged, f32), started when [train]'s ranks
+   exit, beside [experts] and [sinks-chunked], gated before [train]'s own
+   steps. [cp]: Llama-3.1-8B widths, 1 layer, one sequence of 8192 tokens,
+   4096 a rank: the ring's loss within 1e-4 relative and every gradient
+   within relL2 1e-3 of one device's ``_loss_fn``, 2 hops and the
+   predicted p2p bytes, one make_cp_train_step step (ZeRO-1). [ep]:
+   Mixtral-8x7B widths, 1 MoE layer, 4 experts a rank, 4 x 512 tokens:
+   make_ep_loss's loss and gradients against the dense-and-mask one
+   device, one make_ep_train_step step, expert_parallel_ffn at 8 decode
+   rows against the dense FFN and ``_moe_capacity`` (1e-5). Rank 0 and
+   this process take turns at the card's largest allocations
+   (``CardLease``); the card's memory.used peak over the ranks' window;
 19. train: training at Llama-3.1-8B widths, 2 layers, seeded random
    weights. The full fine-tune (bf16 params with an f32 master, remat, two
    microbatches, clip + cosine, B x T = 4 x 512, a repeated batch): losses
@@ -1971,9 +1990,14 @@ def phase_engines(torch, root: Path, dirs: dict, card: str, dev: str = "cuda:0")
             if t.dtype != torch.bfloat16 or not bool(torch.isfinite(t.float()).all()):
                 raise SystemExit(f"[engines] {tag}: {n} is not finite bf16")
 
-    # the CLI runs, four at a time, while the card is held to the host
+    # the CLI runs, four at a time (the whole-model ones first), while the
+    # card is held to the host
+    whole_cfgs = {method: merge_config(root, f"whole_{method}", dirs["base"],
+                                       [(dirs[f], STACK_ALPHAS[f]) for f in STACK_FOUR], merge_method=method,
+                                       device=dev) for method in ENGINE_WHOLE}
     ex = ThreadPoolExecutor(4)
     try:
+        whole_runs = {method: ex.submit(cli_merge, cfg_file) for method, cfg_file in whole_cfgs.items()}
         futures = {tag: ex.submit(cli_merge, cfg_file) for tag, cfg_file in configs.items()}
         held = set()
         for method, options in ENGINE_RUNS:
@@ -1982,6 +2006,7 @@ def phase_engines(torch, root: Path, dirs: dict, card: str, dev: str = "cuda:0")
                 hold_engine(torch, method, options, srcs, dev, card, masks=method not in held)
                 held.add(method)
         cli = {tag: f.result() for tag, f in futures.items()}
+        whole_cli = {method: f.result() for method, f in whole_runs.items()}
     finally:
         ex.shutdown(wait=True)
     for tag, (stats, wall) in cli.items():
@@ -1995,10 +2020,7 @@ def phase_engines(torch, root: Path, dirs: dict, card: str, dev: str = "cuda:0")
         f"{max(w for _, w in cli.values()):.1f} s the longest) each mirror the base index, finite bf16, the "
         f"in-process merge's bits")
 
-    for method in ENGINE_WHOLE:
-        cfg_file = merge_config(root, f"whole_{method}", dirs["base"],
-                                [(dirs[f], STACK_ALPHAS[f]) for f in STACK_FOUR], merge_method=method, device=dev)
-        stats, wall = cli_merge(cfg_file)
+    for method, (stats, wall) in whole_cli.items():
         out = root / f"whole_{method}"
         weight_map = check_output(torch, out, dirs["base"], f"[engines] whole {method}")
         tag = engine_tag(method, {})
@@ -2011,7 +2033,8 @@ def phase_engines(torch, root: Path, dirs: dict, card: str, dev: str = "cuda:0")
             raise SystemExit(f"[engines] whole {method}: {stats['tensors_passthrough']} passthroughs, "
                              f"expected {passthrough}")
         spans = stats["tensor_spans"]
-        say(f"[engines] whole-model {method} CLI ({card}): wall {wall:.1f} s (process); {stats['tensors_merged']} "
+        say(f"[engines] whole-model {method} CLI ({card}): wall {wall:.1f} s (process, in the pool above); "
+            f"{stats['tensors_merged']} "
             f"tensors, {passthrough} passthrough; index mirrors the base, finite bf16, layer 0's subset has the "
             f"subset merge's bits; walls, ms: " + ", ".join(
                 f"{n} {spans[n]['wall_s'] * 1e3:.1f}" for n in spans
@@ -3367,20 +3390,65 @@ def family_step_check(torch, qk, ak, engine, prompt: str, tag: str, route: str, 
     return rel, attn, valid, float((with_kernel.float() - with_plain.float()).abs().max())
 
 
-def phase_families(torch, root: Path, card: str):
+def phi3_cli(torch, root: Path, ex):
+    """Phi-3 through the generate CLI: [families]' seeded bf16 weights written
+    as a fused qkv_proj/gate_up_proj checkpoint in HF naming, ``generate -4
+    --greedy`` submitted to ``ex`` and left running, the in-memory model's
+    tokens (host int4 of the same weights) taken meanwhile. Returns
+    ``finish()``: waits for the process and fails unless it printed those
+    tokens."""
+    from shardmerge_tpu_torch.inference import InferenceEngine, load_tokenizer
+    from shardmerge_tpu_torch.io.safetensors_io import save_file
+    from shardmerge_tpu_torch.models import llama
+    from shardmerge_tpu_torch.models.quant import quantize
+
+    name = next(n for n in FAMILY_MODELS if n.startswith("phi-3"))
+    hf = FAMILY_MODELS[name][1]
+    dev = torch.device(CARD)
+    cfg = llama.ModelConfig.from_hf_config({**hf, "num_hidden_layers": LAYERS})
+    bf16 = llama.init_params(cfg, seed=20 + list(FAMILY_MODELS).index(name), dtype=torch.bfloat16, device=dev)
+    phi = root / "phi3"
+    phi.mkdir()
+    save_file(phi3_checkpoint_tensors(torch, bf16), phi / "model.safetensors")
+    (phi / "config.json").write_text(json.dumps({**hf, "num_hidden_layers": LAYERS,
+                                                 "architectures": ["Phi3ForCausalLM"]}))
+    write_word_tokenizer(phi, cfg.vocab_size)
+    words = " ".join(f"w{7 + 13 * i}" for i in range(24))
+    run = ex.submit(port_cli, ["generate", phi, words, "-4", "--greedy", "--max-tokens", FAMILY_NEW])
+    host_q = {**bf16, "layers": [{**layer, **{k: {t: v.to(dev) for t, v in quantize(layer[k], 4).items()}
+                                             for k in PROJECTIONS}} for layer in bf16["layers"]]}
+    mem = InferenceEngine(cfg, llama.LlamaModel(cfg, host_q), load_tokenizer(phi, phi))
+    want = "".join(mem.stream_generation(words, max_new_tokens=FAMILY_NEW, greedy=True))
+    del mem, host_q, bf16
+    torch.cuda.empty_cache()
+
+    def finish():
+        out, wall = run.result()
+        say(f"[families] phi-3 through the CLI: generate -4 --greedy from a fused qkv_proj/gate_up_proj "
+            f"checkpoint in {wall:.1f} s (process, beside [families] and [experts]): {out.strip()!r}; the "
+            f"in-memory model (host int4 of the same weights): {want!r}")
+        if out.rstrip("\n") != want:
+            raise SystemExit("[families] phi-3: the CLI's tokens differ from the in-memory model's")
+        shutil.rmtree(phi)
+
+    return finish
+
+
+def phase_families(torch, root: Path, card: str, ex):
     """Every dense family at its published widths on the card: 8 greedy
     int4 tokens, one decode step against the plain route, the GEMV at each
     new (N, K), the decode attention's route; Qwen2.5-7B's layer of GEMVs
-    timed; Phi-3 also through the generate CLI from a fused checkpoint."""
+    timed; Phi-3 also through the generate CLI from a fused checkpoint
+    (:func:`phi3_cli`, started first on ``ex``). Returns the CLI's
+    ``finish``."""
     from scripts.bench_int4_torch import graph_ms, library_int4
-    from shardmerge_tpu_torch.inference import InferenceEngine, load_tokenizer
-    from shardmerge_tpu_torch.io.safetensors_io import save_file
+    from shardmerge_tpu_torch.inference import InferenceEngine
     from shardmerge_tpu_torch.models import attn_kernels as ak
     from shardmerge_tpu_torch.models import llama
     from shardmerge_tpu_torch.models import quant_kernels as qk
-    from shardmerge_tpu_torch.models.quant import quantize
 
     t_phase = time.perf_counter()
+    phi3_done = phi3_cli(torch, root, ex)
     dev = torch.device(CARD)
     gen = torch.Generator(device=dev).manual_seed(5)
     flush = torch.zeros(128 << 20, dtype=torch.uint8, device=dev)
@@ -3390,7 +3458,6 @@ def phase_families(torch, root: Path, card: str):
         t0 = time.perf_counter()
         cfg = llama.ModelConfig.from_hf_config({**hf, "num_hidden_layers": LAYERS})
         params = llama.init_params(cfg, seed=20 + seed, dtype=torch.bfloat16, device=dev)
-        bf16_layers = [dict(layer) for layer in params["layers"]] if name.startswith("phi-3") else None
         for layer in params["layers"]:
             for key in PROJECTIONS:
                 layer[key] = card_quantize(torch, layer[key])
@@ -3451,33 +3518,11 @@ def phase_families(torch, root: Path, card: str):
                 say(f"[families] Qwen2.5-7B one layer's 7 int4 GEMVs at B={b} ({card}; CUDA-graph device time, L2 "
                     f"flushed): kernel {ms:.4f} ms, plain {plain:.4f} ms, library int4 "
                     f"{'not run' if lib is None else f'{lib:.4f} ms'}, bound {bound_ms:.4f} ms ({bound_by})")
-        if bf16_layers is not None:
-            # Phi-3 through the CLI: a fused-projection checkpoint in HF naming
-            phi = root / "phi3"
-            phi.mkdir()
-            bf16 = {**params, "layers": [{**layer, **{k: orig[k] for k in PROJECTIONS}}
-                                         for layer, orig in zip(params["layers"], bf16_layers)]}
-            save_file(phi3_checkpoint_tensors(torch, bf16), phi / "model.safetensors")
-            (phi / "config.json").write_text(json.dumps({**hf, "num_hidden_layers": LAYERS,
-                                                         "architectures": ["Phi3ForCausalLM"]}))
-            write_word_tokenizer(phi, cfg.vocab_size)
-            words = " ".join(f"w{7 + 13 * i}" for i in range(24))
-            out, wall = port_cli(["generate", phi, words, "-4", "--greedy", "--max-tokens", FAMILY_NEW])
-            host_q = {**bf16, "layers": [{**layer, **{k: {t: v.to(dev) for t, v in quantize(layer[k], 4).items()}
-                                                     for k in PROJECTIONS}} for layer in bf16["layers"]]}
-            mem = InferenceEngine(cfg, llama.LlamaModel(cfg, host_q), load_tokenizer(phi, phi))
-            want = "".join(mem.stream_generation(words, max_new_tokens=FAMILY_NEW, greedy=True))
-            say(f"[families] phi-3 through the CLI: generate -4 --greedy from a fused qkv_proj/gate_up_proj "
-                f"checkpoint in {wall:.1f} s: {out.strip()!r}; the in-memory model (host int4 of the same "
-                f"weights): {want!r}")
-            if out.rstrip("\n") != want:
-                raise SystemExit("[families] phi-3: the CLI's tokens differ from the in-memory model's")
-            shutil.rmtree(phi)
-            del mem, host_q, bf16, bf16_layers
         del engine, params
         torch.cuda.empty_cache()
     del flush
     say(f"[families] launches over the nine models' decodes: {launches}")
+    return phi3_done
     say(f"[families] phase wall {time.perf_counter() - t_phase:.1f} s")
 
 
@@ -3703,12 +3748,16 @@ def expert_prefix_hit(torch, engine, name: str):
         raise SystemExit(f"[experts] {name}: prefix cache hits {hits}, slab equal to the plain prefill {equal}")
 
 
-def phase_experts(torch, root: Path, card: str):
+def phase_experts(torch, root: Path, card: str, lease: CardLease, waits=()):
     """The expert and latent-attention families at published widths on the
     card: 8 greedy int4 tokens a model, one decode step against the plain
     route, the launches against EXPERT_MODELS' counts, the GEMV at each new
     (N, K); pools of Mixtral (flash slot lists) and V2-Lite (latent rows
-    compacting), V2-Lite's prefix cache and its CLI."""
+    compacting), V2-Lite's prefix cache and its CLI; then the capacity
+    route. DeepSeek-V3 and the capacity route hold ``lease``. The
+    ``finish`` callables in ``waits`` (CLI runs started before the phase)
+    are called at the end. Returns the capacity route's flash-decode
+    launches."""
     from shardmerge_tpu_torch.inference import InferenceEngine
     from shardmerge_tpu_torch.models import attn_kernels as ak
     from shardmerge_tpu_torch.models import llama
@@ -3721,6 +3770,8 @@ def phase_experts(torch, root: Path, card: str):
     launches = {"int4_gemv": 0, "flash_decode": 0, "decode_einsum": 0}
     gemv_checked = set()
     for seed, (name, (repo, hf, route, gemvs)) in enumerate(EXPERT_MODELS.items()):
+        if name == "deepseek-v3":
+            lease.take()
         t0 = time.perf_counter()
         torch.cuda.reset_peak_memory_stats(dev)
         cfg = llama.ModelConfig.from_hf_config({**hf, "num_hidden_layers": LAYERS})
@@ -3788,8 +3839,138 @@ def phase_experts(torch, root: Path, card: str):
             del bf16
         del engine, params
         torch.cuda.empty_cache()
+        lease.drop()
     say(f"[experts] launches over the four models' streams: {launches}")
-    say(f"[experts] phase wall {time.perf_counter() - t_phase:.1f} s")
+    lease.take()
+    capacity_launches = experts_capacity(torch, ak, card)
+    lease.drop()
+    t_wait = time.perf_counter()
+    for finish in waits:
+        finish()
+    waited = time.perf_counter() - t_wait
+    say(f"[experts] phase wall {time.perf_counter() - t_phase:.1f} s (Phi-3's CLI waited for {waited:.1f} s at its "
+        f"end)")
+    return capacity_launches
+
+
+def experts_capacity(torch, ak, card: str) -> int:
+    """[experts]' capacity route: Mixtral-8x7B at published widths, 2
+    layers, bf16 (the capacity dispatch takes raw experts), one set of
+    weights served by the dense-and-mask engine and by engines with
+    ``moe_dispatch="capacity"`` (which stack the experts once) at the full
+    capacity (factor n_exp / k: no token dropped) and at the default 1.25.
+    The routes round their bf16 products apart, so a token whose router
+    top-k is nearly tied can pick other experts in a later layer: such a
+    flip is found by routing both routes' layer inputs, and its margin (the
+    dense router's k-th minus (k+1)-th probability) reported. Gates: the
+    engines stacked; every decode step's attention on the flash kernel
+    (layers x tokens launches, counted on the capacity route); at full
+    capacity nothing dropped, the teacher-forced logits within relL2 2e-2
+    of the dense route's at every position without a flip, every flip a
+    near-tie (margin <= 1e-2), and the greedy tokens the dense route's up to
+    a near-tie (a first differing token within the routes' logit gap of the
+    dense best); at 1.25 finite logits and the drops of layer 0's prefill
+    counted. (In f32 the full capacity equals dense-and-mask within relL2
+    1e-5: tests/test_torch_cp_ep.py, and [ep]'s decode FFN.) Returns the
+    flash launches of the capacity streams."""
+    import dataclasses
+
+    from shardmerge_tpu_torch.inference import InferenceEngine
+    from shardmerge_tpu_torch.models import llama
+
+    t0 = time.perf_counter()
+    dev = torch.device(CARD)
+    cfg = llama.ModelConfig.from_hf_config({**MIXTRAL_HF, "num_hidden_layers": LAYERS})
+    k = cfg.num_experts_per_tok
+    params = llama.init_params(cfg, seed=47, dtype=torch.bfloat16, device=dev)
+    prompt = text_of(EXPERT_PROMPT, 90)
+    ids = IdTokenizer().encode(prompt)
+
+    def stream(engine):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        text = "".join(engine.stream_generation(prompt, max_new_tokens=FAMILY_NEW, greedy=True))
+        torch.cuda.synchronize()
+        return token_ids(text), (time.perf_counter() - t) * 1e3 / FAMILY_NEW
+
+    def forced(model, seq):
+        """Logits (T, V) of the whole sequence in one prefill-shaped call,
+        and each MoE layer's input (T, hidden)."""
+        inputs = []
+        hooks = [layer.mlp.register_forward_pre_hook(lambda mod, args: inputs.append(args[0][0].detach()))
+                 for layer in model.layers]
+        x = torch.tensor([seq], device=dev)
+        T = x.shape[1]
+        kv = llama.init_kv_cache(cfg, 1, T, model.dtype, dev)
+        with torch.inference_mode():
+            logits, _ = model(x, torch.arange(T, device=dev)[None], kv, 0, llama.rope_tables(cfg, T, dev), T)
+        for h in hooks:
+            h.remove()
+        return logits[0].float(), inputs
+
+    dense_model = llama.LlamaModel(cfg, params)
+    dense_tokens, dense_ms = stream(InferenceEngine(cfg, dense_model, IdTokenizer()))
+    seq = ids + dense_tokens[:-1]
+    dense_logits, dense_inputs = forced(dense_model, seq)
+    gates = [layer.mlp.moe_gate for layer in dense_model.layers]
+    del dense_model
+    flash, lines, ok = 0, [], True
+    for cf in (cfg.num_local_experts / k, 1.25):
+        ccfg = dataclasses.replace(cfg, moe_dispatch="capacity", moe_capacity_factor=cf)
+        model = llama.LlamaModel(ccfg, params)
+        engine = InferenceEngine(ccfg, model, IdTokenizer())
+        moes = [layer.mlp for layer in model.layers]
+        stacked = all(m.stacks is not None and not len(m.experts) for m in moes)
+        reset_counts(ak)
+        tokens, ms = stream(engine)
+        counts = {key: ak.launch_counts.get(key, 0) for key in ("flash_decode", "flash_compact")}
+        flash += counts["flash_decode"]
+        logits, inputs = forced(model, seq)
+        T = len(seq)
+        C = llama.capacity_of(ccfg, T, cf)
+        idx, w = moes[0].route(inputs[0])
+        kept = int((llama.capacity_tables_from_topk(idx, w, cfg.num_local_experts, C)[1] != 0).sum())
+        flips, margin = set(), 0.0
+        for gate, a, b in zip(gates, dense_inputs, inputs):  # the routes' top-k sets, layer by layer
+            probs = torch.softmax(llama.matmul(a, gate).float(), dim=-1)
+            top = llama.topk(probs, k + 1)[0]
+            sel_a = llama.topk(probs, k)[1].sort(dim=-1)[0]
+            sel_b = llama.topk(torch.softmax(llama.matmul(b, gate).float(), dim=-1), k)[1].sort(dim=-1)[0]
+            for pos in (sel_a != sel_b).any(dim=-1).nonzero().flatten().tolist():
+                flips.add(pos)
+                margin = max(margin, float(top[pos, k - 1] - top[pos, k]))
+        per = (logits - dense_logits).norm(dim=-1) / dense_logits.norm(dim=-1)
+        steady = [pos for pos in range(T) if pos not in flips]
+        rel = float((logits[steady] - dense_logits[steady]).norm() / dense_logits[steady].norm())
+        worst = float(per[steady].max())
+        gap = float((logits - dense_logits).abs().max())
+        first = next((i for i, (a, b) in enumerate(zip(tokens, dense_tokens)) if a != b), None)
+        tie = None
+        if first is not None:  # the dense best's lead over the capacity route's token at that step
+            row = dense_logits[len(ids) - 1 + first]
+            tie = float(row[dense_tokens[first]] - row[tokens[first]])
+        good = stacked and counts["flash_decode"] == LAYERS * FAMILY_NEW and bool(torch.isfinite(logits).all())
+        if cf > 1.25:
+            good &= kept == T * k and worst <= 2e-2 and margin <= 1e-2 and (tie is None or tie <= gap)
+        ok &= good
+        lines.append(f"factor {cf:g} (C = {C} of {T} teacher-forced tokens): experts stacked {stacked}; layer 0 kept "
+                     f"{kept} of {T * k} assignments; launches {counts}; router top-k flips against the dense "
+                     f"route at {len(flips)} positions {sorted(flips)[:8]} (largest dense margin {margin:.2e}); "
+                     f"logits vs dense at the other positions relL2 {rel:.3e}, worst position {worst:.3e}; tokens "
+                     + ("equal to the dense route's" if first is None else
+                        f"first differ at step {first} (dense lead {tie:.3e}, logit gap {gap:.3e})")
+                     + f"; stream {ms:.2f} ms a token {'ok' if good else 'FAIL'}")
+        del engine, model, moes
+        torch.cuda.empty_cache()
+    say(f"[experts] capacity route, mixtral-8x7b (2 layers, bf16) against the dense route (stream {dense_ms:.2f} ms "
+        f"a token, the process's first Mixtral products included): " + "; ".join(lines)
+        + f"; {time.perf_counter() - t0:.1f} s on {card}")
+    if not ok:
+        raise SystemExit("[experts] the capacity route failed a gate: stacking, flash launches, drops at full "
+                         "capacity, logits, routing near-ties or tokens against the dense route")
+    del params, gates
+    torch.cuda.empty_cache()
+    return flash
 
 
 # [sinks-chunked]: GPT-OSS and Llama-4 from their public configs at
@@ -4009,14 +4190,15 @@ def scout_pool(torch, engine):
             + (f" ({'; '.join(notes)})" if notes else ""))
 
 
-def phase_sinks_chunked(torch, root: Path, card: str):
+def phase_sinks_chunked(torch, root: Path, card: str, lease: CardLease):
     """GPT-OSS-20B (attention sinks on the counted einsum path, the
     clamped-SwiGLU stacks from a shipped-format MXFP4 checkpoint loaded at
     4 bits) and Llama-4-Scout (chunked attention across the 8192 boundary
     on flash, the L2 q/k norm, the NoPE temperature, input-scaled f32
     experts) at published widths, 2 layers: the stream's launches, one
     decode step against the plain route, flash against its plain version,
-    the GEMV at each new (N, K), card memory; Scout's pool."""
+    the GEMV at each new (N, K), card memory; Scout's pool. Scout holds
+    ``lease``."""
     from shardmerge_tpu_torch.inference import InferenceEngine
     from shardmerge_tpu_torch.models import attn_kernels as ak
     from shardmerge_tpu_torch.models import llama
@@ -4030,6 +4212,8 @@ def phase_sinks_chunked(torch, root: Path, card: str):
     gen = torch.Generator(device=dev).manual_seed(7)
     gemv_checked = set()
     for seed, name in enumerate(("gpt-oss-20b", "llama-4-scout")):
+        if name == "llama-4-scout":
+            lease.take()
         t0 = time.perf_counter()
         torch.cuda.reset_peak_memory_stats(dev)
         note = ""
@@ -4094,6 +4278,7 @@ def phase_sinks_chunked(torch, root: Path, card: str):
             say(f"[sinks-chunked] {name} " + scout_pool(torch, engine))
         del engine, model, params
         torch.cuda.empty_cache()
+        lease.drop()
     say(f"[sinks-chunked] phase wall {time.perf_counter() - t_phase:.1f} s")
 
 
@@ -4776,7 +4961,7 @@ def train_rank(root: Path) -> int:
         whole = []
         for i, v in enumerate(leaves_of(state)):
             w = lay.gather("trained", i, v)
-            whole.append(w.detach() if keep else None)
+            whole.append(w.detach().cpu() if keep else None)  # on the host: the card holds the next run
             del w
         del state
         torch.cuda.empty_cache()
@@ -4799,7 +4984,7 @@ def train_rank(root: Path) -> int:
     for tag, (losses, whole, walls, stats, transport) in runs.items():
         upd = 0.0
         for w, r, p in zip(whole, ref, p0):  # on the card, a leaf at a time
-            d = r - p
+            w, d = w.to(dev), r.to(dev) - p
             if bool((d != 0).any()):
                 upd = max(upd, float(((w - p) - d).norm() / d.norm()))
         out[tag] = {"losses": losses, "loss_rel": max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)),
@@ -4811,16 +4996,18 @@ def train_rank(root: Path) -> int:
 
 
 def start_train_ranks(root: Path) -> list:
-    """Start [train]'s two ranks sharing the card. They are host-bound (5 GB
-    of f32 gradients and updates a ZeRO-1 step over loopback TCP) and hold
-    about 40 GB of the card at most, so main() starts them before
-    [families] and they run beside [families] and [experts]; [train] waits
-    for them before its own steps take the card's memory."""
+    """Start [train]'s two ranks sharing the card (the allocator's
+    expandable segments). They are host-bound (5 GB of f32 gradients and
+    updates a ZeRO-1 step over loopback TCP) and hold up to about 35 GB of
+    the card each, so main() starts them before [families] and they run
+    beside [families]; [cp]/[ep]'s ranks start when they exit; [train]
+    waits for them before its own steps take the card's memory."""
     port = free_port()
     procs = []
     for rank in range(TRAIN_RANKS):
         env = {**os.environ, "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port), "WORLD_SIZE": str(TRAIN_RANKS),
-               "RANK": str(rank), "LOCAL_RANK": str(rank), "LOCAL_WORLD_SIZE": str(TRAIN_RANKS)}
+               "RANK": str(rank), "LOCAL_RANK": str(rank), "LOCAL_WORLD_SIZE": str(TRAIN_RANKS),
+               "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
         with open(root / f"train{rank}.out", "w") as o, open(root / f"train{rank}.err", "w") as e:
             procs.append(subprocess.Popen([sys.executable, str(REPO / "chip_smoke.py"), "--train-rank", str(root)],
                                           cwd=REPO, env=env, stdout=o, stderr=e))
@@ -5087,6 +5274,52 @@ class CardMemory:
         return self.peak_mib / 1024
 
 
+class CardLease:
+    """Turns at the card's largest allocations, between this process and
+    [cp]/[ep]'s rank 0: an flock on ROOT/card.lease. Rank 0 holds it over
+    each of the two ranks' stages (up to 57 GiB reserved over both) and
+    gives it up between them, where both ranks are at a barrier with their
+    cache emptied; this process holds it over its models of more than 10
+    GiB (DeepSeek-V3, the capacity route's Mixtral engines, Scout's
+    dequantized stacks), so the card's 80 GB never carries both. The main
+    process marks ROOT/card.want while it waits, and rank 0 takes no new
+    stage until that is gone; a wait longer than ``timeout`` raises."""
+
+    def __init__(self, root: Path, timeout: float = 600.0):
+        self.path, self.want, self.timeout = root / "card.lease", root / "card.want", timeout
+        self.waited, self._fd = 0.0, None
+
+    def take(self, yield_to_want: bool = False):
+        import fcntl
+
+        t0 = time.perf_counter()
+        fd = os.open(self.path, os.O_RDWR | os.O_CREAT)
+        if not yield_to_want:
+            self.want.touch()
+        try:
+            while True:
+                if not (yield_to_want and self.want.exists()):
+                    try:
+                        fcntl.flock(fd, fcntl.LOCK_EX | fcntl.LOCK_NB)
+                        break
+                    except BlockingIOError:
+                        pass
+                if time.perf_counter() - t0 > self.timeout:
+                    os.close(fd)
+                    raise SystemExit(f"card lease: not taken in {self.timeout:.0f} s")
+                time.sleep(0.05)
+        finally:
+            if not yield_to_want:
+                self.want.unlink(missing_ok=True)
+        self._fd = fd
+        self.waited += time.perf_counter() - t0
+
+    def drop(self):
+        if self._fd is not None:
+            os.close(self._fd)  # closing the descriptor releases the flock
+            self._fd = None
+
+
 def phase_pp(torch, root: Path, card: str, procs: list, memory: CardMemory) -> int:
     """[pp]: wait for the pipeline's two ranks (``start_pp_ranks``) and gate
     their report: the GEMV launched 7 x layers x microbatches on each rank
@@ -5152,6 +5385,373 @@ def phase_pp(torch, root: Path, card: str, procs: list, memory: CardMemory) -> i
     return sum(got_gemv)
 
 
+# [cp] and [ep]: context and expert parallelism on two ranks sharing the card
+# (one launch, gloo host-staged, f32). [cp]: Llama-3.1-8B widths, CP_LAYERS
+# layers, one sequence of 2 x CP_TOKENS tokens, CP_TOKENS a rank. [ep]:
+# Mixtral-8x7B widths, EP_LAYERS MoE layer, 8 experts top-2 cut 4 a rank,
+# EP_BATCH x EP_SEQ tokens, the FFN also at EP_DECODE decode rows.
+CPEP_RANKS = 2
+CP_LAYERS, CP_TOKENS = 1, 4096
+EP_LAYERS, EP_BATCH, EP_SEQ, EP_DECODE = 1, 4, 512, 8
+CPEP_SEED = 61
+
+
+def _whole_grads(lay, grads, on_rank0: bool) -> list:
+    """Gradients joined over the split axis and summed over the data line,
+    on the host of rank 0 (None elsewhere): collectives every rank runs."""
+    out = []
+    for i, g in enumerate(grads):
+        g = lay.gather_tp(i, g)
+        if lay.dp > 1:
+            g = lay.dp_comm.all_reduce(g)
+        out.append(g.cpu() if on_rank0 else None)
+    return out
+
+
+def _grad_gap(torch, got: list, want: list) -> float:
+    """The largest per-leaf relL2 over the leaves with a nonzero reference."""
+    worst = 0.0
+    for a, b in zip(got, want):
+        n = float(b.norm())
+        if n > 0:
+            worst = max(worst, float((a - b).norm()) / n)
+    return worst
+
+
+def cpep_rank(root: Path) -> int:
+    """One rank of [cp] and [ep] (``python3 chip_smoke.py --cpep-rank ROOT``
+    with torchrun's variables; gloo, host-staged, f32).
+
+    [cp] on a ("cp",) = (2,) mesh: rank 0 first runs one device's _loss_fn
+    and its gradients over the whole sequence and keeps them on the host;
+    then both ranks run make_cp_loss (the ring, one K/V transfer each way a
+    layer) and its gradients, summed over the line on rank 0, and one
+    make_cp_train_step step (adamw, ZeRO-1 over cp), its p2p record, ring
+    hops and wall.
+    [ep] on an ("ep",) = (2,) mesh: rank 0 runs the dense-and-mask
+    one-device loss and gradients on the expert lists; both ranks run
+    make_ep_loss (full capacity) and its gradients (the experts joined over
+    the line on rank 0) and one make_ep_train_step step; then
+    expert_parallel_ffn at EP_DECODE rows against the one-device dense FFN
+    (full capacity) and _moe_capacity (factor 1.25). Rank 0 takes each
+    stage's turn at the card (:class:`CardLease`). Each rank writes
+    ROOT/cpep_rank{r}.json."""
+    import torch
+    import torch.distributed as dist
+
+    from shardmerge_tpu_torch.models import llama
+    from shardmerge_tpu_torch.parallel import moe as pmoe
+    from shardmerge_tpu_torch.parallel import ring as pring
+    from shardmerge_tpu_torch.parallel.mesh import make_mesh
+    from shardmerge_tpu_torch.parallel.optim import adamw
+    from shardmerge_tpu_torch.parallel.train import (_Layout, _loss_fn, make_cp_loss, make_cp_train_step,
+                                                     tree_flatten, tree_unflatten)
+
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda:0")
+    out = {}
+
+    def leaves_of_(p):
+        leaves = [v.detach().requires_grad_(True) for v in tree_flatten(p)[1]]
+        return leaves, tree_unflatten(p, leaves)
+
+    def grads_of(loss, leaves):
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        return [torch.zeros_like(v) if g is None else g for g, v in zip(grads, leaves)]
+
+    lease = CardLease(root) if int(os.environ["RANK"]) == 0 else None
+
+    def mark(stage: str, last: bool = False):
+        """Close a stage: the cache emptied, its peak GiB allocated and
+        reserved noted, a fresh window; then, with both ranks at a barrier,
+        rank 0 gives the card lease up and takes it for the next stage
+        (none after the last)."""
+        torch.cuda.empty_cache()
+        out.setdefault("memory", []).append([stage, round(torch.cuda.max_memory_allocated() / 2**30, 2),
+                                             round(torch.cuda.max_memory_reserved() / 2**30, 2)])
+        torch.cuda.reset_peak_memory_stats()
+        dist.barrier()
+        if lease is not None:
+            lease.drop()
+            if not last:
+                lease.take(yield_to_want=True)
+        dist.barrier()
+
+    # [cp]
+    mesh = make_mesh(("cp",), shape=(CPEP_RANKS,))
+    r, comm = mesh.coords["cp"], mesh.comm("cp")
+    if lease is not None:
+        lease.take(yield_to_want=True)
+    dist.barrier()
+    out["transport"] = comm.transport
+    cfg = train_cfg(CP_LAYERS)
+    gen = torch.Generator(device=dev).manual_seed(CPEP_SEED)
+    batch = torch.randint(0, cfg.vocab_size, (1, CPEP_RANKS * CP_TOKENS + 1), device=dev, generator=gen)
+    params = llama.init_params(cfg, seed=CPEP_SEED, dtype=torch.float32, device=dev)
+    ref = None
+    if r == 0:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        leaves, p = leaves_of_(params)
+        loss = _loss_fn(p, cfg, batch)
+        ref = (float(loss.detach()), [g.cpu() for g in grads_of(loss, leaves)])
+        del loss, leaves, p
+        torch.cuda.synchronize()
+        out["cp_one_device_s"] = time.perf_counter() - t0
+        out["cp_one_device_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.empty_cache()
+    mark("cp one device")
+    loss_fn = make_cp_loss(mesh, cfg, params)
+    leaves, p = leaves_of_(loss_fn.place(params))
+    before, hops = list(comm.stats.get("p2p", [0, 0, 0.0])), pring.stats["hops"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = loss_fn(p, batch)
+    grads = grads_of(loss, leaves)
+    torch.cuda.synchronize()
+    out["cp_loss_ms"] = (time.perf_counter() - t0) * 1e3
+    after = comm.stats["p2p"]
+    out["cp_p2p"] = [after[0] - before[0], after[1] - before[1], after[2] - before[2]]
+    out["cp_hops"] = pring.stats["hops"] - hops
+    out["cp_loss"] = float(loss.detach())
+    lay = _Layout(mesh, params, [None] * len(leaves), data_axes=("cp",))
+    whole = _whole_grads(lay, grads, r == 0)
+    del loss, grads, leaves, p
+    if r == 0:
+        out["cp_ref_loss"], out["cp_grad_rel"] = ref[0], _grad_gap(torch, whole, ref[1])
+        out["cp_finite"] = all(bool(torch.isfinite(g).all()) for g in whole)
+    del whole, ref
+    torch.cuda.empty_cache()
+    out["cp_ring_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    mark("cp ring")
+    init, step = make_cp_train_step(mesh, cfg, params, zero1=True, tx=adamw(TRAIN_LR))
+    state = init(params)
+    del params
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, loss = step(state, batch)
+    torch.cuda.synchronize()
+    out["cp_step_ms"] = (time.perf_counter() - t0) * 1e3
+    out["cp_step_loss"] = float(loss)
+    out["cp_step_finite"] = all(bool(torch.isfinite(v).all()) for v in tree_flatten(state["params"])[1])
+    out["cp_collectives"] = {k: v[:2] for k, v in comm.stats.items()}
+    out["cp_peak_gib"] = torch.cuda.max_memory_reserved() / 2**30
+    del state
+    torch.cuda.empty_cache()
+    mark("cp step")
+
+    # [ep]
+    mesh = make_mesh(("ep",), shape=(CPEP_RANKS,))
+    r, comm = mesh.coords["ep"], mesh.comm("ep")
+    ecfg = llama.ModelConfig.from_hf_config({**MIXTRAL_HF, "num_hidden_layers": EP_LAYERS})
+    batch = torch.randint(0, ecfg.vocab_size, (EP_BATCH, EP_SEQ + 1), device=dev, generator=gen)
+    params = llama.init_params(ecfg, seed=CPEP_SEED + 1, dtype=torch.float32, device=dev)
+    names = ["/".join(map(str, q)) for q in tree_flatten(params)[0]]  # the expert lists' leaves
+    ref = None
+    if r == 0:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        leaves, p = leaves_of_(params)
+        loss = _loss_fn(p, ecfg, batch)
+        ref = (float(loss.detach()), dict(zip(names, (g.cpu() for g in grads_of(loss, leaves)))))
+        del loss, leaves, p
+        torch.cuda.synchronize()
+        out["ep_one_device_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    mark("ep one device")
+    llama.stack_expert_weights(params)
+    x = torch.randn((EP_DECODE, 1, ecfg.hidden_size), device=dev, generator=gen)
+    layer = params["layers"][0]
+    dense_ffn = llama._experts_train(ecfg, layer, x, None)  # stacked, dense dispatch: every expert
+    cap_ffn = llama._moe_capacity(ecfg, layer, x, 1.25)
+    gate_w, gate_bias, W1, W3, W2 = pmoe.shard_experts(mesh, layer)
+    ffn = {}
+    for label, cf in (("full", None), ("1.25", 1.25)):
+        pmoe.expert_parallel_ffn(mesh, ecfg, gate_w, gate_bias, W1, W3, W2, x, capacity_factor=cf)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = pmoe.expert_parallel_ffn(mesh, ecfg, gate_w, gate_bias, W1, W3, W2, x, capacity_factor=cf)
+        torch.cuda.synchronize()
+        ffn[label] = [rel_l2(y, dense_ffn if cf is None else cap_ffn), (time.perf_counter() - t0) * 1e3]
+    idx, w = llama.route_experts(ecfg, gate_w, None, x.reshape(EP_DECODE, -1))
+    C = llama.capacity_of(ecfg, EP_DECODE, 1.25)
+    out["ep_decode"] = ffn
+    out["ep_decode_kept"] = [int((llama.capacity_tables_from_topk(idx, w, 8, C)[1] != 0).sum()), EP_DECODE * 2, C]
+    del W1, W3, W2, layer, dense_ffn, cap_ffn
+    mark("ep stacks, decode FFN")
+    # the loss and gradients on this rank's experts, then the train state (the
+    # whole stacks go once it holds its own copy)
+    torch.cuda.empty_cache()
+    loss_fn = pmoe.make_ep_loss(mesh, ecfg, params)
+    local = pmoe.ep_params(mesh, params)
+    lay = _Layout(mesh, params, pmoe._ep_cuts(mesh, params), split_axis="ep")
+    leaves, p = leaves_of_(local)
+    before = {k: list(v) for k, v in comm.stats.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = loss_fn(p, batch)
+    grads = grads_of(loss, leaves)
+    torch.cuda.synchronize()
+    out["ep_loss_ms"] = (time.perf_counter() - t0) * 1e3
+    out["ep_collectives"] = {k: [v[0] - before.get(k, [0, 0])[0], v[1] - before.get(k, [0, 0])[1]]
+                             for k, v in comm.stats.items()}
+    out["ep_loss"] = float(loss.detach())
+    del loss, leaves, p, local
+    whole = _whole_grads(lay, grads, r == 0)
+    del grads
+    if r == 0:  # the stacked gradients under the expert lists' names
+        got = {}
+        for path, g in zip(lay.paths, whole):
+            if "experts_stacked" in path:
+                for e in range(g.shape[0]):
+                    got[f"layers/{path[1]}/experts/{e}/{('w1', 'w3', 'w2')[path[3]]}"] = g[e]
+            else:
+                got["/".join(map(str, path))] = g
+        out["ep_ref_loss"] = ref[0]
+        out["ep_grad_rel"] = _grad_gap(torch, [got[k] for k in ref[1]], list(ref[1].values()))
+    del whole, ref
+    torch.cuda.empty_cache()
+    mark("ep loss")
+    init, step = pmoe.make_ep_train_step(mesh, ecfg, params, tx=adamw(TRAIN_LR))
+    state = init(params)
+    del params
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, loss = step(state, batch)
+    torch.cuda.synchronize()
+    out["ep_step_ms"] = (time.perf_counter() - t0) * 1e3
+    out["ep_step_loss"] = float(loss)
+    out["ep_step_finite"] = all(bool(torch.isfinite(v).all()) for v in tree_flatten(state["params"])[1])
+    out["ep_local_experts"] = int(state["params"]["layers"][0]["experts_stacked"][0].shape[0])
+    out["ep_peak_gib"] = torch.cuda.max_memory_reserved() / 2**30
+    del state
+    mark("ep step", last=True)
+    out["wall_s"] = time.perf_counter() - t_start
+    out["lease_wait_s"] = lease.waited if lease is not None else 0.0
+    (root / f"cpep_rank{r}.json").write_text(json.dumps(out))
+    return 0
+
+
+def start_cpep_ranks(root: Path) -> list:
+    """Start [cp]/[ep]'s two ranks sharing the card (expandable segments)."""
+    port = free_port()
+    procs = []
+    for rank in range(CPEP_RANKS):
+        env = {**os.environ, "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port), "WORLD_SIZE": str(CPEP_RANKS),
+               "RANK": str(rank), "LOCAL_RANK": str(rank), "LOCAL_WORLD_SIZE": str(CPEP_RANKS),
+               "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True", "SHARDMERGE_HEARTBEAT_TIMEOUT_S": "600"}
+        with open(root / f"cpep{rank}.out", "w") as o, open(root / f"cpep{rank}.err", "w") as e:
+            procs.append(subprocess.Popen([sys.executable, str(REPO / "chip_smoke.py"), "--cpep-rank", str(root)],
+                                          cwd=REPO, env=env, stdout=o, stderr=e))
+    return procs
+
+
+def start_after(first: list, root: Path) -> dict:
+    """Start [cp]/[ep]'s ranks (:func:`start_cpep_ranks`) on a thread once
+    the processes ``first`` (the [train] ranks) have exited, so the two
+    launches never hold the card together. Returns the holder
+    :func:`phase_cp_ep` waits on."""
+    holder = {"procs": [], "started": None, "stop": threading.Event(), "memory": None}
+
+    def run():
+        for p in first:
+            p.wait()
+        if holder["stop"].is_set():
+            return
+        holder["started"] = time.perf_counter()
+        holder["memory"] = CardMemory().start()
+        holder["procs"] = start_cpep_ranks(root)
+
+    holder["thread"] = threading.Thread(target=run, daemon=True)
+    holder["thread"].start()
+    return holder
+
+
+def phase_cp_ep(torch, root: Path, card: str, holder: dict, lease: CardLease):
+    """[cp] and [ep]: wait for the two ranks (:func:`start_after`) and gate
+    their report: the ring's loss within 1e-4 relative and every gradient
+    within relL2 1e-3 of one device's _loss_fn; the ring's p2p record the
+    predicted one transfer each way a layer of the stacked K/V block (2 x
+    B x KVH x CP_TOKENS x head_dim x 4 bytes), its hops 2 a layer; the
+    train step's loss the ring's, its params finite; the ep loss and
+    gradients within 1e-4 / 1e-3 of the dense-and-mask one-device step's;
+    the ep decode FFN within relL2 1e-5 of the one-device dense FFN (full
+    capacity) and of _moe_capacity (factor 1.25); each rank 4 of 8
+    experts."""
+    t0 = time.perf_counter()
+    holder["thread"].join(timeout=600)
+    procs = holder["procs"]
+    try:
+        codes = [p.wait(timeout=600) for p in procs]
+    except subprocess.TimeoutExpired:
+        codes = [None] * len(procs)
+    finally:
+        stop_procs(procs)
+    waited = time.perf_counter() - t0
+    memory = holder["memory"]
+    peak = memory.stop() if memory is not None else float("nan")
+    if not procs or codes != [0] * CPEP_RANKS:
+        tails = "".join(f"\n--- rank {r} stderr:\n" + (root / f"cpep{r}.err").read_text()[-3000:]
+                        for r in range(CPEP_RANKS) if (root / f"cpep{r}.err").exists())
+        raise SystemExit(f"[cp]/[ep] ranks exited {codes}{tails}")
+    ranks = [json.loads((root / f"cpep_rank{r}.json").read_text()) for r in range(CPEP_RANKS)]
+    r0 = ranks[0]
+    h, kvh, hd = LLAMA_31_8B["hidden_size"], LLAMA_31_8B["num_key_value_heads"], 128
+    kv_bytes = 2 * 1 * kvh * CP_TOKENS * hd * 4
+    want_p2p = [2 * CP_LAYERS, 2 * CP_LAYERS * kv_bytes]
+    loss_rel = abs(r0["cp_loss"] - r0["cp_ref_loss"]) / abs(r0["cp_ref_loss"])
+    ok_cp = loss_rel <= 1e-4 and r0["cp_grad_rel"] <= 1e-3 and r0["cp_finite"] and r0["cp_step_finite"]
+    ok_cp &= all(rk["cp_p2p"][:2] == want_p2p and rk["cp_hops"] == 2 * CP_LAYERS for rk in ranks)
+    ok_cp &= all(abs(rk["cp_step_loss"] - r0["cp_loss"]) <= 1e-6 * abs(r0["cp_loss"]) for rk in ranks)
+    say(f"[cp] ring attention on 2 ranks sharing the card ({r0['transport']}), Llama-3.1-8B widths (hidden {h}, "
+        f"32/8 heads, head_dim 128, ffn 14336, vocab 128256) x {CP_LAYERS} layer, f32, one sequence of "
+        f"{CPEP_RANKS * CP_TOKENS} tokens, {CP_TOKENS} a rank: loss {r0['cp_loss']:.6f} vs one device's _loss_fn "
+        f"{r0['cp_ref_loss']:.6f} (rel {loss_rel:.2e}, gate 1e-4), gradients summed over the ring's ranks vs one "
+        f"device's: worst leaf relL2 {r0['cp_grad_rel']:.2e} (gate 1e-3); ring hops a loss and backward "
+        f"{[rk['cp_hops'] for rk in ranks]} by rank; p2p [calls, bytes sent, seconds] by rank "
+        f"{[[x if i < 2 else round(x, 3) for i, x in enumerate(rk['cp_p2p'])] for rk in ranks]} (predicted "
+        f"{want_p2p}: the stacked K/V block of {kv_bytes} bytes once forward, its gradient once back); loss and "
+        f"backward {[round(rk['cp_loss_ms'], 1) for rk in ranks]} ms by rank vs one device "
+        f"{r0['cp_one_device_s'] * 1e3:.1f} ms "
+        f"(its peak {r0['cp_one_device_peak_gib']:.2f} GiB allocated, the ring's "
+        f"{[round(rk['cp_ring_peak_gib'], 2) for rk in ranks]} GiB by rank); make_cp_train_step (adamw, ZeRO-1) step "
+        f"{[round(rk['cp_step_ms'], 1) for rk in ranks]} ms by rank, loss {r0['cp_step_loss']:.6f}; collectives "
+        f"[calls, bytes] {r0['cp_collectives']}; peak reserved {[round(rk['cp_peak_gib'], 2) for rk in ranks]} GiB "
+        f"on {card} {'ok' if ok_cp else 'FAIL'}")
+    ep_rel = abs(r0["ep_loss"] - r0["ep_ref_loss"]) / abs(r0["ep_ref_loss"])
+    dec = r0["ep_decode"]
+    ok_ep = ep_rel <= 1e-4 and r0["ep_grad_rel"] <= 1e-3 and all(rk["ep_step_finite"] for rk in ranks)
+    ok_ep &= all(rk["ep_local_experts"] == 4 for rk in ranks) and all(rk["ep_decode"]["full"][0] <= 1e-5 and
+                                                                    rk["ep_decode"]["1.25"][0] <= 1e-5 for rk in ranks)
+    ok_ep &= all(abs(rk["ep_step_loss"] - r0["ep_loss"]) <= 1e-6 * abs(r0["ep_loss"]) for rk in ranks)
+    say(f"[ep] expert parallelism on 2 ranks sharing the card, Mixtral-8x7B widths (8 experts top-2, moe ffn "
+        f"14336, hidden 4096, vocab 32000) x {EP_LAYERS} MoE layer, f32, 4 experts a rank, B x T = {EP_BATCH} x "
+        f"{EP_SEQ} at full capacity: loss {r0['ep_loss']:.6f} vs the dense-and-mask one device "
+        f"{r0['ep_ref_loss']:.6f} (rel {ep_rel:.2e}, gate 1e-4), gradients (experts joined over ep) worst leaf "
+        f"relL2 {r0['ep_grad_rel']:.2e} (gate 1e-3); loss and backward "
+        f"{[round(rk['ep_loss_ms'], 1) for rk in ranks]} ms "
+        f"by rank vs one device {r0['ep_one_device_s'] * 1e3:.1f} ms; collectives a loss and backward [calls, bytes] "
+        f"{r0['ep_collectives']}; make_ep_train_step (adamw) step {[round(rk['ep_step_ms'], 1) for rk in ranks]} ms; "
+        f"expert_parallel_ffn at {EP_DECODE} decode rows: full capacity vs the one-device dense FFN relL2 "
+        f"{dec['full'][0]:.2e} ({dec['full'][1]:.2f} ms), factor 1.25 (C = {r0['ep_decode_kept'][2]}, "
+        f"{r0['ep_decode_kept'][0]} of {r0['ep_decode_kept'][1]} assignments kept) vs _moe_capacity relL2 "
+        f"{dec['1.25'][0]:.2e} ({dec['1.25'][1]:.2f} ms) (gate 1e-5); peak reserved "
+        f"{[round(rk['ep_peak_gib'], 2) for rk in ranks]} GiB on {card} {'ok' if ok_ep else 'FAIL'}")
+    say(f"[cp]/[ep] peak GiB [allocated, reserved] by stage and rank: "
+        f"{[{st: [a, b] for st, a, b in rk['memory']} for rk in ranks]}")
+    say(f"[cp]/[ep] ranks' work {[round(rk['wall_s'], 1) for rk in ranks]} s, started "
+        f"{t0 - holder['started']:.1f} s before this wait, which took {waited:.1f} s; turns at the card "
+        f"(CardLease) waited for: rank 0 {r0['lease_wait_s']:.1f} s, this process {lease.waited:.1f} s (DeepSeek-V3, "
+        f"the capacity route, Scout); the card's memory.used peak "
+        f"{peak:.2f} GiB over the ranks' window ({memory.samples if memory else 0} samples) on {card}")
+    if not (ok_cp and ok_ep):
+        raise SystemExit("[cp]/[ep] a gate failed: loss, gradients, p2p record, hops, step, or the decode FFN")
+    if peak >= 80:
+        raise SystemExit(f"[cp]/[ep] the card's memory peak {peak:.2f} GiB reached 80")
+
+
 def write_word_tokenizer(path: Path, vocab: int, **config):
     """A word-level tokenizer.json (word ``w{i}`` is token i) and its
     tokenizer_config.json, which fixes the class (without it transformers
@@ -5199,7 +5799,8 @@ def main() -> int:
     fft, fft_launches = phase_fft(torch, pf, fv)
     lap("fft")
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
-    ranks, pp_ranks = [], []
+    ranks, pp_ranks, cpep = [], [], {"procs": []}
+    lease = CardLease(root)  # [cp]/[ep]'s rank 0 and this process's largest models take turns
     try:
         t0 = time.perf_counter()
         dirs, shapes = write_checkpoints(torch, root)
@@ -5235,18 +5836,26 @@ def main() -> int:
         del engine
         torch.cuda.empty_cache()
         ranks = start_train_ranks(root)  # [train]'s two ranks, beside [families] and [experts]
-        phase_families(torch, root, card)
-        lap("families")
-        phase_experts(torch, root, card)
+        cpep = start_after(ranks, root)  # then [cp]/[ep]'s two, beside [experts] and [sinks-chunked]
+        with ThreadPoolExecutor(1) as cli:  # Phi-3's generate process, beside [families] and [experts]
+            phi3_done = phase_families(torch, root, card, cli)
+            lap("families")
+            capacity_launches = phase_experts(torch, root, card, lease, waits=(phi3_done,))
         lap("experts")
-        phase_sinks_chunked(torch, root, card)
+        phase_sinks_chunked(torch, root, card, lease)
         lap("sinks-chunked")
+        phase_cp_ep(torch, root, card, cpep, lease)  # before [train]'s one-device step takes the card
+        lap("cp, ep")
         reset_counts(qk)
         train_launches = phase_train(torch, qk, root, card, ranks)
         lap("train")
     finally:
         stop_procs(ranks)
         stop_procs(pp_ranks)
+        if "thread" in cpep:
+            cpep["stop"].set()
+            cpep["thread"].join(timeout=600)
+        stop_procs(cpep["procs"])
         shutil.rmtree(root, ignore_errors=True)
 
     # launches: the serve path's run for the decode kernels, the [fft]
@@ -5271,6 +5880,7 @@ def main() -> int:
             "source": "shardmerge_tpu_torch/csrc/flash_decode.cu",
             "replaces": "shardmerge_tpu/models/attn_kernels.py:152",
             "launches": launches["flash_decode"],
+            "capacity_launches": capacity_launches,
             **flash,
         },
         {
@@ -5316,4 +5926,6 @@ if __name__ == "__main__":
         sys.exit(train_rank(Path(sys.argv[2])))
     if sys.argv[1:2] == ["--pp-rank"]:
         sys.exit(pp_rank(Path(sys.argv[2])))
+    if sys.argv[1:2] == ["--cpep-rank"]:
+        sys.exit(cpep_rank(Path(sys.argv[2])))
     sys.exit(main())

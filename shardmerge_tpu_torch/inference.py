@@ -17,6 +17,11 @@ round of up to k tokens, one host sync per round). With
 on the device (LRU over slots and bytes) and a request sharing one prefills
 only the rest.
 
+With ``cfg.moe_dispatch == "capacity"`` the engine stacks raw experts once
+(``LlamaModel.stack_experts``) and the expert layers take the capacity
+dispatch; quantized experts keep dense-and-mask, with a warning (the JAX
+engine's rule).
+
 With ``shard=True`` under a launcher's ranks (``torchrun --nproc-per-node
 P``) the engine is tensor parallel (parallel/tp.py): every rank loads its
 slices of the weights, rank 0 runs the engine and every other rank replays
@@ -27,6 +32,7 @@ below take a sharded cache (``tp.TPCache``) to every rank.
 from __future__ import annotations
 
 import json
+import logging
 import threading
 from collections import OrderedDict
 from dataclasses import dataclass
@@ -39,6 +45,8 @@ import torch
 from .models.llama import LlamaModel, ModelConfig, init_kv_cache, rope_tables
 from .models.loader import load_params, resolve_checkpoint_dir
 from .models.sampling import sample_token
+
+logger = logging.getLogger(__name__)
 
 __all__ = ["ChatMessage", "InferenceEngine", "load_tokenizer"]
 
@@ -266,6 +274,10 @@ class InferenceEngine:
         self.model = model if tp is None or not tp.leader else _ShardedModel(tp)
         self.tokenizer = tokenizer
         self.device = model.device
+        if cfg.moe_dispatch == "capacity" and cfg.num_local_experts > 0 and not model.stack_experts():
+            # stacked once here, not re-stacked in every forward
+            logger.warning("moe_dispatch='capacity' needs raw expert matrices; "
+                           "quantized experts serve via the dense-and-mask path")
         self.prompt_chunk = _PROMPT_CHUNK
         # exact prefix caching: the KV slabs of up to N bucket-aligned
         # prompt prefixes stay on the device, within a byte budget; the

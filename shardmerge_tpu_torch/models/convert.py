@@ -5,8 +5,9 @@ numpy array (``jax.tree_util.tree_map(np.asarray, params)`` on the JAX side:
 raw arrays, and ``{"q", "scale"}`` dicts for quantized weights; a MoE
 layer's ``experts`` list of ``{"w1", "w3", "w2"}`` dicts; GPT-OSS's
 ``sinks``, ``o_bias``, ``moe_gate_bias`` and ``gptoss_experts`` and
-Llama-4's ``llama4_experts`` dicts, their stacks raw or ``{"q3", "scale"}``)
-and returns the
+Llama-4's ``llama4_experts`` dicts, their stacks raw or ``{"q3", "scale"}``;
+a layer's ``experts_stacked`` (W1, W3, W2) tuple of ``stack_expert_weights``,
+kept a tuple) and returns the
 port's params dict on ``device``, ready for ``LlamaModel``. bfloat16 arrays
 (ml_dtypes) come across bit for bit.
 
@@ -54,7 +55,9 @@ def params_from_jax(params_np, device="cpu", n_tp: int = 1):
         params_np = unstack_stages(params_np, n_tp)
     if isinstance(params_np, dict):
         return {k: params_from_jax(v, device) for k, v in params_np.items()}
-    if isinstance(params_np, (list, tuple)):
+    if isinstance(params_np, tuple):  # experts_stacked (W1, W3, W2) of stack_expert_weights
+        return tuple(params_from_jax(v, device) for v in params_np)
+    if isinstance(params_np, list):
         return [params_from_jax(v, device) for v in params_np]
     return _tensor(params_np, device)
 

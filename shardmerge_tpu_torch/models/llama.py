@@ -20,6 +20,10 @@ families Mixtral, Qwen3-MoE and DeepSeek V2/V3, GPT-OSS and Llama-4.
   DeepSeek's (V2 greedy and group-limited, V3 ``noaux_tc``) with shared
   experts and dense first layers, every expert computed and masked
   (dense-and-mask, the JAX route of quantized experts); top-k breaks exact ties toward the lower index, as ``jax.lax.top_k`` does;
+  or, with ``moe_dispatch="capacity"`` and raw experts stacked (W1, W3, W2)
+  (``stack_expert_weights``, ``LlamaModel.stack_experts``), the capacity
+  dispatch: each expert's tokens gathered into a block of C slots in the
+  token-major order of the top-k table, the overflow dropped;
 - the fused expert stacks ``(E, in, out)``: GPT-OSS's (:class:`GptOssMoE`:
   a biased top-k-then-softmax router, interleaved gate/up columns, the
   clamped SwiGLU, biases) and Llama-4's (:class:`Llama4MoE`: sigmoid of the
@@ -49,7 +53,9 @@ families Mixtral, Qwen3-MoE and DeepSeek V2/V3, GPT-OSS and Llama-4.
   same math as functions of the params dict, cache-free (S = T; MLA over its
   own latents), differentiable through every leaf that requires grad, with
   per-block recompute (``remat``) and the tensor-parallel f/g operators of
-  parallel/train.py; the serving modules stay inference-only. GPT-OSS's
+  parallel/train.py, and two hooks of ``block_train``: ``attend`` (context
+  parallelism's ring, parallel/ring.py) and ``ffn`` (expert parallelism's
+  dispatch, parallel/moe.py); the serving modules stay inference-only. GPT-OSS's
   o_proj bias is added as serving adds it (the JAX ``block_train`` leaves
   it out).
 """
@@ -84,6 +90,15 @@ __all__ = [
     "gptoss_router_scores",
     "gptoss_expert_math",
     "llama4_router_scores",
+    "route_experts",
+    "capacity_of",
+    "capacity_tables_from_topk",
+    "capacity_tables",
+    "capacity_experts_apply",
+    "routed_capacity",
+    "experts_quantized",
+    "expert_stacks",
+    "stack_expert_weights",
     "l2_qk",
     "nope_temp_q",
     "embed_matrix",
@@ -146,6 +161,13 @@ class ModelConfig:
     num_experts_per_tok: int = 2
     moe_intermediate_size: Optional[int] = None
     norm_topk_prob: bool = True
+    # expert dispatch: "dense" runs every expert on every token and masks
+    # (exact); "capacity" gathers each expert's tokens into blocks of
+    # C = min(ceil(S k / n_exp * moe_capacity_factor), S) slots
+    # (:func:`capacity_tables`), dropping what overflows: the serving route
+    # of raw experts that an engine stacks (inference.py)
+    moe_dispatch: str = "dense"
+    moe_capacity_factor: float = 1.25
     # DeepSeek multi-head latent attention, on when kv_lora_rank is set
     q_lora_rank: Optional[int] = None
     kv_lora_rank: Optional[int] = None
@@ -826,6 +848,142 @@ def llama4_router_scores(cfg: ModelConfig, gate_w, xf) -> torch.Tensor:
     return torch.sigmoid(logits) * sel
 
 
+def route_experts(cfg: ModelConfig, gate_w, gate_bias, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(topk_idx, topk_w) of tokens ``x`` (..., hidden) for an expert list:
+    :func:`deepseek_topk`, or Mixtral / Qwen3-MoE's router (the product in
+    x.dtype, an f32 softmax, the top-k renormalized when norm_topk_prob)."""
+    if cfg.model_type.startswith("deepseek"):
+        return deepseek_topk(cfg, gate_w, gate_bias, x)
+    probs = torch.softmax(matmul(x, gate_w).to(torch.float32), dim=-1)
+    w, idx = topk(probs, cfg.num_experts_per_tok)
+    if cfg.norm_topk_prob:
+        w = w / w.sum(dim=-1, keepdim=True)
+    return idx, w
+
+
+def capacity_of(cfg: ModelConfig, tokens: int, capacity_factor: Optional[float]) -> int:
+    """An expert's slots for ``tokens`` routed tokens: ``min(ceil(S k /
+    n_exp * capacity_factor), S)``; None is every token (nothing dropped)."""
+    if capacity_factor is None:
+        return tokens
+    k, n_exp = cfg.num_experts_per_tok, cfg.num_local_experts
+    return min(int(np.ceil(tokens * k / n_exp * capacity_factor)), tokens)
+
+
+def capacity_tables_from_topk(topk_idx: torch.Tensor, topk_probs: torch.Tensor, n_exp: int, capacity: int
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dispatch tables from (S, k) top-k choices: ``gather_idx`` (n_exp, C)
+    int64, the token of each expert slot (S, a zero row, where the slot is
+    empty), and ``w_slot`` (n_exp, C) f32, its routing weight. An
+    assignment's slot is its rank among its expert's assignments in the
+    token-major order of the (S, k) table (a cumulative count); those past
+    the capacity land in a trash column that is cut off: dropped."""
+    S, k = topk_idx.shape
+    dev = topk_idx.device
+    expert_ids = topk_idx.reshape(-1).to(torch.int64)
+    token_ids = torch.arange(S, device=dev).repeat_interleave(k)
+    onehot = torch.nn.functional.one_hot(expert_ids, n_exp)
+    pos = ((onehot.cumsum(dim=0) - 1) * onehot).sum(dim=1)
+    slot = pos.clamp(max=capacity)
+    gather_idx = torch.full((n_exp, capacity + 1), S, dtype=torch.int64, device=dev)
+    gather_idx = gather_idx.index_put((expert_ids, slot), token_ids)
+    w_slot = torch.zeros((n_exp, capacity + 1), dtype=torch.float32, device=dev)
+    w_slot = w_slot.index_put((expert_ids, slot), topk_probs.reshape(-1).to(torch.float32))
+    return gather_idx[:, :capacity], w_slot[:, :capacity]
+
+
+def capacity_tables(router_probs: torch.Tensor, k: int, capacity: int, norm_topk: bool = True
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`capacity_tables_from_topk` of (S, n_exp) router probabilities:
+    their top-k (ties to the lower index), renormalized when ``norm_topk``."""
+    n_exp = router_probs.shape[1]
+    w, idx = topk(router_probs, k)
+    if norm_topk:
+        w = w / w.sum(dim=-1, keepdim=True)
+    return capacity_tables_from_topk(idx, w, n_exp, capacity)
+
+
+def capacity_experts_apply(xf: torch.Tensor, gather_idx: torch.Tensor, w_slot: torch.Tensor, W1, W3, W2,
+                           hidden_act: str) -> torch.Tensor:
+    """Gather the tokens ``xf`` (S, hidden) into expert blocks (n, C,
+    hidden), run the stacked SwiGLU (W1, W3 (n, I, hidden), W2 (n, hidden,
+    I); a local slice of the experts with the tables' rows to match), and
+    add each slot's output times its weight back to its token. Returns f32
+    (S, hidden)."""
+    S, E = xf.shape
+    xe = torch.cat([xf, xf.new_zeros((1, E))])[gather_idx]  # row S: the empty slot's zeros
+    gate = torch.matmul(xe, W1.to(xe.dtype).transpose(1, 2))
+    up = torch.matmul(xe, W3.to(xe.dtype).transpose(1, 2))
+    h = _act(gate.to(torch.float32), hidden_act).to(xe.dtype) * up
+    ye = torch.matmul(h, W2.to(xe.dtype).transpose(1, 2))
+    contrib = ye.to(torch.float32) * w_slot[..., None]
+    out = torch.zeros((S + 1, E), dtype=torch.float32, device=xf.device)
+    return out.index_add(0, gather_idx.reshape(-1), contrib.reshape(-1, E))[:S]
+
+
+def experts_quantized(experts) -> bool:
+    """True when an expert list's weights are int8 / int4 ``{"q", "scale"}``
+    dicts: the capacity dispatch needs raw matrices."""
+    return isinstance(experts[0]["w1"], dict)
+
+
+def expert_stacks(layer) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """A layer's (W1, W3, W2) stacks: ``experts_stacked``, or its expert
+    list stacked."""
+    if "experts_stacked" in layer:
+        return tuple(layer["experts_stacked"])
+    return tuple(torch.stack([e[w] for e in layer["experts"]]) for w in ("w1", "w3", "w2"))
+
+
+def routed_capacity(cfg: ModelConfig, idx: torch.Tensor, w: torch.Tensor, x: torch.Tensor, stacks,
+                    capacity_factor: Optional[float], xe: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The capacity dispatch of tokens ``x`` (B, T, hidden) routed by top-k
+    (idx, w) (B, T, k) over the (W1, W3, W2) ``stacks``: f32 (B, T,
+    hidden). ``xe``: the tokens the experts read, when they differ from x
+    (a tensor-parallel rank's entered copy)."""
+    B, T, E = x.shape
+    C = capacity_of(cfg, B * T, capacity_factor)
+    tables = capacity_tables_from_topk(idx.reshape(B * T, -1), w.reshape(B * T, -1), cfg.num_local_experts, C)
+    out = capacity_experts_apply((x if xe is None else xe).reshape(B * T, E), *tables, *stacks, cfg.hidden_act)
+    return out.reshape(B, T, E)
+
+
+def _moe_capacity(cfg: ModelConfig, layer, x: torch.Tensor, capacity_factor: float = 1.25) -> torch.Tensor:
+    """The capacity dispatch of Mixtral / Qwen3-MoE experts (JAX's
+    ``_moe_capacity``): the router's top-k (:func:`capacity_tables`' own),
+    the stacked experts over the gathered blocks. x.dtype out."""
+    idx, w = route_experts(cfg, layer["moe_gate"], None, x)
+    return routed_capacity(cfg, idx, w, x, expert_stacks(layer), capacity_factor).to(x.dtype)
+
+
+def _moe_deepseek_capacity(cfg: ModelConfig, layer, x: torch.Tensor, capacity_factor: float) -> torch.Tensor:
+    """DeepSeek's experts by capacity dispatch (JAX's
+    ``_moe_deepseek_capacity``): :func:`deepseek_topk` into the tables,
+    plus the shared experts. x.dtype out."""
+    idx, w = deepseek_topk(cfg, layer["moe_gate"], layer.get("gate_bias"), x)
+    out = routed_capacity(cfg, idx, w, x, expert_stacks(layer), capacity_factor)
+    if "shared_gate_proj" in layer:
+        out = out + _mlp_fn(layer, x, cfg.hidden_act, "shared_").to(torch.float32)
+    return out.to(x.dtype)
+
+
+def stack_expert_weights(params: dict) -> bool:
+    """Replace every layer's ``experts`` list by ``experts_stacked`` = (W1,
+    W3, W2), (n_exp, ., .) each, once (JAX's ``stack_expert_weights``).
+    Returns False, changing nothing, when the params have no expert list
+    or quantized experts (the capacity dispatch needs raw matrices)."""
+    layers = params.get("layers", [])
+    if not any("experts" in layer for layer in layers):
+        return False
+    if any("experts" in layer and experts_quantized(layer["experts"]) for layer in layers):
+        return False
+    for layer in layers:
+        if "experts" in layer:
+            layer["experts_stacked"] = expert_stacks(layer)
+            del layer["experts"]
+    return True
+
+
 # ---------------------------------------------------------------------------
 # Modules
 # ---------------------------------------------------------------------------
@@ -1074,19 +1232,25 @@ class MoE(nn.Module):
     quantized experts each product is a quantized matmul (the int4 GEMV at
     decode on the card). With ``tp`` each expert is its slices (w1/w3 rows,
     w2 columns): the weighted sum is one all-reduce, and the replicated
-    shared experts are added after it."""
+    shared experts are added after it.
+
+    Stacked experts (``experts_stacked``, or :meth:`stack` of the list)
+    under ``cfg.moe_dispatch == "capacity"`` take the capacity dispatch
+    (:func:`capacity_tables_from_topk`, :func:`capacity_experts_apply`):
+    each expert runs on the tokens routed to it, up to its capacity; under
+    tp on the rank's slices, the same one all-reduce after."""
 
     def __init__(self, cfg: ModelConfig, layer: dict, tp=None):
         super().__init__()
         self.cfg = cfg
         self.tp = tp
-        self.deepseek = cfg.model_type.startswith("deepseek")
         self.register_buffer("moe_gate", layer["moe_gate"])
         self.register_buffer("gate_bias", layer.get("gate_bias"))
         self.experts = nn.ModuleList(
             MLP({"gate_proj": e["w1"], "up_proj": e["w3"], "down_proj": e["w2"]}, cfg.hidden_act)
-            for e in layer["experts"]
+            for e in layer.get("experts", ())
         )
+        self.stacks = None if "experts_stacked" not in layer else tuple(layer["experts_stacked"])
         self.shared = None
         if "shared_gate_proj" in layer:
             self.shared = MLP({k: layer["shared_" + k] for k in ("gate_proj", "up_proj", "down_proj")},
@@ -1094,21 +1258,36 @@ class MoE(nn.Module):
 
     def route(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """(topk_idx, topk_w) of tokens ``x`` (..., E)."""
-        cfg = self.cfg
-        if self.deepseek:
-            return deepseek_topk(cfg, self.moe_gate, self.gate_bias, x)
-        probs = torch.softmax(matmul(x, self.moe_gate).to(torch.float32), dim=-1)
-        topk_probs, topk_idx = topk(probs, cfg.num_experts_per_tok)
-        if cfg.norm_topk_prob:
-            topk_probs = topk_probs / topk_probs.sum(dim=-1, keepdim=True)
-        return topk_idx, topk_probs
+        return route_experts(self.cfg, self.moe_gate, self.gate_bias, x)
+
+    def stack(self) -> bool:
+        """Hold the experts as (W1, W3, W2) stacks instead of modules
+        (:func:`stack_expert_weights` of the module); False, changing
+        nothing, when they are quantized."""
+        if self.stacks is not None:
+            return True
+        if self.experts[0].gate_proj.weight is None:
+            return False
+        self.stacks = tuple(torch.stack([getattr(e, name).weight for e in self.experts])
+                            for name in ("gate_proj", "up_proj", "down_proj"))
+        self.experts = nn.ModuleList()
+        return True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n_exp = self.cfg.num_local_experts
-        weights = _dense_weights(*self.route(x), n_exp)
-        out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
-        for e in range(n_exp):
-            out = out + self.experts[e](x).to(torch.float32) * weights[..., e : e + 1]
+        idx, w = self.route(x)
+        if self.stacks is not None and self.cfg.moe_dispatch == "capacity":
+            out = routed_capacity(self.cfg, idx, w, x, self.stacks, self.cfg.moe_capacity_factor)
+        else:
+            weights = _dense_weights(idx, w, n_exp)
+            out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+            for e in range(n_exp):
+                if self.stacks is None:
+                    h = self.experts[e](x)
+                else:  # stacked under the dense dispatch: expert e's slices
+                    W1, W3, W2 = (s[e] for s in self.stacks)
+                    h = _mlp_fn({"gate_proj": W1, "up_proj": W3, "down_proj": W2}, x, self.cfg.hidden_act)
+                out = out + h.to(torch.float32) * weights[..., e : e + 1]
         if self.tp is not None:
             out = self.tp.all_reduce(out)
         if self.shared is not None:
@@ -1199,7 +1378,7 @@ class DecoderLayer(nn.Module):
             self.mlp = GptOssMoE(cfg, layer, tp, lp)
         elif "llama4_experts" in layer:
             self.mlp = Llama4MoE(cfg, layer, tp, lp)
-        elif "experts" in layer:
+        elif "experts" in layer or "experts_stacked" in layer:
             self.mlp = MoE(cfg, layer, tp if lp is not None and lp.experts else None)
         else:
             self.mlp = MLP(layer, cfg.hidden_act, tp if lp is not None and lp.mlp else None)
@@ -1243,6 +1422,15 @@ class LlamaModel(nn.Module):
         # each layer's mask kind
         self.kinds = ["chunked" if cfg.layer_is_chunked(i) else "sliding" if cfg.layer_is_sliding(i) else "full"
                       for i in range(len(self.layers))]
+
+    def stack_experts(self) -> bool:
+        """Stack every expert list once for the capacity dispatch (the
+        engine's ``stack_expert_weights``); False, changing nothing, when
+        the model has no expert list or its experts are quantized."""
+        moes = [layer.mlp for layer in self.layers if isinstance(layer.mlp, MoE)]
+        if not moes or any(m.stacks is None and m.experts[0].gate_proj.weight is None for m in moes):
+            return False
+        return all([m.stack() for m in moes])
 
     @property
     def dtype(self) -> torch.dtype:
@@ -1379,9 +1567,16 @@ def _full_rms(v: torch.Tensor, w: torch.Tensor, width: int, psum, eps: float) ->
     return (v32 * torch.rsqrt(ss / width + eps) * w.to(torch.float32)).to(v.dtype)
 
 
-def _attention_train(cfg: ModelConfig, layer, h, cos, sin, positions, mask, use_rope, split):
+def _attention_train(cfg: ModelConfig, layer, h, cos, sin, positions, mask, use_rope, split, attend=None):
     """GQA attention over this call's own keys (S = T): the serving
-    einsum path's math. ``mask`` (T, T) additive."""
+    einsum path's math. ``mask`` (T, T) additive.
+
+    ``attend(q, k, v, scale, sinks)`` replaces the scores, softcap, mask,
+    sinks and softmax (context parallelism's ring, parallel/ring.py, which
+    masks by global positions: ``mask`` is then unused): q (B, H, T, D), k
+    and v (B, KVH, T, D) after rope, ``scale`` the score multiplier, ``sinks``
+    the (H,) sink logits of the heads computed here or None; it returns the
+    f32 (B, H, T, D) attention output."""
     B, T, _ = h.shape
     H, KVH, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     heads = split is not None and split.heads is not None
@@ -1414,24 +1609,29 @@ def _attention_train(cfg: ModelConfig, layer, h, cos, sin, positions, mask, use_
     else:
         q = nope_temp_q(cfg, q, positions)
     group = H // KVH
-    qg = q.reshape(B, KVH, group, T, D)
     scale = float(np.sqrt(np.float32(cfg.query_pre_attn_scalar or D)))
-    scores = torch.einsum("bkgtd,bksd->bkgts", qg.to(torch.float32), k.to(torch.float32)) / scale
-    if cfg.attn_logit_softcapping:
-        cap = float(np.float32(cfg.attn_logit_softcapping))
-        scores = cap * torch.tanh(scores / cap)
-    scores = scores + mask
+    sinks = None
     if "sinks" in layer:  # gpt-oss: the sink logit joins the normalization
         sinks = enter(layer["sinks"])
         if heads:
             sinks = sinks[h0:h1]
-        sinks = sinks.to(torch.float32).reshape(1, KVH, group, 1, 1)
-        mx = torch.maximum(scores.amax(dim=-1, keepdim=True), sinks)
-        e = torch.exp(scores - mx)
-        probs = e / (e.sum(dim=-1, keepdim=True) + torch.exp(sinks - mx))
+    if attend is not None:
+        out = attend(q, k, v, 1.0 / scale, sinks)
     else:
-        probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgts,bksd->bkgtd", probs, v.to(torch.float32))
+        qg = q.reshape(B, KVH, group, T, D)
+        scores = torch.einsum("bkgtd,bksd->bkgts", qg.to(torch.float32), k.to(torch.float32)) / scale
+        if cfg.attn_logit_softcapping:
+            cap = float(np.float32(cfg.attn_logit_softcapping))
+            scores = cap * torch.tanh(scores / cap)
+        scores = scores + mask
+        if sinks is not None:
+            sinks = sinks.to(torch.float32).reshape(1, KVH, group, 1, 1)
+            mx = torch.maximum(scores.amax(dim=-1, keepdim=True), sinks)
+            e = torch.exp(scores - mx)
+            probs = e / (e.sum(dim=-1, keepdim=True) + torch.exp(sinks - mx))
+        else:
+            probs = torch.softmax(scores, dim=-1)
+        out = torch.einsum("bkgts,bksd->bkgtd", probs, v.to(torch.float32))
     out = out.reshape(B, H, T, D).transpose(1, 2).reshape(B, T, H * D)
     out = matmul(out.to(h.dtype), layer["o_proj"])
     if split is not None and not heads:  # replicated attention: one rank's term
@@ -1476,25 +1676,29 @@ def _mla_train(cfg: ModelConfig, layer, h, cos, sin, positions, mask, split):
 
 
 def _experts_train(cfg: ModelConfig, layer, x, split):
-    """Expert lists (Mixtral / Qwen3-MoE / DeepSeek), dense-and-mask, plus
-    DeepSeek's shared experts; the serving ``MoE``'s math."""
+    """Expert lists or stacks (Mixtral / Qwen3-MoE / DeepSeek), plus
+    DeepSeek's shared experts; the serving ``MoE``'s math: dense-and-mask,
+    or the capacity dispatch of stacked experts under ``cfg.moe_dispatch ==
+    "capacity"``."""
     n_exp = cfg.num_local_experts
-    if cfg.model_type.startswith("deepseek"):
-        idx, w = deepseek_topk(cfg, layer["moe_gate"], layer.get("gate_bias"), x)
-    else:
-        probs = torch.softmax(matmul(x, layer["moe_gate"]).to(torch.float32), dim=-1)
-        w, idx = topk(probs, cfg.num_experts_per_tok)
-        if cfg.norm_topk_prob:
-            w = w / w.sum(dim=-1, keepdim=True)
-    weights = _dense_weights(idx, w, n_exp)
+    idx, w = route_experts(cfg, layer["moe_gate"], layer.get("gate_bias"), x)
     split_e = split is not None and split.experts
     xe = split.enter(x) if split_e else x
-    if split_e:
-        weights = split.enter(weights)
-    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
-    for e, ex in enumerate(layer["experts"]):
-        h = _mlp_fn({"gate_proj": ex["w1"], "up_proj": ex["w3"], "down_proj": ex["w2"]}, xe, cfg.hidden_act)
-        out = out + h.to(torch.float32) * weights[..., e:e + 1]
+    if "experts_stacked" in layer and cfg.moe_dispatch == "capacity":
+        w = split.enter(w) if split_e else w
+        out = routed_capacity(cfg, idx, w, x, layer["experts_stacked"], cfg.moe_capacity_factor, xe)
+    else:
+        weights = _dense_weights(idx, w, n_exp)
+        weights = split.enter(weights) if split_e else weights
+        out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        for e in range(n_exp):
+            if "experts_stacked" in layer:
+                W1, W3, W2 = (s[e] for s in layer["experts_stacked"])
+            else:
+                ex = layer["experts"][e]
+                W1, W3, W2 = ex["w1"], ex["w3"], ex["w2"]
+            h = _mlp_fn({"gate_proj": W1, "up_proj": W3, "down_proj": W2}, xe, cfg.hidden_act)
+            out = out + h.to(torch.float32) * weights[..., e:e + 1]
     if split is not None and not split_e:
         out = split.share(out)
     if "shared_gate_proj" in layer:
@@ -1538,13 +1742,17 @@ def _llama4_train(cfg: ModelConfig, layer, x, split):
     return out.to(x.dtype)
 
 
-def _ffn_train(cfg: ModelConfig, layer, x, split):
-    """The layer's FFN: this rank's partial sum under ``split``."""
+def _ffn_train(cfg: ModelConfig, layer, x, split, ffn=None):
+    """The layer's FFN: this rank's partial sum under ``split``; ``ffn(cfg,
+    layer, x)``, when given, instead (expert parallelism's dispatch,
+    parallel/moe.py)."""
+    if ffn is not None:
+        return ffn(cfg, layer, x)
     if "gptoss_experts" in layer:
         return _gptoss_train(cfg, layer, x, split)
     if "llama4_experts" in layer:
         return _llama4_train(cfg, layer, x, split)
-    if "experts" in layer:
+    if "experts" in layer or "experts_stacked" in layer:
         return _experts_train(cfg, layer, x, split)
     if split is None:
         return _mlp_fn(layer, x, cfg.hidden_act)
@@ -1554,24 +1762,27 @@ def _ffn_train(cfg: ModelConfig, layer, x, split):
 
 
 def block_train(cfg: ModelConfig, layer, x, cos, sin, positions, mask, reduce=None, use_rope: bool = True,
-                split=None):
+                split=None, attend=None, ffn=None):
     """One cache-free decoder block (attention + FFN with residuals),
     differentiable; ``mask`` (T, T) additive.
 
     ``reduce``: the partial-sum reduction applied to the attention output
     (after o_proj) and the FFN output (after down_proj), Megatron's two
     row-parallel products: with ``split``'s slices it is the ranks'
-    all-reduce; None is the one-device block."""
+    all-reduce; None is the one-device block. ``attend`` replaces the
+    attention's score-to-output math (:func:`_attention_train`; not MLA's)
+    and ``ffn`` the FFN (:func:`_ffn_train`): the hooks of context and
+    expert parallelism."""
     po = cfg.is_gemma
     h = x if cfg.is_olmo2 else rms_norm(x, layer["input_layernorm"], cfg.rms_norm_eps, po)
     if cfg.is_mla:
         attn_out = _mla_train(cfg, layer, h, cos, sin, positions, mask, split)
     else:
-        attn_out = _attention_train(cfg, layer, h, cos, sin, positions, mask, use_rope, split)
-    return _block_tail(cfg, layer, x, attn_out, reduce, po, split)
+        attn_out = _attention_train(cfg, layer, h, cos, sin, positions, mask, use_rope, split, attend)
+    return _block_tail(cfg, layer, x, attn_out, reduce, po, split, ffn)
 
 
-def _block_tail(cfg: ModelConfig, layer, x, attn_out, reduce, po: bool, split=None):
+def _block_tail(cfg: ModelConfig, layer, x, attn_out, reduce, po: bool, split=None, ffn=None):
     """The reduce / residual / FFN tail every attention shares: OLMo-2's
     post-norms, Gemma-2/3's and GLM-4's sandwich norms, the pre-norm block."""
     eps = cfg.rms_norm_eps
@@ -1579,18 +1790,18 @@ def _block_tail(cfg: ModelConfig, layer, x, attn_out, reduce, po: bool, split=No
         attn_out = reduce(attn_out)
     if cfg.is_olmo2:  # post-norm residuals, no pre-FFN norm
         x = x + rms_norm(attn_out, layer["post_attention_layernorm"], eps)
-        ffn_out = _ffn_train(cfg, layer, x, split)
+        ffn_out = _ffn_train(cfg, layer, x, split, ffn)
         if reduce is not None:
             ffn_out = reduce(ffn_out)
         return x + rms_norm(ffn_out, layer["post_feedforward_layernorm"], eps)
     if "pre_feedforward_layernorm" in layer:  # sandwich norms
         x = x + rms_norm(attn_out, layer["post_attention_layernorm"], eps, po)
-        ffn_out = _ffn_train(cfg, layer, rms_norm(x, layer["pre_feedforward_layernorm"], eps, po), split)
+        ffn_out = _ffn_train(cfg, layer, rms_norm(x, layer["pre_feedforward_layernorm"], eps, po), split, ffn)
         if reduce is not None:
             ffn_out = reduce(ffn_out)
         return x + rms_norm(ffn_out, layer["post_feedforward_layernorm"], eps, po)
     x = x + attn_out
-    ffn_out = _ffn_train(cfg, layer, rms_norm(x, layer["post_attention_layernorm"], eps, po), split)
+    ffn_out = _ffn_train(cfg, layer, rms_norm(x, layer["post_attention_layernorm"], eps, po), split, ffn)
     if reduce is not None:
         ffn_out = reduce(ffn_out)
     return x + ffn_out
@@ -1622,11 +1833,11 @@ def embed_train(params: dict, cfg: ModelConfig, input_ids: torch.Tensor) -> torc
     return x
 
 
-def blocks_train(cfg: ModelConfig, layers, x: torch.Tensor, remat: bool = False, tp=None) -> torch.Tensor:
+def blocks_train(cfg: ModelConfig, layers, x: torch.Tensor, remat: bool = False, tp=None, ffn=None) -> torch.Tensor:
     """``x`` through ``layers``, (global layer index, layer) pairs in order:
     each block with its own index's mask, rope table, rope gate and
     tensor-parallel split (:func:`forward_train`'s middle; a pipeline stage
-    runs its own layers through it)."""
+    runs its own layers through it); ``ffn`` as for :func:`block_train`."""
     from torch.utils.checkpoint import checkpoint
 
     B, T = x.shape[:2]
@@ -1636,7 +1847,7 @@ def blocks_train(cfg: ModelConfig, layers, x: torch.Tensor, remat: bool = False,
 
     def blk(layer, x, mask, cos, sin, use_rope, split):
         return block_train(cfg, layer, x, cos, sin, positions, mask, None if tp is None else tp.reduce,
-                           use_rope, split)
+                           use_rope, split, ffn=ffn)
 
     for i, layer in layers:
         kind = "chunked" if cfg.layer_is_chunked(i) else "sliding" if cfg.layer_is_sliding(i) else "full"

@@ -33,7 +33,9 @@ The pipeline (parallel/pipeline.py) adds point-to-point transfers along its
 ``"pp"`` line: ``send`` / ``recv`` (a stage's activations forward, their
 gradients back) and ``sendrecv`` (the first and the last stage trade the
 tied embedding's gradient), counted under the ``p2p`` kind (a receive as a
-call of no bytes sent).
+call of no bytes sent). Context parallelism's ring (parallel/ring.py) uses
+``exchange``: every rank sends to the next position and receives from the
+previous one, also a ``p2p`` call (``sendrecv`` is its one-peer case).
 
 Ranks sit at positions 0..P-1 (``merge_mesh`` orders them host by host);
 position p holds rows [p M/P, (p+1) M/P) and the p-th column block.
@@ -357,22 +359,29 @@ class Comm:
         self._count("p2p", 0, t0)
         return out
 
-    def sendrecv(self, x: torch.Tensor, position: int) -> torch.Tensor:
-        """Trade ``x`` with the rank at ``position`` (which trades a tensor of
-        x's shape and dtype): both transfers are posted before either is
-        waited for, so neither rank waits on the other's send."""
+    def exchange(self, x: torch.Tensor, to_position: int, from_position: int) -> torch.Tensor:
+        """Send ``x`` to the rank at ``to_position`` and return what the rank
+        at ``from_position`` sent (a tensor of x's shape and dtype). Both
+        transfers are posted together (``batch_isend_irecv``) before either
+        is waited for, so no rank waits on a send its peer posts only after
+        its own; a wait ends at the group's timeout."""
         self._enter()
         t0 = time.perf_counter()
-        peer = self.global_rank(position)
         send = self._out(x.contiguous())
         buf = torch.empty_like(send)
-        works = [self._dist.isend(send, dst=peer, group=self.group),
-                 self._dist.irecv(buf, src=peer, group=self.group)]
+        works = self._dist.batch_isend_irecv([
+            self._dist.P2POp(self._dist.isend, send, self.global_rank(to_position), self.group),
+            self._dist.P2POp(self._dist.irecv, buf, self.global_rank(from_position), self.group)])
         for w in works:
             w.wait()
         out = self._back(buf, x)
         self._count("p2p", x.nbytes, t0)
         return out
+
+    def sendrecv(self, x: torch.Tensor, position: int) -> torch.Tensor:
+        """Trade ``x`` with the rank at ``position`` (which trades a tensor of
+        x's shape and dtype): :meth:`exchange` with one peer."""
+        return self.exchange(x, position, position)
 
     def broadcast_object(self, obj=None, group=None):
         """The first rank's picklable ``obj`` on every rank (over ``group``,

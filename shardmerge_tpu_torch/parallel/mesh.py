@@ -7,7 +7,9 @@ over the axes, the last axis fastest: on a ("dp", "tp") mesh rank
 ``d * tp + t`` sits at (d, t), so a host's consecutive ranks share a tensor
 parallel group; on ("dp", "pp", "tp") rank ``d * P * T + p * T + t`` sits at
 (d, p, t), and the ``"pp"`` line of a (d, t) joins its stages in order. Each axis has one process group per line of the grid, and
-:class:`Mesh` keeps this rank's :class:`~.comm.Comm` over each of its lines.
+:class:`Mesh` keeps this rank's :class:`~.comm.Comm` over each of its lines;
+:meth:`Mesh.joint` joins several axes (the data axes dp and cp of context
+parallelism's gradients).
 The transport is the merge ranks' (parallel/comm.py ``transport_for``): gloo
 on the CPU or when ranks share a GPU, NCCL with one GPU a rank.
 
@@ -18,6 +20,7 @@ group at all.
 from __future__ import annotations
 
 import itertools
+import os
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -63,6 +66,7 @@ class Mesh:
         self.coords = {k: int(v) for k, v in self.coords.items()}
         self.device = torch.device(device)
         self.comms = comms or {}
+        self._joint: Dict[Tuple[str, ...], Optional[Comm]] = {}
 
     @property
     def size(self) -> int:
@@ -71,8 +75,46 @@ class Mesh:
     def comm(self, axis: str) -> Optional[Comm]:
         return self.comms.get(axis)
 
+    def joint(self, axes: Sequence[str]) -> Optional[Comm]:
+        """The collectives over the ranks that differ from this one only on
+        ``axes`` (one axis: :meth:`comm`), their group ranks in row-major
+        order over those axes; None when they hold one rank. A joint line's
+        groups are made at its first use: a collective, every rank calls
+        it."""
+        axes = tuple(a for a in self.axis_names if a in axes and self.shape[a] > 1)
+        if len(axes) <= 1:
+            return self.comm(axes[0]) if axes else None
+        if axes not in self._joint:
+            import torch.distributed as dist
+
+            grid = np.arange(self.size).reshape(tuple(self.shape.values()))
+            at = [self.axis_names.index(a) for a in axes]
+            lines = np.moveaxis(grid, at, list(range(grid.ndim - len(at), grid.ndim)))
+            mine = None
+            for members in lines.reshape(-1, int(np.prod([self.shape[a] for a in axes]))):
+                group = _new_group([int(r) for r in members])
+                if self.rank in members:
+                    mine = Comm(self.device, serialized=True, group=group)
+            self._joint[axes] = mine
+        return self._joint[axes]
+
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, rank {self.rank} at {self.coords} on {self.device})"
+
+
+def _new_group(members):
+    """A process group over ``members`` with the world's collective timeout
+    (``SHARDMERGE_HEARTBEAT_TIMEOUT_S``, parallel/multihost.py), so that a
+    rank that fails stops the others' collectives on every axis in that
+    time, not in the backend's default. A collective: every rank calls it."""
+    import datetime
+
+    import torch.distributed as dist
+
+    seconds = os.environ.get("SHARDMERGE_HEARTBEAT_TIMEOUT_S", "").strip()
+    if seconds.isdigit() and int(seconds) > 0:
+        return dist.new_group(members, timeout=datetime.timedelta(seconds=int(seconds)))
+    return dist.new_group(members)
 
 
 def make_mesh(axis_names: Sequence[str] = ("dp", "tp"), shape: Optional[Sequence[int]] = None,
@@ -112,7 +154,7 @@ def make_mesh(axis_names: Sequence[str] = ("dp", "tp"), shape: Optional[Sequence
                 index = list(idx)
                 index.insert(a, slice(None))
                 members = [int(r) for r in grid[tuple(index)]]
-                group = dist.new_group(members) if shape[a] > 1 else None
+                group = _new_group(members) if shape[a] > 1 else None
                 if rank in members and group is not None:
                     comms[name] = Comm(dev, serialized=True, group=group)
     return Mesh(axis_names, shape, rank, dev, comms)

@@ -1,8 +1,9 @@
-"""Tensor-parallel placement of the decoder params and the (dp, tp) train
-step (counterpart of shardmerge_tpu/parallel/train.py: ``loader_shardings``,
-``param_shardings``, ``shard_params``, with the divisibility rule of the
-JAX loader's ``_StreamShardings._fits``; ``_loss_fn``, ``_OptimKit``,
-``make_train_step``).
+"""Tensor-parallel placement of the decoder params, the (dp, tp) train step
+and the (dp, cp, tp) one of context parallelism (counterpart of
+shardmerge_tpu/parallel/train.py: ``loader_shardings``, ``param_shardings``,
+``shard_params``, with the divisibility rule of the JAX loader's
+``_StreamShardings._fits``; ``_loss_fn``, ``_OptimKit``,
+``make_train_step``, ``make_cp_loss``, ``make_cp_train_step``).
 
 Megatron-style over one axis ``"tp"`` of P ranks:
 
@@ -56,7 +57,8 @@ import torch
 __all__ = ["COL", "ROW", "REP", "loader_rules", "param_shardings", "fits", "repack4_tp_blocked", "LayerPlan",
            "Plan", "plan", "split_of", "shard_leaf", "shard_layer", "shard_params", "collectives_per_forward", "train_plan",
            "TrainTP", "TrainState", "tree_flatten", "tree_unflatten", "_loss_fn", "make_train_step",
-           "make_pp_train_step", "base_cuts", "unpack4_tp_blocked"]
+           "make_pp_train_step", "base_cuts", "unpack4_tp_blocked", "make_cp_loss", "make_cp_train_step",
+           "data_step"]
 
 COL = ("tp", None)
 ROW = (None, "tp")
@@ -502,17 +504,19 @@ def tree_flatten(tree, prefix: Tuple = ()) -> Tuple[List[Tuple], List[torch.Tens
 
 def tree_unflatten(template, leaves):
     """``template``'s structure with ``leaves`` (in flatten order) at its leaves."""
-    it = iter(leaves)
+    return _unflatten(template, iter(leaves))
 
-    def build(node):
-        if isinstance(node, dict):  # the leaves come in sorted key order; keep the dict's own
-            built = {k: build(node[k]) for k in sorted(node)}
-            return {k: built[k] for k in node}
-        if isinstance(node, (list, tuple)):
-            return [build(v) for v in node]
-        return next(it)
 
-    return build(template)
+def _unflatten(node, it):
+    # a module function, not a closure that calls itself: such a closure is a
+    # reference cycle holding the leaves' iterator, so the leaves (a whole
+    # model's old params or gradients) would wait for the cyclic collector
+    if isinstance(node, dict):  # the leaves come in sorted key order; keep the dict's own
+        built = {k: _unflatten(node[k], it) for k in sorted(node)}
+        return {k: built[k] for k in node}
+    if isinstance(node, (list, tuple)):
+        return [_unflatten(v, it) for v in node]
+    return next(it)
 
 
 def _key_of(path: Tuple) -> Tuple[str, Optional[int], Optional[str]]:
@@ -542,16 +546,24 @@ class _Layout:
     On a pipeline (a ``"pp"`` axis) the trained tree is this rank's stage
     (parallel/pipeline.py): ``counted[i]`` is False for the one leaf the
     global norm must not count twice, the last stage's copy of a tied
-    embedding, and the norm is summed over the pp line."""
+    embedding, and the norm is summed over the pp line.
+
+    ``data_axes``: the axes whose ranks hold the same weights and split the
+    data (context parallelism's dp and cp), joined as one "dp" line;
+    ``split_axis``: the axis the cuts split over (expert parallelism's
+    "ep": its experts' stacks cut on the expert axis)."""
 
     def __init__(self, mesh, tree: dict, cuts: list, zero1: bool = False, fsdp: bool = False,
-                 trained: str = "params", base: Optional[Tuple[list, list]] = None, counted: Optional[list] = None):
+                 trained: str = "params", base: Optional[Tuple[list, list]] = None, counted: Optional[list] = None,
+                 data_axes: Tuple[str, ...] = ("dp",), split_axis: str = "tp"):
         self.mesh = mesh
         self.trained = trained
-        self.dp = mesh.shape.get("dp", 1)
-        self.dp_rank = mesh.coords.get("dp", 0)
-        self.dp_comm = mesh.comm("dp")
-        self.tp_comm = mesh.comm("tp")
+        axes = tuple(a for a in data_axes if a in mesh.shape)
+        self.dp = int(np.prod([mesh.shape[a] for a in axes]))
+        self.dp_rank = int(np.ravel_multi_index([mesh.coords[a] for a in axes], [mesh.shape[a] for a in axes])) \
+            if axes else 0
+        self.dp_comm = mesh.joint(axes) if len(axes) > 1 else mesh.comm(axes[0]) if axes else None
+        self.tp_comm = mesh.comm(split_axis)
         self.pp_comm = mesh.comm("pp")
         self.zero1, self.fsdp = zero1, fsdp
         self.paths, leaves = tree_flatten(tree)
@@ -693,7 +705,12 @@ def _loss_fn(params: dict, cfg, batch: torch.Tensor, remat: bool = False, tp: Op
     from ..models.llama import forward_train
 
     inputs, targets = batch[:, :-1], batch[:, 1:]
-    logp = torch.log_softmax(forward_train(params, cfg, inputs, remat=remat, tp=tp), dim=-1)
+    return _nll(forward_train(params, cfg, inputs, remat=remat, tp=tp), targets)
+
+
+def _nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """The mean NLL of ``targets`` under f32 log-softmax ``logits``."""
+    logp = torch.log_softmax(logits, dim=-1)
     return -torch.gather(logp, -1, targets[..., None].to(torch.int64))[..., 0].mean()
 
 
@@ -905,6 +922,9 @@ def make_train_step(mesh, cfg, learning_rate: float = 1e-4, remat: bool = False,
         opt = kit[0]
         lay = opt.layout
         batch = torch.as_tensor(batch).to(mesh.device)
+        if grad_accum == 1 and not fsdp:
+            return data_step(opt, state, lambda p: _loss_fn(p, cfg, _local_rows(batch, 0, 1, dp, d), remat, tp),
+                             zero1)
         _, leaves = tree_flatten(state["params"])
         leaves = [v.detach().requires_grad_(True) for v in leaves]
         view = tree_unflatten(state["params"], leaves)
@@ -919,12 +939,17 @@ def make_train_step(mesh, cfg, learning_rate: float = 1e-4, remat: bool = False,
                 loss_sum, grad_sum = loss.detach(), grads
                 break
             loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
-            grads = [g.to(torch.float32) for g in grads]
-            grad_sum = grads if grad_sum is None else [a + g for a, g in zip(grad_sum, grads)]
+            if grad_sum is None:  # an f32 copy of each (autograd may hand two leaves one tensor)
+                grad_sum = [g.to(torch.float32, copy=True) for g in grads]
+            else:  # in place: one f32 sum alive beside a microbatch's gradients
+                for a, g in zip(grad_sum, grads):
+                    a.add_(g.to(torch.float32))
+            del grads
         loss = loss_sum / grad_accum
         grads, grad_sum = grad_sum, None
         if grad_accum > 1:
-            grads = [g / grad_accum for g in grads]
+            for g in grads:
+                g.div_(grad_accum)
             if not master_fp32:  # the unaccumulated path hands tx grads in the params' dtype
                 grads = [g.to(v.dtype) for g, v in zip(grads, leaves)]
         if fsdp:  # the gathers' backward summed the chunks' gradients over dp
@@ -962,7 +987,6 @@ def make_pp_train_step(mesh, cfg, n_microbatches: int, learning_rate: float = 1e
 
     if zero1 and "dp" not in mesh.axis_names:
         raise ValueError("zero1 needs a 'dp' axis in the pipeline mesh")
-    dp = mesh.shape.get("dp", 1)
     pp, r, n_pp = mesh.comm("pp"), mesh.coords.get("pp", 0), mesh.shape.get("pp", 1)
     kit: List[_OptimKit] = []
     tied: List[bool] = []
@@ -975,26 +999,17 @@ def make_pp_train_step(mesh, cfg, n_microbatches: int, learning_rate: float = 1e
         kit[:] = [_OptimKit(layout, learning_rate, master_fp32, tx)]
         return kit[0].init(params)
 
-    def train_step(state: TrainState, batch) -> Tuple[TrainState, torch.Tensor]:
-        opt = kit[0]
-        lay = opt.layout
-        batch = torch.as_tensor(batch).to(mesh.device)
-        paths, leaves = tree_flatten(state["params"])
-        leaves = [v.detach().requires_grad_(True) for v in leaves]
-        view = tree_unflatten(state["params"], leaves)
-        loss = _pp_loss(mesh, cfg, n_microbatches, remat, view, batch, leaves)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(v) if g is None else g for g, v in zip(grads, leaves)]
-        if tied[0] and r in (0, n_pp - 1):  # the tied embedding's two parts, summed in stage order
-            i = paths.index(("embed_tokens",))
+    def tie(grads: List[torch.Tensor]) -> None:
+        """The tied embedding's two parts, summed in stage order."""
+        if tied[0] and r in (0, n_pp - 1):
+            i = kit[0].layout.paths.index(("embed_tokens",))
             other = pp.sendrecv(grads[i], n_pp - 1 if r == 0 else 0)
             grads[i] = grads[i] + other if r == 0 else other + grads[i]
-        grads = _zero1_scatter(lay, grads) if zero1 else _dp_mean(lay.dp_comm, grads, dp)
-        loss = loss.detach()
-        if dp > 1:
-            loss = lay.dp_comm.all_reduce(loss) / dp
-        del leaves, view
-        return opt.apply(state, grads), loss
+
+    def train_step(state: TrainState, batch) -> Tuple[TrainState, torch.Tensor]:
+        batch = torch.as_tensor(batch).to(mesh.device)
+        return data_step(kit[0], state, lambda p: _pp_loss(mesh, cfg, n_microbatches, remat, p, batch,
+                                                           tree_flatten(p)[1]), zero1, tie)
 
     return init_state, train_step
 
@@ -1025,3 +1040,175 @@ def _zero1_scatter(lay: _Layout, grads: List[torch.Tensor]) -> List[torch.Tensor
         out.append((mine[o:o + c].to(torch.float32) / lay.dp).to(dtype))
         o += c
     return out
+
+
+# ---------------------------------------------------------------------------
+# Context parallelism: training over a ("dp",)? x "cp" x ("tp",)? mesh
+# ---------------------------------------------------------------------------
+#
+# JAX's make_cp_loss runs one shard_map over (dp, cp, tp); the port's rank
+# (d, c, t) takes rows d of the batch and sequence block c, and its blocks
+# call the ring (parallel/ring.py) through block_train's ``attend`` hook. The
+# tp slices are the dp x tp step's (``train_plan``: the embedding and the
+# lm_head replicated, GPT-OSS's fused stacks split on the expert axis, as
+# JAX's cp x tp splits them). dp and cp both hold whole copies of the
+# replicated weights, so the gradients are averaged over both (one joint
+# line, ``Mesh.joint``) and ZeRO-1 cuts the moments over both.
+
+
+class _DataMean(torch.autograd.Function):
+    """The mean over the data ranks of each rank's loss (summed in rank
+    order); the gradient reaches each rank's loss divided by their number."""
+
+    @staticmethod
+    def forward(ctx, x, comm, n):
+        ctx.n = n
+        return x.clone() if comm is None else comm.all_reduce_sum(x, torch.float32) / n
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None, None
+
+
+def _cp_check(mesh, cfg, params) -> None:
+    """make_cp_loss's refusals, with JAX's messages."""
+    if cfg.is_mla:
+        raise NotImplementedError("MLA attention does not ring-decompose")
+    n_tp = mesh.shape.get("tp", 1)
+    if "tp" not in mesh.axis_names:
+        return
+    if cfg.model_type == "gpt_oss" and cfg.num_local_experts % n_tp != 0:
+        raise ValueError(f"gpt-oss under cp x tp shards the expert dim: {cfg.num_local_experts} experts must "
+                         f"divide tp={n_tp}")
+    if cfg.num_attention_heads % n_tp or cfg.num_key_value_heads % n_tp or cfg.intermediate_size % n_tp:
+        raise ValueError(f"tp={n_tp} must evenly divide heads/kv-heads/ffn")
+    for layer in params["layers"]:
+        if any(isinstance(w, dict) for w in layer.get("gptoss_experts", {}).values()):
+            raise NotImplementedError("quantized gpt-oss expert stacks do not train under cp x tp (dequantize first)")
+
+
+def _cp_local_loss(mesh, cfg, p: dict, batch: torch.Tensor, remat: bool, tp: Optional[TrainTP]) -> torch.Tensor:
+    """This rank's mean NLL over its rows (dp) and sequence block (cp) of
+    the (B, T+1) batch, every block's attention on the ring."""
+    from torch.utils.checkpoint import checkpoint
+
+    from ..models.llama import block_train, embed_train, head_train, layer_rope, rope_tables
+    from .ring import ring_body
+
+    n_cp, c = mesh.shape.get("cp", 1), mesh.coords.get("cp", 0)
+    dp, d = mesh.shape.get("dp", 1), mesh.coords.get("dp", 0)
+    B, T = batch.shape[0], batch.shape[1] - 1
+    if T % n_cp:
+        raise ValueError(f"sequence {T} does not divide cp={n_cp}")
+    if B % dp:
+        raise ValueError(f"batch {B} does not divide dp={dp}")
+    Tl, b = T // n_cp, B // dp
+    rows = batch[d * b:(d + 1) * b]
+    inputs, targets = rows[:, c * Tl:(c + 1) * Tl], rows[:, c * Tl + 1:(c + 1) * Tl + 1]
+    x = embed_train(p, cfg, inputs)
+    positions = (c * Tl + torch.arange(Tl, device=x.device))[None, :].expand(b, Tl)
+    rope = rope_tables(cfg, T, x.device)  # the whole sequence's tables (Gemma-3's dual ones too)
+    comm = mesh.comm("cp")
+    softcap = float(np.float32(cfg.attn_logit_softcapping)) if cfg.attn_logit_softcapping else None
+
+    def blk(layer, x, cos, sin, i, split):
+        window = cfg.sliding_window if cfg.sliding_window is not None and cfg.layer_is_sliding(i) else None
+        chunk = cfg.attention_chunk_size if cfg.layer_is_chunked(i) else None
+
+        def attend(q, k, v, scale, sinks):
+            return ring_body(q, k, v, comm, scale, window=window, chunk=chunk, softcap=softcap, sinks=sinks)
+
+        return block_train(cfg, layer, x, cos, sin, positions, None, None if tp is None else tp.reduce,
+                           cfg.layer_uses_rope(i), split, attend=attend)
+
+    for i, layer in enumerate(p["layers"]):
+        cos, sin = layer_rope(cfg, rope, i)
+        args = (layer, x, cos, sin, i, None if tp is None else tp.splits[i])
+        x = checkpoint(blk, *args, use_reentrant=False) if remat else blk(*args)
+    return _nll(head_train(p, cfg, x), targets)
+
+
+def make_cp_loss(mesh, cfg, params: dict, remat: bool = False):
+    """Next-token cross entropy with the sequence cut over ``mesh``'s
+    ``"cp"`` axis and ring attention in every block (JAX's
+    ``make_cp_loss``), with ``"dp"`` (rows) and ``"tp"`` (Megatron slices)
+    when the mesh has them. ``params`` fixes the tree (its refusals:
+    MLA, tp not dividing the heads, KV heads or ffn, GPT-OSS experts
+    indivisible by tp or quantized under tp).
+
+    Returns ``loss_fn(p, batch)``: ``p`` this rank's params (``loss_fn.place
+    (params)``: its tp slices), ``batch`` the global (B, T+1) batch on every
+    rank; the value is the global mean over every token on every rank, and
+    its gradient on a rank is that rank's part: summed over dp and cp it is
+    the whole gradient. Windows and chunks run a bounded ring, softcaps act
+    in each hop, sinks join at the end (parallel/ring.py); Gemma-3's dual
+    rope tables and Llama-4's NoPE layers use global positions. The final
+    logit softcap is applied (JAX's cp loss leaves it out; its ``_loss_fn``
+    applies it)."""
+    _cp_check(mesh, cfg, params)
+    tp = TrainTP(cfg, mesh.comm("tp")) if mesh.shape.get("tp", 1) > 1 else None
+    data = mesh.joint(("dp", "cp"))
+    n_data = mesh.shape.get("dp", 1) * mesh.shape.get("cp", 1)
+
+    def loss_fn(p: dict, batch) -> torch.Tensor:
+        batch = torch.as_tensor(batch).to(mesh.device)
+        return _DataMean.apply(_cp_local_loss(mesh, cfg, p, batch, remat, tp), data, n_data)
+
+    loss_fn.tp = tp
+    loss_fn.place = lambda whole: shard_params(whole, cfg, tp.plan) if tp is not None else whole
+    return loss_fn
+
+
+def make_cp_train_step(mesh, cfg, params_template: dict, learning_rate: float = 1e-4, remat: bool = False,
+                       zero1: bool = False, master_fp32: bool = False, tx=None):
+    """Build ``(init_state, train_step)`` over a ("dp",)? x "cp" x ("tp",)?
+    mesh (JAX's ``make_cp_train_step``): rows over dp, the sequence over cp
+    with ring attention, tp slices as in :func:`make_train_step`.
+    ``params_template`` fixes the tree (:func:`make_cp_loss`'s refusals);
+    ``init_state`` takes the whole params. ``train_step(state, batch) ->
+    (state, loss)`` takes the global (B, T+1) batch on every rank and
+    returns the global mean loss; the replicated weights' gradients are
+    averaged over dp and cp, and ``zero1`` cuts the moments (and master)
+    over both. ``remat``, ``master_fp32`` and ``tx`` as in
+    :func:`make_train_step`."""
+    loss_fn = make_cp_loss(mesh, cfg, params_template, remat=remat)
+    tp = loss_fn.tp
+    kit: List[_OptimKit] = []
+
+    def init_state(params: dict) -> TrainState:
+        layout = _Layout(mesh, params, param_cuts(cfg, tp.plan if tp is not None else None, params), zero1,
+                         data_axes=("dp", "cp"))
+        params = loss_fn.place(params)
+        params = tree_unflatten(params, [v.detach().to(mesh.device) for v in tree_flatten(params)[1]])
+        kit[:] = [_OptimKit(layout, learning_rate, master_fp32, tx)]
+        return kit[0].init(params)
+
+    def train_step(state: TrainState, batch) -> Tuple[TrainState, torch.Tensor]:
+        batch = torch.as_tensor(batch).to(mesh.device)
+        return data_step(kit[0], state, lambda p: _cp_local_loss(mesh, cfg, p, batch, remat, tp), zero1)
+
+    return init_state, train_step
+
+
+def data_step(opt: _OptimKit, state: TrainState, local_loss, zero1: bool, tie=None
+              ) -> Tuple[TrainState, torch.Tensor]:
+    """One step of a layout whose data ranks (``opt.layout``'s dp line) each
+    take a share of the batch: ``local_loss(params)`` is this rank's mean
+    loss; ``tie(grads)``, when given, amends the gradients (flatten order)
+    in place before they are averaged over the line (ZeRO-1:
+    reduce-scattered) and applied; returns (the next state, the mean loss
+    over the line)."""
+    lay = opt.layout
+    _, leaves = tree_flatten(state["params"])
+    leaves = [v.detach().requires_grad_(True) for v in leaves]
+    local = local_loss(tree_unflatten(state["params"], leaves))
+    grads = torch.autograd.grad(local, leaves, allow_unused=True)
+    grads = [torch.zeros_like(v) if g is None else g for g, v in zip(grads, leaves)]
+    del leaves
+    if tie is not None:
+        tie(grads)
+    grads = _zero1_scatter(lay, grads) if zero1 else _dp_mean(lay.dp_comm, grads, lay.dp)
+    loss = local.detach()
+    if lay.dp > 1:
+        loss = lay.dp_comm.all_reduce(loss.to(torch.float32)) / lay.dp
+    return opt.apply(state, grads), loss

@@ -248,6 +248,35 @@ def test_grad_accum_equals_the_full_batch():
         step(init(params), batch)
 
 
+@pytest.mark.parametrize("accum", [1, 2])
+def test_a_step_leaves_no_tensor_in_a_reference_cycle(accum):
+    """With Python's cycle collector off during a step, the collector then
+    finds no tensor in unreachable cycles: nothing a step builds
+    (tree_unflatten of the leaves, the microbatches' loop) keeps the
+    replaced params or the gradients alive past the step. Such a cycle held a
+    whole model's copy until the collector next ran (a one-GPU
+    Mixtral-width step at grad_accum 2 ran out of the card)."""
+    import gc
+
+    cfg = tllama.ModelConfig.from_hf_config(SMALL)
+    batch = torch.from_numpy(tokens(cfg.vocab_size, (4, 16), seed=9))
+    init, step = ttrain.make_train_step(one_device(), cfg, learning_rate=1e-2, grad_accum=accum)
+    state = init(tllama.init_params(cfg, seed=0, dtype=torch.float32))
+    gc.collect()
+    gc.disable()
+    try:
+        state, loss = step(state, batch)
+        assert torch.isfinite(loss)
+        gc.set_debug(gc.DEBUG_SAVEALL)
+        gc.collect()
+        held = [tuple(o.shape) for o in gc.garbage if isinstance(o, torch.Tensor)]
+        assert not held, f"{len(held)} tensors in unreachable cycles: {held[:4]}"
+    finally:
+        gc.set_debug(0)
+        gc.garbage.clear()
+        gc.enable()
+
+
 def test_master_fp32_accumulates_sub_ulp_updates():
     """bf16 params at lr 1e-3: Adam's steps are under half an ulp of the
     norms (1.0), so plain bf16 training leaves them at init while the f32
